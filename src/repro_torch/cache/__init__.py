@@ -1,0 +1,7 @@
+from repro_torch.cache.block_manager import (BlockManager, OutOfBlocks,
+                                             PageResidency, PrefixMatch)
+from repro_torch.cache.quant import (FP8_DTYPE, FP8_MAX, dequantize_fp8,
+                                     quantize_fp8)
+
+__all__ = ["BlockManager", "FP8_DTYPE", "FP8_MAX", "OutOfBlocks",
+           "PageResidency", "PrefixMatch", "dequantize_fp8", "quantize_fp8"]

@@ -1,0 +1,36 @@
+"""FP8 (e4m3) quantization for the KV cache — Opt-KV's storage format.
+
+Scales are per-(token, head): one f32 per head vector,
+``max(amax, 1e-12) / 448``, and the quantized value is ``x / scale`` cast
+to ``torch.float8_e4m3fn`` (round to nearest even). The pool bytes this
+produces are the ones the JAX package's ``quantize_fp8`` produces.
+"""
+from __future__ import annotations
+
+import torch
+
+FP8_DTYPE = torch.float8_e4m3fn
+FP8_MAX = 448.0  # e4m3fn finite max
+_EPS = 1e-12
+
+
+def quantize_fp8(x: torch.Tensor, dim: int = -1):
+    """x (..., D) -> (q fp8 (..., D), scale f32 (...,) reduced over ``dim``)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=dim)
+    scale = fp8_scale(amax)
+    q = (xf / scale.unsqueeze(dim)).to(FP8_DTYPE)
+    return q, scale
+
+
+def fp8_scale(amax: torch.Tensor) -> torch.Tensor:
+    """``max(amax, 1e-12) / 448`` with IEEE division. The divisor is a
+    tensor on purpose: PyTorch's CUDA kernel divides by a Python scalar as
+    a multiply by its reciprocal, which rounds some scales one ulp away."""
+    return amax.clamp_min(_EPS) / torch.full_like(amax, FP8_MAX)
+
+
+def dequantize_fp8(q: torch.Tensor, scale: torch.Tensor, dim: int = -1,
+                   dtype=torch.bfloat16) -> torch.Tensor:
+    """Eq. 6: k~ = dequant(k_fp8)."""
+    return (q.float() * scale.unsqueeze(dim)).to(dtype)

@@ -1,0 +1,85 @@
+"""Dispatch layer between the engine-facing cache layout and the kernels.
+
+The engine's cache is the GLOBAL paged pool — per-layer leaves
+``(2, P_total, ps, Hkv, D)`` with no batch dimension. These functions cut
+it into the kernels' k/v page views (zero-copy) and plug into
+``repro_torch.core`` when ``CoOptConfig.use_kernel`` is set. Each kernel
+wrapper launches its CUDA kernel on CUDA tensors, raises if its library
+does not build, and runs its plain PyTorch version only for CPU tensors;
+nothing here catches an error and falls back.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import flash_chunk_prefill as _fc
+from repro_torch.kernels import kv_cache_write as _kw
+from repro_torch.kernels import paged_gqa_decode as _pd
+from repro_torch.kernels import visits as _vs
+
+
+def _use_visits(share_visits: bool, B: int) -> bool:
+    # the visit list pays only with >1 lane, and its int32 lane bitmask caps
+    # membership at MAX_VISIT_LANES; beyond either bound the per-lane kernel
+    # (bit-identical) runs
+    return bool(share_visits) and 1 < B <= _vs.MAX_VISIT_LANES
+
+
+def _i32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.int32).contiguous()
+
+
+def paged_pool_decode(q, kv_pages, scale_pages, cache_len, phys_table,
+                      log_table, *, opt_kv: bool, opt_gqa: bool,
+                      window: int = 0, sink_pages: int = 0,
+                      share_visits: bool = False):
+    """Fused decode over the global pool. q (B,Hq,D); kv_pages
+    (2,P_total,ps,Hkv,D); scale_pages (2,P_total,ps,Hkv)|None; phys/log_table
+    (B,NSel) int32 (-1 = never read). With ``share_visits`` and 1 < B <= 32
+    the visit-list kernel K4 runs; otherwise the per-lane kernel K2."""
+    ks = scale_pages[0] if scale_pages is not None else None
+    vs = scale_pages[1] if scale_pages is not None else None
+    phys, log, cl = _i32(phys_table), _i32(log_table), _i32(cache_len)
+    if _use_visits(share_visits, q.shape[0]):
+        vp, vm, vl = _vs.plan_visits(phys, log)
+        return _pd.paged_pool_decode_visits(
+            q, kv_pages[0], kv_pages[1], ks, vs, cl, vp, vm, vl,
+            opt_kv=opt_kv, opt_gqa=opt_gqa, window=window,
+            sink_pages=sink_pages)
+    return _pd.paged_pool_decode(
+        q, kv_pages[0], kv_pages[1], ks, vs, cl, phys, log, opt_kv=opt_kv,
+        opt_gqa=opt_gqa, window=window, sink_pages=sink_pages)
+
+
+def kv_cache_write(kv_cache, scale_cache, k_new, v_new, slot_idx, *,
+                   opt_kv: bool):
+    """Engine-layout adapter for the write kernel: scatters into the pool
+    (2,P_total,ps,Hkv,D) in place and returns (kv_cache, scale_cache)."""
+    _, Pt, ps, Hkv, D = kv_cache.shape
+    flat = kv_cache.view(2, Pt * ps, Hkv, D)
+    sflat = (scale_cache.view(2, Pt * ps, Hkv)
+             if scale_cache is not None else (None, None))
+    _kw.kv_cache_write(k_new.contiguous(), v_new.contiguous(),
+                       _i32(slot_idx), flat[0], flat[1], sflat[0], sflat[1],
+                       opt_kv=opt_kv)
+    return kv_cache, scale_cache
+
+
+def paged_chunk_prefill(q, positions, kv_pages, scale_pages, phys_table, *,
+                        opt_kv: bool, opt_gqa: bool, window: int = 0,
+                        sink_pages: int = 0, seg_q=None, page_seg=None,
+                        page_base=None):
+    """Continuation-prefill attention over the global pool: a chunk of
+    queries (B,S,Hq,D) with absolute ``positions`` (B,S) attends the lane's
+    cached pages named by ``phys_table`` (B,NP; -1 = never read). The
+    chunk's own K/V must already be written. ``seg_q``/``page_seg``/
+    ``page_base`` are the concat-prefill packing planes; None = unpacked."""
+    ks = scale_pages[0] if scale_pages is not None else None
+    vs = scale_pages[1] if scale_pages is not None else None
+    planes = [None if t is None else _i32(t)
+              for t in (seg_q, page_seg, page_base)]
+    return _fc.flash_chunk_prefill(
+        q.contiguous(), _i32(positions), kv_pages[0], kv_pages[1], ks, vs,
+        _i32(phys_table), opt_kv=opt_kv, opt_gqa=opt_gqa, window=window,
+        sink_pages=sink_pages, seg_q=planes[0], page_seg=planes[1],
+        page_base=planes[2])

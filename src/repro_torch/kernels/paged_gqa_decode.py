@@ -1,0 +1,254 @@
+"""K2 ``paged_pool_decode`` and K4 ``paged_pool_decode_visits`` — the fused
+LLM-CoOpt decode attention over the GLOBAL paged-KV pool.
+
+One query token per lane attends the lane's pages through (physical,
+logical) page tables: Opt-KV fp8 pages dequantized on read, Opt-GQA query
+heads folded onto their kv head (MHA mode re-reads the kv head per query
+head), the window + sink mask, and Opt-Pa's online (m, l, acc) softmax
+over the lane's table slots in ascending order; a -1 entry is never read.
+K4 runs the same math over the deduplicated cross-lane visit list of
+``kernels.visits.plan_visits`` and is bit-identical to K2.
+
+The wrappers launch ``csrc/paged_gqa_decode.cu`` on CUDA tensors and run the
+plain PyTorch versions beside them (``paged_pool_decode_ref``,
+``paged_pool_decode_visits_ref``) on CPU tensors. The plain versions follow
+the kernels' page order and masks; K2's masked probabilities are not
+hard-zeroed (exp(-1e30 - m) underflows once a live key has been seen).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.cache.quant import FP8_DTYPE
+from repro_torch.kernels import cuda
+
+_NEG = -1e30
+MAX_PAGE_SIZE = 128              # csrc/paged_attention.cuh PA_MAX_PS
+MAX_GROUP = 16                   # K2: 8 warps x 2 rows
+_SMEM_LIMIT = 227 * 1024
+
+
+def _geometry(Hq: int, Hkv: int, opt_gqa: bool, device):
+    """(heads, G, kv head of each head) — Opt-GQA folds G = Hq/Hkv query
+    heads onto each kv head; MHA semantics give every query head its own
+    pass over kv head h // (Hq/Hkv)."""
+    if opt_gqa:
+        return Hkv, Hq // Hkv, torch.arange(Hkv, device=device)
+    return Hq, 1, torch.arange(Hq, device=device) // max(Hq // Hkv, 1)
+
+
+def _lane_pages(pages, scales, page_ids, kv_of, opt_kv):
+    """Per-lane page tiles (B, heads, ps, D) f32, dequantized (Eq. 6)."""
+    x = pages[page_ids][:, :, kv_of].float()             # (B, ps, heads, D)
+    if opt_kv:
+        x = x * scales[page_ids][:, :, kv_of][..., None]
+    return x.permute(0, 2, 1, 3).contiguous()
+
+
+def _decode_update(qf, k, v, pos, cache_len, member, state, *, window,
+                   sink_pages, ps, sm_scale):
+    """One page per lane of the online softmax for rows qf (B, heads, G, D);
+    k/v (B, heads, ps, D); pos (B, ps) key positions; only rows of lanes in
+    ``member`` (B,) change."""
+    m, l, acc = state
+    B, heads, G, _ = qf.shape
+    cl = cache_len.long()[:, None]
+    mask = pos < cl
+    if window:
+        mask &= (pos >= (cl - window).clamp_min(0)) | (pos < sink_pages * ps)
+    mask = mask[:, None, None, :].expand(B, heads, G, ps)
+    s = (qf[..., None, :] * k[:, :, None]).sum(-1) * sm_scale
+    s = torch.where(mask, s, _NEG)
+    m_new = torch.maximum(m, s.amax(-1))
+    corr = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None])
+    l_new = l * corr + p.sum(-1)
+    acc_new = acc * corr[..., None] + \
+        (p[..., None] * v[:, :, None]).sum(-2)
+    sel = member[:, None, None]
+    return (torch.where(sel, m_new, m), torch.where(sel, l_new, l),
+            torch.where(sel[..., None], acc_new, acc))
+
+
+def _init_state(B, heads, G, D, device):
+    return (torch.full((B, heads, G), _NEG, device=device),
+            torch.zeros((B, heads, G), device=device),
+            torch.zeros((B, heads, G, D), device=device))
+
+
+def _finish(state, q):
+    _, l, acc = state
+    B, Hq, D = q.shape
+    return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype).reshape(B, Hq, D)
+
+
+def paged_pool_decode_ref(q, k_pages, v_pages, k_scale, v_scale, cache_len,
+                          phys_table, log_table, *, opt_kv: bool,
+                          opt_gqa: bool, window: int = 0,
+                          sink_pages: int = 0):
+    """Plain version of K2: every lane walks its table slots in ascending
+    order; a slot whose physical page is -1 leaves the lane untouched."""
+    B, Hq, D = q.shape
+    _, ps, Hkv, _ = k_pages.shape
+    heads, G, kv_of = _geometry(Hq, Hkv, opt_gqa, q.device)
+    qf = q.float().reshape(B, heads, G, D)
+    state = _init_state(B, heads, G, D, q.device)
+    j = torch.arange(ps, device=q.device)
+    for s in range(phys_table.shape[1]):
+        page = phys_table[:, s].long()
+        ids = page.clamp_min(0)
+        k = _lane_pages(k_pages, k_scale, ids, kv_of, opt_kv)
+        v = _lane_pages(v_pages, v_scale, ids, kv_of, opt_kv)
+        pos = log_table[:, s].long().clamp_min(0)[:, None] * ps + j
+        state = _decode_update(qf, k, v, pos, cache_len, page >= 0, state,
+                               window=window, sink_pages=sink_pages, ps=ps,
+                               sm_scale=1.0 / math.sqrt(D))
+    return _finish(state, q)
+
+
+def paged_pool_decode_visits_ref(q, k_pages, v_pages, k_scale, v_scale,
+                                 cache_len, visit_page, visit_lanes,
+                                 visit_log, *, opt_kv: bool, opt_gqa: bool,
+                                 window: int = 0, sink_pages: int = 0):
+    """Plain version of K4: walk the visit list; each visit's page is read
+    once and updates the rows of its member lanes (bit b of the mask),
+    with the same per-row arithmetic as ``paged_pool_decode_ref``."""
+    B, Hq, D = q.shape
+    _, ps, Hkv, _ = k_pages.shape
+    heads, G, kv_of = _geometry(Hq, Hkv, opt_gqa, q.device)
+    qf = q.float().reshape(B, heads, G, D)
+    state = _init_state(B, heads, G, D, q.device)
+    j = torch.arange(ps, device=q.device)
+    lane = torch.arange(B, device=q.device)
+    plan = zip(visit_page.tolist(), visit_lanes.tolist(), visit_log.tolist())
+    for page, lanes, lpage in plan:
+        if page < 0:
+            continue
+        ids = torch.full((B,), page, dtype=torch.long, device=q.device)
+        k = _lane_pages(k_pages, k_scale, ids, kv_of, opt_kv)
+        v = _lane_pages(v_pages, v_scale, ids, kv_of, opt_kv)
+        pos = (lpage * ps + j)[None].expand(B, ps)
+        member = ((torch.full_like(lane, lanes) >> lane) & 1).bool()
+        state = _decode_update(qf, k, v, pos, cache_len, member, state,
+                               window=window, sink_pages=sink_pages, ps=ps,
+                               sm_scale=1.0 / math.sqrt(D))
+    return _finish(state, q)
+
+
+def _check(name, q, k_pages, v_pages, k_scale, v_scale, cache_len, tables,
+           opt_kv, opt_gqa):
+    B, Hq, D = q.shape
+    P, ps, Hkv, _ = k_pages.shape
+    dev = q.device
+    operands = (k_pages, v_pages, k_scale, v_scale, cache_len) + tables
+    for t in operands:
+        if t is not None and t.device != dev:
+            raise ValueError(f"{name}: all tensors must be on {dev}")
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: q must be bf16, got {q.dtype}")
+    if D not in (64, 128):
+        raise ValueError(f"{name}: head_dim {D} not in (64, 128)")
+    if ps > MAX_PAGE_SIZE:
+        raise ValueError(f"{name}: page size {ps} > {MAX_PAGE_SIZE}")
+    if Hq % Hkv:
+        raise ValueError(f"{name}: {Hq} query heads over {Hkv} kv heads")
+    want = FP8_DTYPE if opt_kv else torch.bfloat16
+    for p in (k_pages, v_pages):
+        if p.dtype != want or tuple(p.shape) != (P, ps, Hkv, D):
+            raise ValueError(f"{name}: pages must be {want} (P, ps, Hkv, D)")
+    if opt_kv:
+        for s in (k_scale, v_scale):
+            if s is None or s.dtype != torch.float32 or \
+                    tuple(s.shape) != (P, ps, Hkv):
+                raise ValueError(f"{name}: opt_kv needs f32 scales "
+                                 "(P, ps, Hkv)")
+    if cache_len.dtype != torch.int32 or tuple(cache_len.shape) != (B,):
+        raise ValueError(f"{name}: cache_len must be int32 (B,)")
+    for t in tables:
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name}: page tables must be int32")
+    for t in (q,) + operands:
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def paged_pool_decode(q, k_pages, v_pages, k_scale, v_scale, cache_len,
+                      phys_table, log_table, *, opt_kv: bool, opt_gqa: bool,
+                      window: int = 0, sink_pages: int = 0):
+    """q: (B, Hq, D) bf16; k/v_pages: (P_total, ps, Hkv, D) GLOBAL pool (fp8
+    if ``opt_kv``); k/v_scale: (P_total, ps, Hkv) f32 or None; cache_len:
+    (B,) int32; phys/log_table: (B, NSel) int32, -1 = never read. Returns
+    (B, Hq, D) bf16."""
+    if q.device.type == "cpu":
+        return paged_pool_decode_ref(
+            q, k_pages, v_pages, k_scale, v_scale, cache_len, phys_table,
+            log_table, opt_kv=opt_kv, opt_gqa=opt_gqa, window=window,
+            sink_pages=sink_pages)
+    if not q.is_cuda:
+        raise ValueError(f"paged_pool_decode: unsupported device {q.device}")
+    _check("paged_pool_decode", q, k_pages, v_pages, k_scale, v_scale,
+           cache_len, (phys_table, log_table), opt_kv, opt_gqa)
+    B, Hq, D = q.shape
+    _, ps, Hkv, _ = k_pages.shape
+    if opt_gqa and Hq // Hkv > MAX_GROUP:
+        raise ValueError(f"paged_pool_decode: group {Hq // Hkv} > {MAX_GROUP}")
+    NSel = phys_table.shape[1]
+    if tuple(log_table.shape) != (B, NSel) or phys_table.shape[0] != B:
+        raise ValueError("paged_pool_decode: tables must be (B, NSel)")
+    out = torch.empty_like(q)
+    fn = cuda.library("paged_gqa_decode").paged_pool_decode
+    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             cuda.ptr(k_scale if opt_kv else None),
+             cuda.ptr(v_scale if opt_kv else None), cache_len.data_ptr(),
+             phys_table.data_ptr(), log_table.data_ptr(), out.data_ptr(),
+             B, Hq, Hkv, D, ps, NSel, int(opt_kv), int(opt_gqa), window,
+             sink_pages, 1.0 / math.sqrt(D), cuda.stream_ptr(q.device))
+    cuda.check(err, "paged_pool_decode")
+    cuda.count("paged_pool_decode")
+    return out
+
+
+def paged_pool_decode_visits(q, k_pages, v_pages, k_scale, v_scale,
+                             cache_len, visit_page, visit_lanes, visit_log,
+                             *, opt_kv: bool, opt_gqa: bool, window: int = 0,
+                             sink_pages: int = 0):
+    """Visit-list twin of ``paged_pool_decode``: visit_page/visit_lanes/
+    visit_log are the (NV,) int32 plan vectors of ``plan_visits``. Requires
+    B <= visits.MAX_VISIT_LANES (int32 lane bitmask)."""
+    if q.device.type == "cpu":
+        return paged_pool_decode_visits_ref(
+            q, k_pages, v_pages, k_scale, v_scale, cache_len, visit_page,
+            visit_lanes, visit_log, opt_kv=opt_kv, opt_gqa=opt_gqa,
+            window=window, sink_pages=sink_pages)
+    if not q.is_cuda:
+        raise ValueError("paged_pool_decode_visits: unsupported device "
+                         f"{q.device}")
+    _check("paged_pool_decode_visits", q, k_pages, v_pages, k_scale, v_scale,
+           cache_len, (visit_page, visit_lanes, visit_log), opt_kv, opt_gqa)
+    B, Hq, D = q.shape
+    _, ps, Hkv, _ = k_pages.shape
+    NV = visit_page.shape[0]
+    if B > 32:
+        raise ValueError(f"paged_pool_decode_visits: {B} lanes > 32")
+    if visit_lanes.shape != (NV,) or visit_log.shape != (NV,):
+        raise ValueError("paged_pool_decode_visits: plan vectors must be (NV,)")
+    G = Hq // Hkv if opt_gqa else 1
+    kv_bytes = 1 if opt_kv else 2
+    smem = 2 * ps * D * kv_bytes + 2 * ps * 4 + B * G * (D + 2) * 4
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"paged_pool_decode_visits: {B} lanes x {G} rows "
+                         f"need {smem} B of shared memory")
+    out = torch.empty_like(q)
+    fn = cuda.library("paged_gqa_decode").paged_pool_decode_visits
+    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             cuda.ptr(k_scale if opt_kv else None),
+             cuda.ptr(v_scale if opt_kv else None), cache_len.data_ptr(),
+             visit_page.data_ptr(), visit_lanes.data_ptr(),
+             visit_log.data_ptr(), out.data_ptr(), B, Hq, Hkv, D, ps, NV,
+             int(opt_kv), int(opt_gqa), window, sink_pages,
+             1.0 / math.sqrt(D), cuda.stream_ptr(q.device))
+    cuda.check(err, "paged_pool_decode_visits")
+    cuda.count("paged_pool_decode_visits")
+    return out

@@ -1,0 +1,23 @@
+"""Model registry: family -> implementation.
+
+Every model exposes the engine-facing protocol of the JAX package:
+  param_shapes() / init(seed, device)          — parameter dict (stacked layers)
+  prefill(params, batch, cache, coopt)         — last-token logits + filled cache
+  decode_step(params, batch, cache, coopt, long_window) — one-token step
+  cache_shape(batch, max_len, coopt, ...) / init_cache(..., device)
+Only the ``dense`` family is ported; any other family raises.
+"""
+from __future__ import annotations
+
+from functools import lru_cache
+
+from repro_torch.configs.base import ModelConfig
+
+
+@lru_cache(maxsize=64)
+def get_model(cfg: ModelConfig):
+    if cfg.family == "dense":
+        from repro_torch.models.transformer import TransformerModel
+        return TransformerModel(cfg)
+    raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
+                              "(dense only)")

@@ -1,0 +1,125 @@
+"""The port's configs, CoOpt modes, FP8 quantizer, Opt-GQA helpers and
+sampler masks against the JAX package."""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.cache import quant as jquant  # noqa: E402
+from repro.configs import get_config as jget_config  # noqa: E402
+from repro.core import coopt as jcoopt  # noqa: E402
+from repro.core import opt_gqa as jgqa  # noqa: E402
+from repro.serving import sampler as jsampler  # noqa: E402
+
+from repro_torch.cache import quant  # noqa: E402
+from repro_torch.configs import ALL_IDS, CacheConfig, get_config  # noqa: E402
+from repro_torch.core import coopt, opt_gqa  # noqa: E402
+from repro_torch.serving import sampler  # noqa: E402
+
+
+@pytest.mark.parametrize("arch", [a + s for a in ALL_IDS
+                                  for s in ("", "-reduced")])
+def test_configs_agree_field_for_field(arch):
+    mine, ref = get_config(arch), jget_config(arch)
+    assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+    assert mine.q_per_kv == ref.q_per_kv
+    assert mine.param_count() == ref.param_count()
+
+
+def test_unported_arch_raises():
+    with pytest.raises(KeyError, match="not ported"):
+        get_config("mixtral-8x22b")
+
+
+def test_cache_config_and_modes_agree():
+    from repro.configs.base import CacheConfig as JCacheConfig
+    assert dataclasses.asdict(CacheConfig()) == dataclasses.asdict(
+        JCacheConfig())
+    assert list(coopt.MODES) == list(jcoopt.MODES)
+    for name, mode in coopt.MODES.items():
+        mine = {k: v for k, v in dataclasses.asdict(mode).items()}
+        assert mine == dataclasses.asdict(jcoopt.MODES[name])
+    assert coopt.COOPT.use_kernel is False
+    assert coopt.COOPT.share_visits is True
+    assert coopt.COOPT.kv_dtype == torch.float8_e4m3fn
+    assert coopt.ORIGINAL.kv_dtype == torch.bfloat16
+
+
+def _inputs():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((512, 128)) * rng.uniform(1e-3, 300, (512, 1))
+    x = x.astype(np.float32)
+    x[0] = 0.0                                   # amax below eps
+    # amax 448 gives scale 1: round-to-nearest-even ties and the +-448 edge
+    x[1, :10] = [448.0, 1.0625, 1.1875, -1.0625, 432.0, -432.0, 3.25, 208.0,
+                 -448.0, 0.0]
+    x[1, 10:] = 0.5
+    return x
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_fp8_bytes_equal(dtype):
+    """Pool bytes and scales of ``quantize_fp8`` equal the JAX package's
+    exactly (tolerance: none), dequantization too."""
+    x = _inputs()
+    jx = jnp.asarray(x, getattr(jnp, dtype))
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    jq, js = jquant.quantize_fp8(jx)
+    tq, ts = quant.quantize_fp8(tx)
+    np.testing.assert_array_equal(tq.view(torch.uint8).numpy(),
+                                  np.asarray(jq).view(np.uint8))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    jd = jquant.dequantize_fp8(jq, js, dtype=jnp.float32)
+    td = quant.dequantize_fp8(tq, ts, dtype=torch.float32)
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    assert quant.FP8_MAX == jquant.FP8_MAX
+
+
+def test_opt_gqa_helpers_agree():
+    """Eq. 7 group index, fold/unfold and the MHA -> GQA mean pool equal
+    the JAX package's (mean pool: exact in f32, bf16 rounding of the same
+    f32 mean)."""
+    rng = np.random.default_rng(3)
+    q = rng.standard_normal((2, 8, 16)).astype(np.float32)
+    tq = torch.from_numpy(q)
+    assert torch.equal(opt_gqa.unfold_outputs(opt_gqa.fold_queries(tq, 2)),
+                       tq)
+    np.testing.assert_array_equal(opt_gqa.fold_queries(tq, 2).numpy(),
+                                  np.asarray(jgqa.fold_queries(q, 2)))
+    assert [opt_gqa.group_index(i, 8, 2) for i in range(8)] == \
+        [int(jgqa.group_index(i, 8, 2)) for i in range(8)]
+    w = rng.standard_normal((32, 8 * 16)).astype(np.float32)
+    jk, jv = jgqa.mha_to_gqa(jnp.asarray(w, jnp.bfloat16),
+                             jnp.asarray(w[::-1].copy(), jnp.bfloat16), 2, 16)
+    tk, tv = opt_gqa.mha_to_gqa(torch.from_numpy(w).bfloat16(),
+                                torch.from_numpy(w[::-1].copy()).bfloat16(),
+                                2, 16)
+    np.testing.assert_array_equal(tk.float().numpy(), np.asarray(jk, np.float32))
+    np.testing.assert_array_equal(tv.float().numpy(), np.asarray(jv, np.float32))
+
+
+def test_sampler_masks_and_greedy_agree():
+    """top-k / top-p keep-masks (ties broken by rank) and greedy argmax
+    equal the JAX sampler's; sampled tokens stay inside the kept set (the
+    two packages' PRNGs differ, so draws are not compared)."""
+    rng = np.random.default_rng(4)
+    lf = np.round(rng.standard_normal((6, 64)), 1).astype(np.float32)  # ties
+    tl = torch.from_numpy(lf)
+    for k in (1, 5, 17):
+        np.testing.assert_array_equal(sampler.top_k_mask(tl, k).numpy(),
+                                      np.asarray(jsampler.top_k_mask(lf, k)))
+    for p in (0.3, 0.9):
+        np.testing.assert_array_equal(sampler.top_p_mask(tl, p).numpy(),
+                                      np.asarray(jsampler.top_p_mask(lf, p)))
+    np.testing.assert_array_equal(
+        sampler.sample(tl).numpy(),
+        np.asarray(jsampler.sample(lf, None)))
+    gen = torch.Generator().manual_seed(0)
+    toks = sampler.sample(tl, gen, temperature=0.8, top_k=5)
+    keep = sampler.top_k_mask(tl / 0.8, 5)
+    assert toks.dtype == torch.int32
+    assert bool(keep[torch.arange(6), toks.long()].all())

@@ -1,0 +1,362 @@
+"""The port's kernels, held against the JAX package on the CPU.
+
+Each CUDA kernel of ``repro_torch.kernels`` has a plain PyTorch version that
+CPU tensors take; here those plain versions, fed the same numpy-seeded
+inputs, are held against the JAX package's Pallas kernels (interpret mode)
+and its jnp oracles. Tolerances are stated per test.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core.coopt import MODES as JMODES  # noqa: E402
+from repro.core.opt_kv import decode_page_select as jdecode_page_select  # noqa: E402
+from repro.core.opt_kv import write_kv as jwrite_kv  # noqa: E402
+from repro.core.opt_pa import paged_chunk_attention as jchunk  # noqa: E402
+from repro.kernels import flash_chunk_prefill as jfc  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import paged_gqa_decode as jpd  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels import visits as jvisits  # noqa: E402
+
+from repro_torch.cache.quant import quantize_fp8  # noqa: E402
+from repro_torch.core.coopt import MODES  # noqa: E402
+from repro_torch.core.opt_kv import decode_page_select  # noqa: E402
+from repro_torch.core.opt_pa import paged_chunk_attention  # noqa: E402
+from repro_torch.kernels import ops, ref, visits  # noqa: E402
+from repro_torch.kernels.flash_chunk_prefill import flash_chunk_prefill_ref  # noqa: E402
+from repro_torch.kernels.kv_cache_write import kv_cache_write  # noqa: E402
+from repro_torch.kernels.paged_gqa_decode import (  # noqa: E402
+    paged_pool_decode_ref, paged_pool_decode_visits_ref)
+
+# One bf16 ulp at |x| < 2 is 2**-7; the plain versions and the Pallas
+# kernels both accumulate in f32 and round once to bf16, so they may differ
+# by one ulp where the f32 sums round differently.
+KERNEL_ATOL = 2 ** -7
+# The jnp references dequantize K/V to bf16 before the f32 softmax (the
+# kernels keep f32), which moves outputs by a few bf16 ulps.
+JNP_ATOL = 3e-2
+
+
+def _bf16(x):
+    """numpy f32 -> (jax bf16, torch bf16) with identical bits."""
+    return jnp.asarray(x, jnp.bfloat16), torch.from_numpy(x).to(torch.bfloat16)
+
+
+def _f32(a):
+    return np.asarray(a, np.float32)
+
+
+def _t2n(t):
+    return t.float().numpy()
+
+
+def _pool(rng, PT, ps, Hkv, D, opt_kv):
+    """(jax kv, jax scale|None, torch kv, torch scale|None) for a pool of
+    PT pages whose content is the same quantized values in both."""
+    k = rng.standard_normal((PT, ps, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((PT, ps, Hkv, D)).astype(np.float32)
+    kt, vt = torch.from_numpy(k), torch.from_numpy(v)
+    if opt_kv:
+        (kq, ks), (vq, vs) = quantize_fp8(kt), quantize_fp8(vt)
+        tkv, tsc = torch.stack([kq, vq]), torch.stack([ks, vs])
+        jkv = jnp.asarray(tkv.view(torch.uint8).numpy()).view(
+            jnp.float8_e4m3fn)
+        return jkv, jnp.asarray(tsc.numpy()), tkv, tsc
+    tkv = torch.stack([kt, vt]).to(torch.bfloat16)
+    return jnp.asarray(tkv.float().numpy(), jnp.bfloat16), None, tkv, None
+
+
+def _i32(x):
+    x = np.asarray(x, np.int32)
+    return jnp.asarray(x), torch.from_numpy(x.copy())
+
+
+# ------------------------------------------------------------------ K1 ----
+@pytest.mark.parametrize("opt_kv", [False, True])
+@pytest.mark.parametrize("Hkv,D", [(2, 64), (8, 128)])
+def test_kv_cache_write_plain_matches_pallas_bytes(opt_kv, Hkv, D):
+    """K1 plain == the JAX write kernel (interpret) and the jnp
+    ``write_kv``, pool bytes equal, the pool's last line (the JAX sentinel)
+    excluded. Scales equal the jnp path's exactly; the interpret kernel
+    rounds amax / 448 differently in some vectors, so its scales are held
+    to within one f32 ulp."""
+    rng = np.random.default_rng(1)
+    B, S, P, ps = 2, 8, 8, 16
+    kn = rng.standard_normal((B, S, Hkv, D)).astype(np.float32) * 3
+    vn = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+    kn[0, 1, 0, :] = 0.0                       # all-zero vector: eps scale
+    jk, tk = _bf16(kn)
+    jv, tv = _bf16(vn)
+    slots = [[0, 5, -1, 17, 33, -1, 62, 2], [64, -1, 73, 74, 75, 104, -1, 125]]
+    js, ts = _i32(slots)
+    dt = (jnp.float8_e4m3fn, torch.float8_e4m3fn) if opt_kv else \
+        (jnp.bfloat16, torch.bfloat16)
+    jkv = jnp.zeros((2, P, ps, Hkv, D), dt[0])
+    jsc = jnp.zeros((2, P, ps, Hkv), jnp.float32) if opt_kv else None
+    tkv = torch.zeros((2, P, ps, Hkv, D), dtype=dt[1])
+    tsc = torch.zeros((2, P, ps, Hkv)) if opt_kv else None
+    jnp_kv, jnp_sc = jwrite_kv(jkv, jsc, jk, jv, js, JMODES["coopt"].replace(
+        opt_kv=opt_kv))
+    jkv, jsc = jops.kv_cache_write(jkv, jsc, jk, jv, js, opt_kv=opt_kv)
+    ops.kv_cache_write(tkv, tsc, tk, tv, ts, opt_kv=opt_kv)
+    n = P * ps - 1                             # exclude the sentinel line
+
+    def lines(x, *tail):
+        return np.asarray(x).reshape(2, P * ps, *tail)[:, :n]
+
+    tb = tkv.reshape(2, P * ps, Hkv, D).view(torch.uint8).numpy()[:, :n]
+    np.testing.assert_array_equal(tb, lines(jnp_kv, Hkv, D).view(np.uint8))
+    if not opt_kv:
+        np.testing.assert_array_equal(tb, lines(jkv, Hkv, D).view(np.uint8))
+        return
+    ts_ = tsc.reshape(2, P * ps, Hkv).numpy()[:, :n]
+    np.testing.assert_array_equal(ts_, lines(jnp_sc, Hkv))
+    ksc = lines(jsc, Hkv)
+    np.testing.assert_array_max_ulp(ts_, ksc, maxulp=1)
+    # the interpret kernel's bytes are the port's quantizer applied with
+    # the kernel's own scales: its only difference is that scale rounding
+    new = torch.stack([tk, tv]).float().reshape(2, B * S, Hkv, D)
+    flat = np.asarray(slots).reshape(-1)
+    ok = flat >= 0
+    want = (new[:, ok] / torch.from_numpy(ksc[:, flat[ok]])[..., None]).to(
+        torch.float8_e4m3fn).view(torch.uint8).numpy()
+    np.testing.assert_array_equal(
+        lines(jkv, Hkv, D).view(np.uint8)[:, flat[ok]], want)
+
+
+def test_kv_cache_write_plain_drops_skipset_in_place():
+    """Slots < 0 never touch the pool, the sentinel line included, and
+    unwritten lines keep their contents."""
+    Hkv, D, NS = 1, 64, 32
+    k_cache = torch.full((NS, Hkv, D), 7.0, dtype=torch.bfloat16)
+    v_cache = k_cache.clone()
+    kn = torch.ones((1, 3, Hkv, D), dtype=torch.bfloat16)
+    slots = torch.tensor([[3, -1, -5]], dtype=torch.int32)
+    out = kv_cache_write(kn, kn, slots, k_cache, v_cache, None, None,
+                         opt_kv=False)
+    assert out[0] is k_cache
+    assert torch.all(k_cache[3] == 1.0)
+    keep = [i for i in range(NS) if i != 3]
+    assert torch.all(k_cache[keep] == 7.0)
+
+
+# ------------------------------------------------------------------ K2 ----
+def _decode_inputs(mode, window=0, sink=0, seed=2):
+    rng = np.random.default_rng(seed)
+    B, P_lane, ps, Hkv, G, D = 3, 6, 16, 2, 4, 64
+    coopt = MODES[mode]
+    jkv, jsc, tkv, tsc = _pool(rng, B * P_lane, ps, Hkv, D, coopt.opt_kv)
+    q = rng.standard_normal((B, Hkv * G, D)).astype(np.float32)
+    jq, tq = _bf16(q)
+    # lanes own scattered pages of the shared pool; lane 2 holds a -1 hole
+    perm = rng.permutation(B * P_lane).reshape(B, P_lane)
+    perm[2, -1] = -1
+    jpt, tpt = _i32(perm)
+    jcl, tcl = _i32([P_lane * ps, 37, 70])
+    jphys, jlog = jdecode_page_select(jcl, jpt, ps, window=window,
+                                      sink_pages=sink, opt_pa=coopt.opt_pa)
+    tphys, tlog = decode_page_select(tcl, tpt, ps, window=window,
+                                     sink_pages=sink, opt_pa=coopt.opt_pa)
+    np.testing.assert_array_equal(tphys.numpy(), np.asarray(jphys))
+    np.testing.assert_array_equal(tlog.numpy(), np.asarray(jlog))
+    return coopt, (jq, jkv, jsc, jcl, jphys, jlog), (tq, tkv, tsc, tcl,
+                                                     tphys, tlog)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("window,sink", [(0, 0), (32, 1)])
+def test_pool_decode_plain_matches_pallas_and_oracle(mode, window, sink):
+    """K2 plain vs the interpret kernel (KERNEL_ATOL) and the flat jnp
+    oracle (KERNEL_ATOL: both dequantize in f32), in all five modes."""
+    coopt, (jq, jkv, jsc, jcl, jphys, jlog), (tq, tkv, tsc, tcl, tphys,
+                                              tlog) = \
+        _decode_inputs(mode, window, sink)
+    opt_gqa = True if window else coopt.opt_gqa
+    jks, jvs = (jsc[0], jsc[1]) if jsc is not None else (None, None)
+    tks, tvs = (tsc[0], tsc[1]) if tsc is not None else (None, None)
+    got = paged_pool_decode_ref(tq, tkv[0], tkv[1], tks, tvs, tcl, tphys,
+                                tlog, opt_kv=coopt.opt_kv, opt_gqa=opt_gqa,
+                                window=window, sink_pages=sink)
+    kern = jpd.paged_pool_decode(jq, jkv[0], jkv[1], jks, jvs, jcl, jphys,
+                                 jlog, opt_kv=coopt.opt_kv, opt_gqa=opt_gqa,
+                                 window=window, sink_pages=sink,
+                                 interpret=True)
+    oracle = jref.paged_pool_decode_ref(jq, jkv[0], jkv[1], jks, jvs, jcl,
+                                        jphys, jlog, opt_kv=coopt.opt_kv,
+                                        window=window, sink_pages=sink)
+    np.testing.assert_allclose(_t2n(got), _f32(kern), atol=KERNEL_ATOL)
+    np.testing.assert_allclose(_t2n(got), _f32(oracle), atol=KERNEL_ATOL)
+    # the port's flat oracle is the JAX one
+    mine = ref.paged_pool_decode_ref(tq, tkv[0], tkv[1], tks, tvs, tcl,
+                                     tphys, tlog, opt_kv=coopt.opt_kv,
+                                     window=window, sink_pages=sink)
+    np.testing.assert_allclose(_t2n(mine), _f32(oracle), atol=KERNEL_ATOL)
+
+
+# ------------------------------------------------------------------ K4 ----
+def _shared_tables(seed=3):
+    """Four lanes; lanes 0-2 share a 3-page prefix at the same slots."""
+    rng = np.random.default_rng(seed)
+    phys = rng.permutation(40)[:24].reshape(4, 6).astype(np.int32)
+    phys[1:3, :3] = phys[0, :3]
+    phys[3, 4:] = -1
+    log = np.broadcast_to(np.arange(6, dtype=np.int32), (4, 6)).copy()
+    log[3, 4:] = -1
+    return phys, log
+
+
+def test_plan_visits_matches_jax():
+    """plan_visits == the JAX planner exactly, bitmask sign bit included."""
+    phys, log = _shared_tables()
+    for p, l in ((phys, log),
+                 (np.tile(phys[:1], (32, 1)), np.tile(log[:1], (32, 1)))):
+        want = jvisits.plan_visits(jnp.asarray(p), jnp.asarray(l))
+        got = visits.plan_visits(torch.from_numpy(p), torch.from_numpy(l))
+        for g, w in zip(got, want):
+            assert g.dtype == torch.int32
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    np.testing.assert_equal(visits.sharing_stats(phys),
+                            jvisits.sharing_stats(phys))
+
+
+@pytest.mark.parametrize("opt_kv,opt_gqa", [(True, True), (False, False)])
+def test_visit_decode_plain_bit_identical_to_pool_decode_plain(opt_kv,
+                                                               opt_gqa):
+    """K4 plain == K2 plain exactly (torch.equal), and K4 plain vs the JAX
+    visit kernel in interpret mode within KERNEL_ATOL."""
+    rng = np.random.default_rng(4)
+    ps, Hkv, G, D = 16, 2, 4, 64
+    phys, log = _shared_tables()
+    jkv, jsc, tkv, tsc = _pool(rng, 40, ps, Hkv, D, opt_kv)
+    jq, tq = _bf16(rng.standard_normal((4, Hkv * G, D)).astype(np.float32))
+    jcl, tcl = _i32([90, 96, 60, 50])
+    tks, tvs = (tsc[0], tsc[1]) if opt_kv else (None, None)
+    tphys, tlog = torch.from_numpy(phys), torch.from_numpy(log)
+    vp, vm, vl = visits.plan_visits(tphys, tlog)
+    k4 = paged_pool_decode_visits_ref(tq, tkv[0], tkv[1], tks, tvs, tcl, vp,
+                                      vm, vl, opt_kv=opt_kv, opt_gqa=opt_gqa)
+    k2 = paged_pool_decode_ref(tq, tkv[0], tkv[1], tks, tvs, tcl, tphys,
+                               tlog, opt_kv=opt_kv, opt_gqa=opt_gqa)
+    assert torch.equal(k4, k2)
+    jks, jvs = (jsc[0], jsc[1]) if opt_kv else (None, None)
+    jvp, jvm, jvl = jvisits.plan_visits(jnp.asarray(phys), jnp.asarray(log))
+    kern = jpd.paged_pool_decode_visits(jq, jkv[0], jkv[1], jks, jvs, jcl,
+                                        jvp, jvm, jvl, opt_kv=opt_kv,
+                                        opt_gqa=opt_gqa, interpret=True)
+    np.testing.assert_allclose(_t2n(k4), _f32(kern), atol=KERNEL_ATOL)
+
+
+def test_ops_decode_routes_visits_by_lane_count():
+    """ops.paged_pool_decode takes the visit list for 1 < B <= 32 with
+    share_visits and the per-lane version otherwise; both agree."""
+    rng = np.random.default_rng(5)
+    phys, log = _shared_tables()
+    _, _, tkv, tsc = _pool(rng, 40, 16, 2, 64, True)
+    q = torch.from_numpy(rng.standard_normal((4, 8, 64)).astype(
+        np.float32)).to(torch.bfloat16)
+    cl = torch.tensor([90, 96, 60, 50], dtype=torch.int32)
+    a = ops.paged_pool_decode(q, tkv, tsc, cl, torch.from_numpy(phys),
+                              torch.from_numpy(log), opt_kv=True,
+                              opt_gqa=True, share_visits=True)
+    b = ops.paged_pool_decode(q, tkv, tsc, cl, torch.from_numpy(phys),
+                              torch.from_numpy(log), opt_kv=True,
+                              opt_gqa=True, share_visits=False)
+    assert torch.equal(a, b)
+    assert ops._use_visits(True, 4) and not ops._use_visits(True, 1)
+    assert not ops._use_visits(True, 33) and not ops._use_visits(False, 4)
+
+
+# ------------------------------------------------------------------ K3 ----
+def _chunk_case(opt_kv, seed=7):
+    rng = np.random.default_rng(seed)
+    B, P, ps, Hkv, G, D, S = 2, 4, 16, 2, 4, 64, 8
+    jkv, jsc, tkv, tsc = _pool(rng, B * P, ps, Hkv, D, opt_kv)
+    jq, tq = _bf16(rng.standard_normal((B, S, Hkv * G, D)).astype(np.float32))
+    # lane 0: a continuation chunk at positions [24, 32); lane 1: a decode
+    # lane (one token at 40, padding clamped to it) with its last page -1
+    pos = np.stack([np.arange(24, 32), np.full(S, 40)])
+    pt = np.arange(B * P).reshape(B, P)
+    pt[1, P - 1] = -1
+    (jpos, tpos), (jpt, tpt) = _i32(pos), _i32(pt)
+    return (jq, jkv, jsc, jpos, jpt), (tq, tkv, tsc, tpos, tpt)
+
+
+@pytest.mark.parametrize("opt_kv,opt_gqa,window,sink", [
+    (False, True, 0, 0), (True, True, 0, 0), (True, False, 0, 0),
+    (True, True, 32, 1)])
+def test_chunk_prefill_plain_matches_pallas_and_jnp(opt_kv, opt_gqa, window,
+                                                   sink):
+    """K3 plain (unpacked) vs the interpret kernel (KERNEL_ATOL) and the jnp
+    ``paged_chunk_attention`` (JNP_ATOL)."""
+    (jq, jkv, jsc, jpos, jpt), (tq, tkv, tsc, tpos, tpt) = _chunk_case(opt_kv)
+    got = ops.paged_chunk_prefill(tq, tpos, tkv, tsc, tpt, opt_kv=opt_kv,
+                                  opt_gqa=opt_gqa, window=window,
+                                  sink_pages=sink)
+    kern = jops.paged_chunk_prefill(jq, jpos, jkv, jsc, jpt, opt_kv=opt_kv,
+                                    opt_gqa=opt_gqa, window=window,
+                                    sink_pages=sink)
+    cfg = JMODES["coopt"].replace(opt_kv=opt_kv, opt_gqa=opt_gqa)
+    exp = jchunk(jq, jkv, jsc, jpos, jpt, cfg, window=window,
+                 sink_pages=sink)
+    np.testing.assert_allclose(_t2n(got), _f32(kern), atol=KERNEL_ATOL)
+    np.testing.assert_allclose(_t2n(got), _f32(exp), atol=JNP_ATOL)
+    # the port's jnp-style reference is the JAX one
+    mine = paged_chunk_attention(tq, tkv, tsc, tpos, tpt,
+                                 MODES["coopt"].replace(opt_kv=opt_kv,
+                                                        opt_gqa=opt_gqa),
+                                 window=window, sink_pages=sink)
+    np.testing.assert_allclose(_t2n(mine), _f32(exp), atol=KERNEL_ATOL)
+
+
+def test_chunk_prefill_plain_packed_matches_pallas_and_jnp():
+    """Concat-prefill packing: two prompts share one row as segments (seg
+    0: 20 tokens on slots 0-1, seg 1: 10 tokens on slot 2, 2 pad columns).
+    K3 plain vs the interpret kernel (KERNEL_ATOL) and the jnp reference
+    (JNP_ATOL) on the real rows; pad rows are exactly 0."""
+    rng = np.random.default_rng(8)
+    ps, Hkv, G, D, S = 16, 2, 2, 64, 32
+    jkv, jsc, tkv, tsc = _pool(rng, 6, ps, Hkv, D, True)
+    jq, tq = _bf16(rng.standard_normal((1, S, Hkv * G, D)).astype(np.float32))
+    pos = np.concatenate([np.arange(20), np.arange(10), [9, 9]])[None]
+    seg = np.concatenate([np.zeros(20), np.ones(10), [-1, -1]])[None]
+    pt, pseg, pbase = [[4, 1, 3, -1]], [[0, 0, 1, 0]], [[0, 1, 0, 0]]
+    j, t = zip(*(_i32(x) for x in (pos, seg, pt, pseg, pbase)))
+    got = ops.paged_chunk_prefill(tq, t[0], tkv, tsc, t[2], opt_kv=True,
+                                  opt_gqa=True, seg_q=t[1], page_seg=t[3],
+                                  page_base=t[4])
+    kern = jfc.flash_chunk_prefill(jq, j[0], jkv[0], jkv[1], jsc[0], jsc[1],
+                                   j[2], opt_kv=True, opt_gqa=True,
+                                   interpret=True, seg_q=j[1], page_seg=j[3],
+                                   page_base=j[4])
+    exp = jchunk(jq, jkv, jsc, j[0], j[2], JMODES["coopt"], seg_q=j[1],
+                 page_seg=j[3], page_base=j[4])
+    real = slice(0, 30)
+    np.testing.assert_allclose(_t2n(got)[:, real], _f32(kern)[:, real],
+                               atol=KERNEL_ATOL)
+    np.testing.assert_allclose(_t2n(got)[:, real], _f32(exp)[:, real],
+                               atol=JNP_ATOL)
+    assert torch.all(got[:, 30:] == 0)
+    mine = flash_chunk_prefill_ref(tq, t[0], tkv[0], tkv[1], tsc[0], tsc[1],
+                                   t[2], opt_kv=True, seg_q=t[1],
+                                   page_seg=t[3], page_base=t[4])
+    assert torch.equal(mine, got)
+
+
+def test_wrappers_raise_on_unsupported_device():
+    """A tensor that is neither on the CPU nor on CUDA never reaches a
+    plain version."""
+    q = torch.zeros((1, 4, 64), dtype=torch.bfloat16, device="meta")
+    kv = torch.zeros((2, 2, 16, 2, 64), dtype=torch.float8_e4m3fn,
+                     device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.paged_pool_decode(q, kv, None, torch.ones(1, dtype=torch.int32,
+                                                       device="meta"),
+                              torch.zeros((1, 2), dtype=torch.int32,
+                                          device="meta"),
+                              torch.zeros((1, 2), dtype=torch.int32,
+                                          device="meta"),
+                              opt_kv=True, opt_gqa=True)
