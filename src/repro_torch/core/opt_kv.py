@@ -26,25 +26,21 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.cache.block_manager import padded_pool_pages
 from repro_torch.cache.quant import dequantize_fp8, quantize_fp8
 from repro_torch.core.coopt import CoOptConfig
 
 
-def pool_layout(batch: int, max_len: int, coopt, num_shards: int = 1,
-                cache_cfg=None):
+def pool_layout(batch: int, max_len: int, coopt, cache_cfg=None):
     """The device pool's pages-axis layout -> ``(P, page_size)``: ``P`` is
-    ``CacheConfig.num_pages`` when set, else ``batch * pages(max_len)``,
-    padded to tile evenly over the KV shards."""
+    ``CacheConfig.num_pages`` when set, else ``batch * pages(max_len)``."""
     ps = coopt.page_size
     pages = 0
     if cache_cfg is not None:
         ps = cache_cfg.page_size or ps
-        num_shards = cache_cfg.num_shards or num_shards
         pages = cache_cfg.num_pages
     if not pages:
         pages = batch * (-(-max_len // ps))
-    return padded_pool_pages(pages, num_shards), ps
+    return pages, ps
 
 
 # ------------------------------------------------------- identity layout --

@@ -103,11 +103,11 @@ class TransformerModel:
 
     # ------------------------------------------------------------ caching --
     def cache_shape(self, batch: int, max_len: int, coopt: CoOptConfig,
-                    num_shards: int = 1, cache_cfg=None):
+                    cache_cfg=None):
         """Leaf -> (shape, dtype, logical axes). GLOBAL-POOL layout: kv/scale
         leaves carry no batch dimension; ``length`` stays per-lane."""
         cfg = self.cfg
-        P, ps = pool_layout(batch, max_len, coopt, num_shards, cache_cfg)
+        P, ps = pool_layout(batch, max_len, coopt, cache_cfg)
         Hkv, D = cfg.num_kv_heads, cfg.head_dim
         out = {"kv": ((cfg.num_layers, 2, P, ps, Hkv, D), coopt.kv_dtype,
                       ("layers", None, "pages", None, "kv_heads",
@@ -119,11 +119,11 @@ class TransformerModel:
         return out
 
     def init_cache(self, batch: int, max_len: int, coopt: CoOptConfig,
-                   num_shards: int = 1, cache_cfg=None, device="cuda"):
+                   cache_cfg=None, device="cuda"):
         device = check_device(device)
         return {k: torch.zeros(sh, dtype=dt, device=device)
                 for k, (sh, dt, _) in
-                self.cache_shape(batch, max_len, coopt, num_shards=num_shards,
+                self.cache_shape(batch, max_len, coopt,
                                  cache_cfg=cache_cfg).items()}
 
     # -------------------------------------------------------------- layers --

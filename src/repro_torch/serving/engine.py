@@ -25,11 +25,11 @@ impossible requests are REJECTED and surfaced.
 Not ported yet (the engine raises ``NotImplementedError``): the host-DRAM
 tier (``CacheConfig.host_pages > 0``), concat-prefill packing
 (``pack_prefill``), a device mesh, recurrent families and the async
-frontend.
+frontend; ``CacheConfig`` itself refuses page-range shards
+(``num_shards != 1``).
 """
 from __future__ import annotations
 
-import dataclasses
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -56,35 +56,17 @@ class EngineConfig:
     sampling: SamplingParams = SamplingParams()
     seed: int = 0
     token_budget: int = 0           # 0 => max(prefill_buckets)
-    enable_prefix_cache: bool = True
-    num_shards: int = 1             # KV-pool page-range shards
     pack_prefill: bool = False      # concat-prefill packing (not ported)
     max_preemptions: int = 32       # past it a request is rejected
                                     # (PREEMPTION_LIMIT)
-    cache: Optional[CacheConfig] = None
-                                    # consolidated cache knobs; None = derive
-                                    # from enable_prefix_cache / num_shards
+    cache: CacheConfig = CacheConfig()   # pool geometry and cache policy
 
     def cache_config(self, page_size: int) -> CacheConfig:
-        """Resolve the effective :class:`CacheConfig` (legacy knobs folded
-        in; conflicting explicit values raise)."""
-        cc = self.cache
-        if cc is None:
-            cc = CacheConfig(num_shards=self.num_shards,
-                             enable_prefix_cache=self.enable_prefix_cache)
-        else:
-            if self.num_shards != 1 and self.num_shards != cc.num_shards:
-                raise ValueError(
-                    f"EngineConfig.num_shards={self.num_shards} conflicts "
-                    f"with EngineConfig.cache.num_shards={cc.num_shards}; "
-                    "set the shard count in ONE place (CacheConfig "
-                    "preferred)")
-            if not self.enable_prefix_cache and cc.enable_prefix_cache:
-                cc = cc.replace(enable_prefix_cache=False)
-        ps = cc.page_size or page_size
-        pages_per_lane = -(-self.max_len // ps)
-        return cc.resolve(page_size=ps,
-                          num_pages=self.num_lanes * pages_per_lane)
+        """The effective :class:`CacheConfig`: ``page_size`` and the pool
+        size (``num_lanes * pages(max_len)``) filled in where left 0."""
+        ps = self.cache.page_size or page_size
+        return self.cache.resolve(
+            page_size=ps, num_pages=self.num_lanes * -(-self.max_len // ps))
 
 
 @dataclass
@@ -179,11 +161,6 @@ class Engine:
         ccfg = engine_cfg.cache_config(coopt.page_size)
         if ccfg.host_pages > 0:
             raise NotImplementedError("host-DRAM KV tier: not ported yet")
-        if (engine_cfg.num_shards != ccfg.num_shards
-                or engine_cfg.enable_prefix_cache != ccfg.enable_prefix_cache):
-            engine_cfg = dataclasses.replace(
-                engine_cfg, num_shards=ccfg.num_shards,
-                enable_prefix_cache=ccfg.enable_prefix_cache)
         self.ccfg = ccfg
         self.ecfg = engine_cfg
         self.model = get_model(model_cfg)        # raises for other families
@@ -194,9 +171,8 @@ class Engine:
             engine_cfg.seed + 1)
 
         B, M = engine_cfg.num_lanes, engine_cfg.max_len
-        self.cache = self.model.init_cache(B, M, coopt,
-                                           num_shards=engine_cfg.num_shards,
-                                           cache_cfg=ccfg, device=self.device)
+        self.cache = self.model.init_cache(B, M, coopt, cache_cfg=ccfg,
+                                           device=self.device)
         self.scheduler = Scheduler(
             B, M, coopt.page_size, list(engine_cfg.prefill_buckets),
             token_budget=engine_cfg.token_budget or None,

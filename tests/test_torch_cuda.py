@@ -17,7 +17,16 @@ from repro_torch.kernels import kv_cache_write as kw  # noqa: E402
 from repro_torch.kernels import paged_gqa_decode as pd  # noqa: E402
 
 pytestmark = pytest.mark.cuda
-ATOL = 2 ** -7          # one bf16 ulp at |x| < 2; both sides sum in f32
+# Both sides sum in f32 in different orders and round to bf16, so they may
+# land on neighbouring bf16 values: RTOL admits one bf16 ulp anywhere in a
+# binade (an ulp is 2**-8 to 2**-7 of |x|), ATOL nothing near zero beyond
+# 2**-14 (as in chip_smoke.py).
+RTOL, ATOL = 2 ** -7, 2 ** -14
+
+
+def _assert_close(got, plain):
+    torch.testing.assert_close(got.float(), plain.float(), rtol=RTOL,
+                               atol=ATOL)
 
 
 @pytest.fixture
@@ -67,7 +76,8 @@ def test_kv_cache_write_bytes(dev, opt_kv, D):
     (True, True, 48, 1)])
 @pytest.mark.parametrize("D", [64, 128])
 def test_decode_kernels(dev, opt_kv, opt_gqa, window, sink, D):
-    """K2 vs its plain version within ATOL; K4 bit-identical to K2."""
+    """K2 vs its plain version within one bf16 ulp; K4 bit-identical to
+    K2."""
     B, NP, ps, Hkv, G = 4, 6, 32, 2, 4
     kv, sc = _pool(dev, B * NP + 1, ps, Hkv, D, opt_kv)
     table = torch.arange(B * NP, device=dev, dtype=torch.int32).reshape(B, NP)
@@ -89,14 +99,20 @@ def test_decode_kernels(dev, opt_kv, opt_gqa, window, sink, D):
                                      opt_kv=opt_kv, opt_gqa=gqa,
                                      window=window, sink_pages=sink)
     torch.cuda.synchronize()
-    assert (k2.float() - plain.float()).abs().max().item() <= ATOL
+    _assert_close(k2, plain)
     assert torch.equal(k4, k2)
 
 
+@pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("opt_kv,opt_gqa,window", [
     (True, True, 0), (False, True, 0), (True, False, 0), (True, True, 40)])
-def test_chunk_kernel(dev, opt_kv, opt_gqa, window):
-    """K3 vs its plain version within ATOL, a chunk lane and decode lanes."""
+def test_chunk_kernel(dev, opt_kv, opt_gqa, window, packed):
+    """K3 vs its plain version within one bf16 ulp, a chunk lane and decode
+    lanes. ``packed``: lane 0's row holds two prompts as segments (24 rows
+    at [0, 24) and 12 rows at [30, 42) whose page_base restarts at 0, then 4
+    pad rows of segment -1), and its table interleaves the two segments'
+    pages, so each segment's rows meet a live page of the other; the other
+    lanes pass planes equal to the unpacked defaults."""
     B, NP, ps, Hkv, G, D, S = 3, 5, 32, 2, 4, 128, 40
     kv, sc = _pool(dev, B * NP, ps, Hkv, D, opt_kv)
     table = torch.arange(B * NP, device=dev, dtype=torch.int32).reshape(B, NP)
@@ -105,15 +121,33 @@ def test_chunk_kernel(dev, opt_kv, opt_gqa, window):
     pos[0] = torch.arange(100, 100 + S, device=dev)
     pos[1] = 60
     pos[2] = 127
+    planes = {}
+    if packed:
+        i32 = dict(dtype=torch.int32, device=dev)
+        pos[0] = torch.cat([torch.arange(24, **i32),
+                            torch.arange(30, 42, **i32),
+                            torch.full((4,), 41, **i32)])
+        seg_q = torch.zeros((B, S), **i32)
+        seg_q[0, 24:36] = 1
+        seg_q[0, 36:] = -1
+        table[0] = torch.tensor([0, 1, 2, 3, -1], **i32)
+        page_seg = torch.zeros((B, NP), **i32)
+        page_seg[0] = torch.tensor([0, 1, 1, 0, 0], **i32)
+        page_base = torch.arange(NP, **i32).repeat(B, 1).contiguous()
+        page_base[0] = torch.tensor([0, 0, 1, 1, 0], **i32)
+        planes = dict(seg_q=seg_q, page_seg=page_seg, page_base=page_base)
     q = torch.randn((B, S, Hkv * G, D), device=dev).bfloat16()
     ks, vs = (sc[0], sc[1]) if opt_kv else (None, None)
     got = ops.paged_chunk_prefill(q, pos, kv, sc, table, opt_kv=opt_kv,
-                                  opt_gqa=opt_gqa, window=window, sink_pages=1)
+                                  opt_gqa=opt_gqa, window=window, sink_pages=1,
+                                  **planes)
     plain = fc.flash_chunk_prefill_ref(q, pos, kv[0], kv[1], ks, vs, table,
                                        opt_kv=opt_kv, opt_gqa=opt_gqa,
-                                       window=window, sink_pages=1)
+                                       window=window, sink_pages=1, **planes)
     torch.cuda.synchronize()
-    assert (got.float() - plain.float()).abs().max().item() <= ATOL
+    _assert_close(got, plain)
+    if packed:
+        assert torch.all(got[0, 36:] == 0)            # pad rows see no key
 
 
 def test_launch_counts(dev):

@@ -136,6 +136,10 @@ def test_unported_options_raise(weights):
         Engine(cfg, MODES["coopt"],
                EngineConfig(cache=CacheConfig(host_pages=4)), params=params,
                device="cpu")
+    with pytest.raises(NotImplementedError, match="shards"):
+        Engine(cfg, MODES["coopt"],
+               EngineConfig(cache=CacheConfig(num_shards=2)), params=params,
+               device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         Engine(cfg, MODES["coopt"], params=params, device="cpu",
                mesh=object())
