@@ -2,36 +2,53 @@
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py            # every phase, one card
-    python3 chip_smoke.py --only kernels
+    python3 chip_smoke.py --only kernels   # or engine, prefill, mla, parity
 
 Phases:
   1. the card's name and power limit; build the CUDA kernels from
      ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel).
-  2. each kernel at the main path's shapes (qwen3-4b widths: Hq 32, Hkv 8,
-     D 128, pages of 64, 4 lanes with ~1024 cached tokens and a shared
-     256-token prefix), held against its plain PyTorch version on the card:
-     K1 pool bytes and scales equal (the JAX sentinel line excluded), K4
-     bit-identical to K2, K2 and K3 (unpacked and with two packed
-     segments) within one bf16 ulp (``ATTN_RTOL``, ``ATTN_ATOL``), while a
-     control with one key masked off must fall outside it. Then each one's
-     time (CUDA events, cold L2), the plain version's, a library call's
-     where one computes the same function, and the least time the card
-     could take (``bound_ms``).
+  2. each kernel at its path's shapes, held against its plain PyTorch
+     version on the card. K1-K4 at qwen3-4b's widths (Hq 32, Hkv 8, D 128,
+     pages of 64, 4 lanes with ~1024 cached tokens and a shared 256-token
+     prefix): K1 pool bytes and scales equal (the JAX sentinel line
+     excluded), K4 bit-identical to K2, K2 and K3 (unpacked and with two
+     packed segments) within one bf16 ulp (``ATTN_RTOL``, ``ATTN_ATOL``).
+     K5-K7 at deepseek-v2-lite's (H 16, R 512, dr 64, the same pages and
+     lanes): K7 bit-identical to K5, K5 and K6 (unpacked and packed)
+     within the f32 tolerance (``LAT_RTOL``, ``LAT_ATOL``). K8 at 2 x 2048
+     tokens of qwen3-4b's heads within one bf16 ulp. Each check beside a
+     control (one key masked off, or the packing planes dropped) that must
+     fall outside its tolerance. Then each kernel's time (CUDA events, cold
+     L2), the plain version's, a library call's that computes the same
+     function, and the least time the card could take (``bound_ms``).
   3. ``Engine.generate`` on qwen3-4b at full width and depth (random
      weights from a seed) in coopt mode with the kernels: 8 greedy
      requests, 4 sharing a 256-token prefix; K1, K3 and K4 must launch.
      Then a one-lane engine (4 layers) on which K2 must launch.
-  4. qwen3-4b-reduced with the same weights on the card (kernels) and on
-     the CPU (plain versions): first-step logits within ``LOGIT_ATOL`` and
-     greedy-token agreement.
-The line before the last is the JSON ``kernels`` record; the last line is
-``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
+  4. The full-prompt prefill (``TransformerModel.prefill`` with no
+     positions) of 2 x 2048 tokens on the same qwen3-4b weights: K8 must
+     launch once per layer, and the last-token logits must agree with the
+     same prompts chunked through K1/K3 within ``LOGIT_ATOL``.
+  5. ``Engine.generate`` on deepseek-v2-lite-16b (MLA + MoE) at full width
+     and depth, the same requests: K6 and K7 must launch. Then a one-lane
+     engine (4 layers: 1 dense-FFN, 3 MoE) on which K5 must launch.
+  6. qwen3-4b-reduced and deepseek-v2-lite-16b-reduced with the same
+     weights on the card (kernels) and on the CPU (plain versions): the
+     first step's logits and each request's first-token logits within
+     ``LOGIT_ATOL``; first greedy tokens equal, or parted only where the
+     CPU's best two lie within 2 x ``LOGIT_ATOL``; greedy agreement.
+Each kernel's launch count is read from the path that runs it, the counts
+set to 0 just before that path and read just after; a kernel that never
+launched fails the run. The line before the last is the JSON ``kernels``
+record; the last line is ``{"ok": true, "device": {...}}``. Any failure
+exits non-zero before it.
 Details go to ``chiprun_out/chip_smoke.json`` and the nvcc (ptxas) log to
 ``chiprun_out/build.log``.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -53,9 +70,23 @@ F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
 # must exceed the tolerance.
 ATTN_RTOL = 2 ** -7
 ATTN_ATOL = 2 ** -14
-# qwen3-4b-reduced logits, bf16 activations through 2 layers: cuBLAS and
-# the CPU's bf16 GEMMs round differently, a few bf16 ulps of |logit| ~ 4.
+# The MLA latent kernels (K5, K6) return f32, summed in other orders than
+# PyTorch's by the kernel (FMA chains, warp butterflies): |kernel - plain| <=
+# LAT_ATOL + LAT_RTOL * |plain|, 32x and 4x tighter than the bf16
+# criterion's terms; a one-key-masked control must exceed it.
+LAT_RTOL = 2 ** -12
+LAT_ATOL = 2 ** -16
+# Reduced-model logits, bf16 activations through 2 layers: cuBLAS and the
+# CPU's bf16 GEMMs round differently, a few bf16 ulps of |logit| ~ 4. The
+# full-prompt phase holds qwen3-4b's last-token logits (K8 against K3 over
+# a bf16 pool) to the same bound; K8's 64-key blocks and K3's 64-token
+# pages run the same row update in the same order, so they agree exactly.
 LOGIT_ATOL = 0.125
+# A router's probabilities come from bf16 logits, where one ulp at |z| ~ 1
+# (2**-7) moves a probability by at most ~2**-9: two experts within
+# ROUTE_TIE of each other at the top-k boundary are a tie that a last-bit
+# difference upstream may break either way.
+ROUTE_TIE = 2 ** -7
 
 OUT = ROOT / "chiprun_out"
 DEV = "cuda"                     # the phases' device (a CPU rehearsal sets "cpu")
@@ -102,12 +133,12 @@ def make_timer(torch):
     return time_ms
 
 
-def tol_ratio(got, plain):
-    """Largest |got - plain| as a share of the attention tolerance (<= 1
-    passes) and the largest absolute difference."""
+def tol_ratio(got, plain, rtol=ATTN_RTOL, atol=ATTN_ATOL):
+    """Largest |got - plain| as a share of the tolerance (<= 1 passes; the
+    attention tolerance by default) and the largest absolute difference."""
     g, p = got.float(), plain.float()
     diff = (g - p).abs()
-    ratio = (diff / (ATTN_ATOL + ATTN_RTOL * p.abs())).max().item()
+    ratio = (diff / (atol + rtol * p.abs())).max().item()
     return ratio, diff.max().item()
 
 
@@ -118,14 +149,14 @@ def bound(bytes_moved, flops, rate):
 
 
 # -------------------------------------------------------------- kernels --
-def kernel_phase(torch, rec):
+def kernel_phase(torch, rec, time_ms):
+    """K1-K4 at qwen3-4b's widths."""
     import torch.nn.functional as F
     from repro_torch.cache.quant import quantize_fp8
     from repro_torch.kernels import cuda, ops, visits
     from repro_torch.kernels import flash_chunk_prefill as fc
     from repro_torch.kernels import kv_cache_write as kw
     from repro_torch.kernels import paged_gqa_decode as pd
-    time_ms = make_timer(torch)
     dev = torch.device(DEV)
     gen = torch.Generator(device=dev).manual_seed(0)
     B, Hq, Hkv, D, ps, NP = 4, 32, 8, 128, 64, 16
@@ -389,18 +420,284 @@ def kernel_phase(torch, rec):
                             f"mask (max |lib - plain| {lib_err3:.3e})",
                     shape=f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} ps={ps} "
                           f"NP={NP}"))
-    for k in out:
-        log(f"  {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, "
-            f"library {k['library_ms']:.4f}, bound {k['bound_ms']:.4f} by "
-            f"{k['bound_by']})")
-    rec["kernels"] = out
     rec["ptxas"] = {n: [ln for ln in s.splitlines() if "registers" in ln
                         or "spill" in ln] for n, s in cuda.BUILD_LOG.items()}
     return out
 
 
+def tol_ratio_f32(got, plain):
+    """As ``tol_ratio``, against the latent kernels' f32 tolerance."""
+    return tol_ratio(got, plain, LAT_RTOL, LAT_ATOL)
+
+
+def mla_kernel_phase(torch, rec, time_ms):
+    """K5, K7 and K6 at deepseek-v2-lite's widths (H 16, R 512, dr 64, pages
+    of 64): a decode step of 4 lanes with ~1024 cached tokens and a shared
+    256-token prefix, and a mixed step of one 512-token chunk lane and
+    three decode lanes."""
+    import torch.nn.functional as F
+    from repro_torch.cache.quant import quantize_latent
+    from repro_torch.core.opt_kv import decode_page_select
+    from repro_torch.kernels import ops, visits
+    from repro_torch.kernels import latent_chunk_prefill as lc
+    from repro_torch.kernels import paged_latent_decode as ld
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    B, H, R, dr, ps, NP, S = 4, 16, 512, 64, 64, 16, 512
+    W = R + dr
+    sm_scale = 1.0 / (128 + dr) ** 0.5          # 1/sqrt(dn + dr), dn 128
+    P = B * NP + 1
+    out = []
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    lat_f = randn(P, ps, W)
+    lat_f[..., R:] *= 3.0                       # k_rope on its own scale
+    lat, sc = quantize_latent(lat_f, R)
+    table = torch.arange(B * NP, device=dev, dtype=torch.int32).reshape(B, NP)
+    table[1:, :4] = table[0, :4]                # a 256-token shared prefix
+    cache_len = torch.tensor([1024, 1000, 980, 1010], dtype=torch.int32,
+                             device=dev)
+    # library yardstick input: each lane's pages gathered and dequantized,
+    # bf16, one kv head shared by all H query heads
+    pt = table.long()
+    lat_d = (torch.cat([lat[pt][..., :R].float() * sc[pt][..., 0:1],
+                        lat[pt][..., R:].float() * sc[pt][..., 1:2]], -1)
+             .to(torch.bfloat16).reshape(B, 1, NP * ps, W))
+    val_d = lat_d[..., :R]
+    kpos = torch.arange(NP * ps, device=dev)
+
+    # ---- K5 / K7: a decode step ------------------------------------------
+    ql, qr = randn(B, H, R), randn(B, H, dr)
+    phys, logt = decode_page_select(cache_len, table, ps, opt_pa=True)
+    vp, vm, vl = visits.plan_visits(phys, logt)
+    kw = dict(sm_scale=sm_scale, opt_kv=True)
+    k5 = ld.paged_latent_decode(ql, qr, lat, sc, cache_len, phys, logt, **kw)
+    k7 = ld.paged_latent_decode_visits(ql, qr, lat, sc, cache_len, vp, vm, vl,
+                                       **kw)
+    p5 = ld.paged_latent_decode_ref(ql, qr, lat, sc, cache_len, phys, logt,
+                                    **kw)
+    c5 = ld.paged_latent_decode_ref(ql, qr, lat, sc, cache_len - 1, phys,
+                                    logt, **kw)
+    torch.cuda.synchronize()
+    r5, err5 = tol_ratio_f32(k5, p5)
+    rc5, errc5 = tol_ratio_f32(k5, c5)
+    bitwise = torch.equal(k7, k5)
+    n_visits = int((vp >= 0).sum().item())
+    log(f"K5 paged_latent_decode: max |kernel - plain| {err5:.3e} = "
+        f"{r5:.3f} of the f32 tolerance (rtol {LAT_RTOL}, atol {LAT_ATOL}); "
+        f"control, one key masked off: {errc5:.3e} = {rc5:.2f}")
+    log(f"K7 paged_latent_decode_visits: bit-identical to K5 {bitwise}, "
+        f"{n_visits} visits for {int((phys >= 0).sum().item())} lane pages")
+    check(r5 <= 1, "K5 differs from its plain version")
+    check(rc5 > 1, "the tolerance passes a one-key mask error in K5")
+    check(bitwise, "K7 is not bit-identical to K5")
+    rec["tolerance"].update(lat_rtol=LAT_RTOL, lat_atol=LAT_ATOL, k5=r5,
+                            k5_control=rc5, k5_control_err=errc5)
+    keys = int(cache_len.sum().item())
+    dec_flops = keys * H * (2 * W + 2 * R)      # score + weighted sum
+    io_bytes = B * H * (W + R) * 4 + B * 4      # q in, o_lat out, lengths
+    sel_pages = int((phys >= 0).sum().item())
+    uniq_pages = torch.unique(phys[phys >= 0]).numel()
+    q_d = torch.cat([ql, qr], -1).to(torch.bfloat16)[:, :, None, :]
+    dmask = (kpos[None] < cache_len[:, None])[:, None, None, :]
+
+    def sdpa_decode():
+        return F.scaled_dot_product_attention(
+            q_d, lat_d, val_d, attn_mask=dmask, scale=sm_scale,
+            enable_gqa=True)
+    lib_err = (sdpa_decode()[:, :, 0].float() - p5).abs().max().item()
+    t_lib = time_ms(sdpa_decode)
+    lib = ("F.scaled_dot_product_attention on pre-gathered dequantized bf16 "
+           f"latents, scale= given (max |lib - plain| {lib_err:.3e})")
+    for name, fn, plain, pages, tables, line in (
+            ("paged_latent_decode",
+             lambda: ld.paged_latent_decode(ql, qr, lat, sc, cache_len, phys,
+                                            logt, **kw),
+             lambda: ld.paged_latent_decode_ref(ql, qr, lat, sc, cache_len,
+                                                phys, logt, **kw),
+             sel_pages, 2 * B * NP * 4, 132),
+            ("paged_latent_decode_visits",
+             lambda: ld.paged_latent_decode_visits(ql, qr, lat, sc, cache_len,
+                                                   vp, vm, vl, **kw),
+             lambda: ld.paged_latent_decode_visits_ref(
+                 ql, qr, lat, sc, cache_len, vp, vm, vl, **kw),
+             uniq_pages, 3 * vp.numel() * 4, 277)):
+        # K5 reads every selected page (584 B a token: 576 fp8 + 2 f32
+        # scales), K7 each distinct page once
+        bms, by = bound(pages * ps * (W + 8) + io_bytes + tables, dec_flops,
+                        F32_FLOPS)
+        out.append(dict(name=name, route="cuda",
+                        source="src/repro_torch/kernels/csrc/"
+                               "paged_latent_decode.cu",
+                        replaces="src/repro/kernels/paged_latent_decode.py:"
+                                 f"{line}",
+                        max_abs_err=err5, ms=time_ms(fn),
+                        plain_ms=time_ms(plain, iters=5, warmup=1),
+                        bound_ms=bms, bound_by=by, library_ms=t_lib,
+                        library=lib,
+                        shape=f"B={B} H={H} R={R} dr={dr} ps={ps} NSel={NP},"
+                              f" cache_len {cache_len.tolist()}, "
+                              f"{pages} pages read"))
+
+    # ---- K6: a mixed step: lane 0 a 512-token chunk at [512, 1024), -------
+    # lanes 1-3 decode lanes (one token, padding clamped to it)
+    qlc, qrc = randn(B, S, H, R), randn(B, S, H, dr)
+    pos = torch.empty((B, S), dtype=torch.int32, device=dev)
+    pos[0] = torch.arange(512, 1024, device=dev, dtype=torch.int32)
+    for b in range(1, B):
+        pos[b] = cache_len[b] - 1
+    k6 = ops.latent_chunk_prefill(qlc, qrc, pos, lat, sc, table, **kw)
+    p6 = lc.latent_chunk_prefill_ref(qlc, qrc, pos, lat, sc, table, **kw)
+    c6 = lc.latent_chunk_prefill_ref(qlc, qrc, pos - 1, lat, sc, table, **kw)
+    # packing: lane 0's row holds two prompts, rows [0, 256) at [512, 768)
+    # on its own pages, rows [256, 512) a second prompt at [0, 256) on lane
+    # 3's pages 4-7, whose key positions restart at 0
+    seg_q = torch.zeros((B, S), dtype=torch.int32, device=dev)
+    seg_q[0, 256:] = 1
+    pos_pk = pos.clone()
+    pos_pk[0, :256] = torch.arange(512, 768, device=dev, dtype=torch.int32)
+    pos_pk[0, 256:] = torch.arange(0, 256, device=dev, dtype=torch.int32)
+    table_pk = table.clone()
+    table_pk[0, 12:] = table[3, 4:8]
+    page_seg = torch.zeros((B, NP), dtype=torch.int32, device=dev)
+    page_seg[0, 12:] = 1
+    page_base = torch.arange(NP, device=dev, dtype=torch.int32) \
+        .repeat(B, 1).contiguous()
+    page_base[0, 12:] = torch.arange(4, device=dev, dtype=torch.int32)
+    planes = dict(seg_q=seg_q, page_seg=page_seg, page_base=page_base)
+    k6p = ops.latent_chunk_prefill(qlc, qrc, pos_pk, lat, sc, table_pk, **kw,
+                                   **planes)
+    p6p = lc.latent_chunk_prefill_ref(qlc, qrc, pos_pk, lat, sc, table_pk,
+                                      **kw, **planes)
+    c6p = lc.latent_chunk_prefill_ref(qlc, qrc, pos_pk, lat, sc, table_pk,
+                                      **kw)
+    k6p_masked = lc.latent_chunk_prefill_ref(qlc, qrc, pos_pk - 1, lat, sc,
+                                             table_pk, **kw, **planes)
+    torch.cuda.synchronize()
+    r6, err6 = tol_ratio_f32(k6, p6)
+    rc6, errc6 = tol_ratio_f32(k6, c6)
+    r6p, err6p = tol_ratio_f32(k6p, p6p)
+    rc6p, errc6p = tol_ratio_f32(k6p, c6p)
+    rk6p, errk6p = tol_ratio_f32(k6p, k6p_masked)
+    log(f"K6 latent_chunk_prefill: max |kernel - plain| {err6:.3e} = "
+        f"{r6:.3f} of the f32 tolerance; control, one key masked off: "
+        f"{errc6:.3e} = {rc6:.2f}")
+    log(f"K6 packed (two segments in lane 0): max |kernel - plain| "
+        f"{err6p:.3e} = {r6p:.3f} of the f32 tolerance; controls: one key "
+        f"masked off {errk6p:.3e} = {rk6p:.2f}, planes dropped "
+        f"{errc6p:.3e} = {rc6p:.2f}")
+    check(r6 <= 1, "K6 differs from its plain version")
+    check(r6p <= 1, "packed K6 differs from its plain version")
+    check(rc6 > 1, "the tolerance passes a one-key mask error in K6")
+    check(rc6p > 1, "the tolerance passes a segment mask error in K6")
+    check(rk6p > 1, "the tolerance passes a one-key mask error in packed K6")
+    rec["tolerance"].update(k6=r6, k6_packed=r6p, k6_control=rc6,
+                            k6_control_err=errc6, k6_packed_control=rc6p,
+                            k6_packed_key_control=rk6p, k6_packed_err=err6p)
+    qpos = pos.long()
+    last_page = qpos.amax(dim=1) // ps
+    used = torch.cat([table[b, :int(last_page[b]) + 1] for b in range(B)])
+    chunk_keys = int((qpos + 1).sum().item()) * H       # causal (row, key)
+    chunk_flops = chunk_keys * (2 * W + 2 * R)
+    chunk_bytes = torch.unique(used).numel() * ps * (W + 8) + \
+        B * S * H * (W + R) * 4 + B * S * 4 + B * NP * 4
+    q6 = torch.cat([qlc, qrc], -1).to(torch.bfloat16).transpose(1, 2) \
+        .contiguous()
+    cmask = (kpos[None, None] <= pos[:, :, None])[:, None]
+
+    def sdpa_chunk():
+        return F.scaled_dot_product_attention(
+            q6, lat_d, val_d, attn_mask=cmask, scale=sm_scale,
+            enable_gqa=True)
+    lib_err6 = (sdpa_chunk().transpose(1, 2).float() - p6).abs().max().item()
+    bms, by = bound(chunk_bytes, chunk_flops, F32_FLOPS)
+    out.append(dict(name="latent_chunk_prefill", route="cuda",
+                    source="src/repro_torch/kernels/csrc/"
+                           "latent_chunk_prefill.cu",
+                    replaces="src/repro/kernels/latent_chunk_prefill.py:150",
+                    max_abs_err=max(err6, err6p),
+                    ms=time_ms(lambda: ops.latent_chunk_prefill(
+                        qlc, qrc, pos, lat, sc, table, **kw), iters=10),
+                    plain_ms=time_ms(lambda: lc.latent_chunk_prefill_ref(
+                        qlc, qrc, pos, lat, sc, table, **kw), iters=3,
+                        warmup=1),
+                    bound_ms=bms, bound_by=by,
+                    library_ms=time_ms(sdpa_chunk, iters=10),
+                    library="F.scaled_dot_product_attention on pre-gathered "
+                            "dequantized bf16 latents with a causal position "
+                            f"mask, scale= given (max |lib - plain| "
+                            f"{lib_err6:.3e})",
+                    shape=f"B={B} S={S} H={H} R={R} dr={dr} ps={ps} "
+                          f"NP={NP}"))
+    return out
+
+
+def flash_prefill_kernel_phase(torch, rec, time_ms):
+    """K8 at the full-prompt path's shapes: 2 prompts of 2048 tokens,
+    qwen3-4b's heads (Hq 32, Hkv 8, D 128)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import ops
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    B, S, Hq, Hkv, D = 2, 2048, 32, 8, 128
+    q, k, v = (torch.randn(sh, generator=gen, device=dev).to(torch.bfloat16)
+               for sh in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    k8 = ops.flash_prefill(q, k, v)
+    p8 = fp.flash_prefill_ref(q, k, v)
+    # control: each row's own key masked off (queries one position earlier)
+    c8 = fp.flash_prefill_ref(q, k, v, q_offset=-1)
+    torch.cuda.synchronize()
+    r8, err8 = tol_ratio(k8, p8)
+    rc8, errc8 = tol_ratio(k8, c8)
+    log(f"K8 flash_prefill: max |kernel - plain| {err8:.3e} = {r8:.3f} of "
+        f"the tolerance; control, one key masked off: {errc8:.3e} = "
+        f"{rc8:.2f}")
+    check(r8 <= 1, "K8 differs from its plain version")
+    check(rc8 > 1, "the tolerance passes a one-key mask error in K8")
+    rec["tolerance"].update(k8=r8, k8_control=rc8, k8_control_err=errc8)
+    pairs = B * Hq * S * (S + 1) // 2                 # causal (row, key)
+    bms, by = bound(2 * B * S * Hq * D * 2 + 2 * B * S * Hkv * D * 2,
+                    pairs * D * 4, BF16_FLOPS)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    lib_err = (sdpa().transpose(1, 2).float() - p8.float()).abs().max().item()
+    return [dict(name="flash_prefill", route="cuda",
+                 source="src/repro_torch/kernels/csrc/flash_prefill.cu",
+                 replaces="src/repro/kernels/flash_prefill.py:84",
+                 max_abs_err=err8,
+                 ms=time_ms(lambda: ops.flash_prefill(q, k, v), iters=10),
+                 plain_ms=time_ms(lambda: fp.flash_prefill_ref(q, k, v),
+                                  iters=3, warmup=1),
+                 bound_ms=bms, bound_by=by,
+                 library_ms=time_ms(sdpa, iters=10),
+                 library="F.scaled_dot_product_attention(is_causal=True, "
+                         f"enable_gqa=True) (max |lib - plain| "
+                         f"{lib_err:.3e})",
+                 shape=f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D}")]
+
+
 # --------------------------------------------------------------- engine --
-def engine_phase(torch, rec, arch="qwen3-4b"):
+# The kernels each serving path must launch: (4-lane engine, 1-lane engine)
+ENGINE_KERNELS = {
+    "qwen3-4b": (("kv_cache_write", "flash_chunk_prefill",
+                  "paged_pool_decode_visits"), ("paged_pool_decode",)),
+    "deepseek-v2-lite-16b": (("latent_chunk_prefill",
+                              "paged_latent_decode_visits"),
+                             ("paged_latent_decode",)),
+}
+
+
+def engine_phase(torch, rec, arch="qwen3-4b", keep_params=False):
+    """``Engine.generate`` at full width and depth (8 greedy requests, 4
+    lanes), then a one-lane engine at 4 layers. Returns (launches of the
+    4-lane run, launches of the 1-lane run, the 4-lane engine's params if
+    ``keep_params``)."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core.coopt import COOPT
@@ -408,6 +705,8 @@ def engine_phase(torch, rec, arch="qwen3-4b"):
     from repro_torch.serving import Engine, EngineConfig
     coopt = COOPT.replace(use_kernel=True)
     cfg = get_config(arch)
+    need4, need1 = ENGINE_KERNELS[arch]
+    key = "engine" if arch == "qwen3-4b" else f"engine_{arch}"
     rng = np.random.default_rng(0)
     prefix = rng.integers(0, cfg.vocab_size, 256)
     lens = rng.integers(300, 701, 8)
@@ -455,21 +754,24 @@ def engine_phase(torch, rec, arch="qwen3-4b"):
                dup_page_streams_saved=st.dup_page_streams_saved,
                launches=launches, logits_finite=all_finite,
                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    res["gib_allocated"] = torch.cuda.memory_allocated() / 2**30
     log(f"engine: {done}/{len(reqs)} finished, {st.generated_tokens} tokens "
         f"in {wall:.2f} s = {res['tokens_per_s']:.1f} tok/s, TTFT p50 "
         f"{res['ttft_p50_s'] * 1e3:.1f} ms, TPOT p50 "
         f"{res['tpot_p50_s'] * 1e3:.2f} ms, prefix hit rate "
-        f"{res['prefix_hit_rate']:.3f}, {steps} steps, launches {launches}")
+        f"{res['prefix_hit_rate']:.3f}, {steps} steps, "
+        f"{res['gib_allocated']:.1f} GiB allocated, launches {launches}")
     check(done == len(reqs), "not every request finished")
     check(all_finite, "non-finite logits")
-    for k in ("kv_cache_write", "flash_chunk_prefill",
-              "paged_pool_decode_visits"):
-        check(launches[k] > 0, f"{k} never launched on the engine path")
-    rec["engine"] = res
-    del eng
+    for k in need4:
+        check(launches[k] > 0, f"{k} never launched on the {arch} engine")
+    rec[key] = res
+    params = eng.params if keep_params else None
+    del eng, run_model, checked
+    gc.collect()                    # the sampler hook closes a cycle
     torch.cuda.empty_cache()
 
-    # one lane: decode steps go through the per-lane kernel K2
+    # one lane, 4 layers: decode steps take the per-lane kernel
     cfg1 = cfg.replace(num_layers=4)
     eng1 = Engine(cfg1, coopt, EngineConfig(num_lanes=1, max_len=1024, seed=1),
                   device=DEV)
@@ -477,23 +779,85 @@ def engine_phase(torch, rec, arch="qwen3-4b"):
     outs = eng1.generate(prompts[:2], max_new_tokens=16)
     torch.cuda.synchronize()
     launches1 = dict(cuda.LAUNCHES)
-    log(f"engine (1 lane, 4 layers): {[len(o) for o in outs]} tokens, "
-        f"launches {launches1}")
+    log(f"engine ({arch}, 1 lane, 4 layers): {[len(o) for o in outs]} tokens,"
+        f" launches {launches1}")
     check(all(len(o) == 16 for o in outs), "one-lane engine did not finish")
-    check(launches1["paged_pool_decode"] > 0,
-          "paged_pool_decode never launched on the one-lane engine")
-    rec["engine_one_lane"] = dict(launches=launches1)
-    return launches, launches1
+    for k in need1:
+        check(launches1[k] > 0, f"{k} never launched on the one-lane engine")
+    rec[key + "_one_lane"] = dict(launches=launches1)
+    del eng1
+    torch.cuda.empty_cache()
+    return launches, launches1, params
+
+
+# ------------------------------------------------------- full prompt ----
+def full_prompt_phase(torch, rec, params, arch="qwen3-4b", S=2048,
+                      chunk=512):
+    """``TransformerModel.prefill`` of 2 prompts of ``S`` tokens with no
+    positions: the full-prompt path, K8 once per layer (K1 writes the
+    pool). The same prompts chunked through K1/K3 (``chunk`` tokens a call)
+    give the reference last-token logits. Both run with the bf16 pool
+    (Opt-KV off), so both attend the same K/V values and the comparison
+    holds the attention kernels, not the FP8 rounding."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.coopt import COOPT
+    from repro_torch.kernels import cuda
+    from repro_torch.models import get_model
+    cfg = get_config(arch)
+    model = get_model(cfg)
+    coopt = COOPT.replace(use_kernel=True, opt_kv=False)
+    B = 2
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (B, S)), dtype=torch.int32, device=DEV)
+    cache = model.init_cache(B, S, coopt, device=DEV)
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    full, _ = model.prefill(params, {"tokens": toks}, cache, coopt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cuda.LAUNCHES)
+    cache = model.init_cache(B, S, coopt, device=DEV)
+    for c0 in range(0, S, chunk):
+        pos = torch.arange(c0, c0 + chunk, dtype=torch.int32,
+                           device=DEV)[None].expand(B, chunk).contiguous()
+        chunked, _ = model.prefill(params, {"tokens": toks[:, c0:c0 + chunk],
+                                            "positions": pos}, cache, coopt)
+    torch.cuda.synchronize()
+    diff = (full.float() - chunked.float()).abs().max().item()
+    scale = chunked.float().abs().max().item()
+    same_top = (full.argmax(-1) == chunked.argmax(-1)).all().item()
+    finite = bool(torch.isfinite(full).all().item())
+    log(f"full prompt ({arch}, {B} x {S} tokens): {wall:.2f} s, launches "
+        f"{launches}; last-token logits vs {chunk}-token chunks: max |diff| "
+        f"{diff:.4f} (|logit| max {scale:.2f}, atol {LOGIT_ATOL}), "
+        f"bit-equal {torch.equal(full, chunked)}, argmax equal {same_top}")
+    rec["full_prompt"] = dict(arch=arch, B=B, S=S, wall_s=wall,
+                              launches=launches, max_logit_diff=diff,
+                              logit_max=scale, argmax_equal=same_top,
+                              bit_equal=torch.equal(full, chunked))
+    check(finite, "non-finite full-prompt logits")
+    check(launches["flash_prefill"] == cfg.num_layers,
+          "flash_prefill did not launch once per layer")
+    check(diff <= LOGIT_ATOL, "full-prompt and chunked logits differ")
+    return launches
 
 
 # ------------------------------------------------------- card vs CPU ----
-def parity_phase(torch, rec):
+def parity_phase(torch, rec, arch="qwen3-4b-reduced"):
+    """The same weights and prompts through ``Engine.generate`` on the card
+    (kernels) and on the CPU (their plain versions). A MoE router's top-k
+    is discontinuous: where two experts' probabilities nearly tie, a last-
+    bit difference upstream flips the route and that token's FFN output,
+    so a flip is allowed only at such a tie (``ROUTE_TIE``), and a row of
+    the step it happened in may then exceed the logit tolerance."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core.coopt import COOPT
     from repro_torch.models import get_model
+    from repro_torch.models import moe as moe_mod
     from repro_torch.serving import Engine, EngineConfig
-    cfg = get_config("qwen3-4b-reduced")
+    cfg = get_config(arch)
     coopt = COOPT.replace(use_kernel=True)
     params_cpu = get_model(cfg).init(seed=3, device="cpu")
     params_gpu = {"embed": params_cpu["embed"].to(DEV),
@@ -507,40 +871,133 @@ def parity_phase(torch, rec):
                for n in (20, 45, 70)] + [rng.integers(0, cfg.vocab_size, 90)]
     ecfg = EngineConfig(num_lanes=4, max_len=256,
                         prefill_buckets=(32, 64, 128))
-    outs, first = {}, {}
+    runs = {}
+    route = moe_mod._route
     for tag, dev, params in (("card", DEV, params_gpu),
                              ("cpu", "cpu", params_cpu)):
         eng = Engine(cfg, coopt, ecfg, params=params, device=dev)
-        run_model = eng._run_model
-        seen = []
+        run_model, sample, emit = eng._run_model, eng._sample, eng._emit
+        # per step: real-token mask, router probabilities of each MoE call,
+        # logits, and the tokens the step emitted {req: (token, logits row)}
+        r = dict(real=[], lanes=[], routes=[], logits=[], emits=[],
+                 firsts={})
 
-        def capture(sb, run_model=run_model, seen=seen):
-            logits = run_model(sb)
-            if not seen:
-                seen.append(logits.float().cpu())
-            return logits
-        eng._run_model = capture
-        outs[tag] = eng.generate(prompts, max_new_tokens=24)
-        first[tag] = seen[0]
-    diff = (first["card"] - first["cpu"]).abs().max().item()
-    scale = first["cpu"].abs().max().item()
-    toks = [(a == b) for oa, ob in zip(outs["card"], outs["cpu"])
+        def capture(sb, run_model=run_model, r=r):
+            r["real"].append((sb.batch["slot_idx"] >= 0).cpu())
+            r["lanes"].append({w.req.lane: w.req.req_id
+                               for w in sb.plan.prefill + sb.plan.decode})
+            r["routes"].append([])
+            return run_model(sb)
+
+        def keep(logits, sample=sample, r=r):
+            r["logits"].append(logits.float().cpu())
+            r["emits"].append({})
+            return sample(logits)
+
+        def note(req, tok, now, first, emit=emit, r=r):
+            row = r["logits"][-1][req.lane]
+            r["emits"][-1][req.req_id] = (tok, row)
+            if first and req.req_id not in r["firsts"]:   # first token's row
+                r["firsts"][req.req_id] = (tok, len(r["emits"]) - 1, row)
+            return emit(req, tok, now, first=first)
+
+        def spy(logits, top_k, capacity, r=r):
+            r["routes"][-1].append(torch.softmax(logits.float(), -1).cpu())
+            return route(logits, top_k, capacity)
+        eng._run_model, eng._sample, eng._emit = capture, keep, note
+        moe_mod._route = spy
+        try:
+            r["outs"] = eng.generate(prompts, max_new_tokens=24)
+        finally:
+            moe_mod._route = route
+        runs[tag] = r
+    card, cpu = runs["card"], runs["cpu"]
+    # the first step's rows of the lanes that sample in it
+    diff = max((card["emits"][0][q][1] - row).abs().max().item()
+               for q, (_, row) in cpu["emits"][0].items())
+    scale = cpu["logits"][0].abs().max().item()
+    # both runs schedule the same steps (token values never change a plan);
+    # a request's tokens are comparable until its own stream parts. Compare
+    # the routes of its real tokens (pads excluded) in every MoE call until
+    # then; flipped[req] = the steps in which one of its tokens flipped.
+    diverged, flipped, flips, worst_gap = set(), {}, 0, 0.0
+    k = cfg.top_k
+    for step in range(len(cpu["routes"])):
+        live = torch.zeros_like(cpu["real"][step])
+        for lane, q in cpu["lanes"][step].items():
+            live[lane] = q not in diverged
+        real = cpu["real"][step] & live
+        for pa, pb in zip(card["routes"][step], cpu["routes"][step]):
+            # top-k sets, ties to the lower index
+            sa = pa.sort(dim=-1, descending=True, stable=True) \
+                .indices[..., :k].sort(-1).values
+            srt = pb.sort(dim=-1, descending=True, stable=True)
+            sb = srt.indices[..., :k].sort(-1).values
+            moved = (sa != sb).any(-1) & real
+            if moved.any():
+                gap = (srt.values[..., k - 1] - srt.values[..., k])[moved]
+                flips += int(moved.sum())
+                worst_gap = max(worst_gap, gap.max().item())
+                for lane in moved.any(-1).nonzero().flatten().tolist():
+                    flipped.setdefault(cpu["lanes"][step][lane],
+                                       []).append(step)
+        for q, (t, _) in cpu["emits"][step].items():
+            if card["emits"][step][q][0] != t:
+                diverged.add(q)
+    row_diff, parted, excused = 0.0, [], []
+    for req, (tok, step, row) in cpu["firsts"].items():
+        mine, _, mrow = card["firsts"][req]
+        d = (mrow - row).abs().max().item()
+        flip = any(f <= step for f in flipped.get(req, ()))
+        if flip:
+            excused.append(req)
+        else:
+            row_diff = max(row_diff, d)
+        if mine != tok:
+            top = row.topk(2).values
+            parted.append(dict(req=req, gap=(top[0] - top[1]).item(),
+                               behind=(top[0] - row[mine]).item(),
+                               route_flip=flip))
+    toks = [(a == b) for oa, ob in zip(card["outs"], cpu["outs"])
             for a, b in zip(oa, ob)]
     agree = sum(toks) / len(toks)
-    first_tok = all(oa[0] == ob[0] for oa, ob in zip(outs["card"],
-                                                     outs["cpu"]))
-    log(f"card vs CPU (qwen3-4b-reduced): first-step max |logit diff| "
-        f"{diff:.4f} (|logit| max {scale:.2f}, atol {LOGIT_ATOL}), greedy "
-        f"agreement {agree:.3f}, first tokens equal {first_tok}")
-    rec["parity"] = dict(max_logit_diff=diff, logit_max=scale,
-                         greedy_agreement=agree, first_tokens_equal=first_tok)
-    check(diff <= LOGIT_ATOL, "card and CPU logits differ")
-    check(first_tok, "card and CPU disagree on a first greedy token")
+    log(f"card vs CPU ({arch}): first-step max |logit diff| {diff:.4f}, "
+        f"first-token rows {row_diff:.4f} (|logit| max {scale:.2f}, atol "
+        f"{LOGIT_ATOL}; rows after a route flip of the request not held: "
+        f"{excused}), MoE route flips before each request's stream parts: "
+        f"{flips} (widest router gap {worst_gap:.2e}, ROUTE_TIE "
+        f"{ROUTE_TIE:.2e}), "
+        f"greedy agreement {agree:.3f}, first tokens parted {parted}")
+    rec.setdefault("parity", {})[arch] = dict(
+        max_logit_diff=diff, first_token_rows_diff=row_diff,
+        logit_max=scale, route_flips=flips, widest_flip_gap=worst_gap,
+        rows_not_held=excused, greedy_agreement=agree,
+        first_tokens_parted=parted)
+    check(max(diff, row_diff) <= LOGIT_ATOL, "card and CPU logits differ")
+    check(worst_gap <= ROUTE_TIE, "a MoE route flipped away from a tie")
+    # a first token may part only at a near-tie the tolerance admits (the
+    # CPU's best two within 2 * LOGIT_ATOL, the card's pick among them) or
+    # in a step whose routes flipped at a tie
+    check(all(p["route_flip"] or (p["gap"] <= 2 * LOGIT_ATOL and
+                                  p["behind"] <= 2 * LOGIT_ATOL)
+              for p in parted),
+          "card and CPU disagree on a first greedy token")
+
+
+# which path's run each kernel's launch count is read from
+LAUNCH_PATH = {"kv_cache_write": "qwen3-4b", "flash_chunk_prefill": "qwen3-4b",
+               "paged_pool_decode_visits": "qwen3-4b",
+               "paged_pool_decode": "qwen3-4b one lane",
+               "latent_chunk_prefill": "deepseek-v2-lite-16b",
+               "paged_latent_decode_visits": "deepseek-v2-lite-16b",
+               "paged_latent_decode": "deepseek-v2-lite-16b one lane",
+               "flash_prefill": "qwen3-4b full prompt"}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("kernels", "engine", "parity"),
+    ap.add_argument("--only", choices=("kernels", "engine", "mla", "prefill",
+                                       "parity"),
                     help="run one phase (debugging; prints no result line)")
     args = ap.parse_args(argv)
     try:
@@ -564,8 +1021,16 @@ def main(argv=None) -> int:
     log(smi)
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
-    rec = {"card": smi}
+    rec = {"card": smi, "phase_s": {}}
     OUT.mkdir(exist_ok=True)
+    t_start = time.perf_counter()
+
+    def done(phase, t0):
+        rec["phase_s"][phase] = time.perf_counter() - t0
+        log(f"[{phase}: {rec['phase_s'][phase]:.1f} s, "
+            f"{time.perf_counter() - t_start:.1f} s since start]")
+
+    only = args.only
     try:
         t0 = time.perf_counter()
         cuda.build_all()
@@ -573,25 +1038,66 @@ def main(argv=None) -> int:
         log(f"kernels built in {rec['build_s']:.1f} s")
         (OUT / "build.log").write_text(
             "\n".join(f"== {n}\n{s}" for n, s in cuda.BUILD_LOG.items()))
-        kernels = launches = None
-        if args.only in (None, "kernels"):
-            kernels = kernel_phase(torch, rec)
-        if args.only in (None, "engine"):
-            launches, launches1 = engine_phase(torch, rec)
-        if args.only in (None, "parity"):
-            parity_phase(torch, rec)
+        kernels, paths = [], {}
+        if only in (None, "kernels"):
+            t0 = time.perf_counter()
+            time_ms = make_timer(torch)
+            kernels = kernel_phase(torch, rec, time_ms) + \
+                mla_kernel_phase(torch, rec, time_ms) + \
+                flash_prefill_kernel_phase(torch, rec, time_ms)
+            for k in kernels:
+                log(f"  {k['name']}: {k['ms']:.4f} ms (plain "
+                    f"{k['plain_ms']:.4f}, library {k['library_ms']:.4f}, "
+                    f"bound {k['bound_ms']:.4f} by {k['bound_by']})")
+            rec["kernels"] = kernels
+            del time_ms
+            torch.cuda.empty_cache()
+            done("kernels", t0)
+        params = None
+        if only in (None, "engine"):
+            t0 = time.perf_counter()
+            paths["qwen3-4b"], paths["qwen3-4b one lane"], params = \
+                engine_phase(torch, rec, "qwen3-4b", keep_params=True)
+            done("engine qwen3-4b", t0)
+        if only in (None, "prefill"):
+            t0 = time.perf_counter()
+            if params is None:
+                from repro_torch.configs import get_config
+                from repro_torch.models import get_model
+                params = get_model(get_config("qwen3-4b")).init(0, DEV)
+            paths["qwen3-4b full prompt"] = full_prompt_phase(torch, rec,
+                                                              params)
+            done("full prompt", t0)
+        params = None
+        torch.cuda.empty_cache()
+        if only in (None, "mla"):
+            t0 = time.perf_counter()
+            arch = "deepseek-v2-lite-16b"
+            paths[arch], paths[arch + " one lane"], _ = \
+                engine_phase(torch, rec, arch)
+            done("engine " + arch, t0)
+        if only in (None, "parity"):
+            t0 = time.perf_counter()
+            parity_phase(torch, rec, "qwen3-4b-reduced")
+            parity_phase(torch, rec, "deepseek-v2-lite-16b-reduced")
+            done("parity", t0)
+        if only is None:
+            for k in kernels:
+                k["launches"] = paths[LAUNCH_PATH[k["name"]]][k["name"]]
+                check(k["launches"] > 0, f"{k['name']} never launched on "
+                      f"its path ({LAUNCH_PATH[k['name']]})")
+            check(sorted(k["name"] for k in kernels) == sorted(LAUNCH_PATH),
+                  "the kernels line does not list every kernel")
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         (OUT / "chip_smoke.json").write_text(json.dumps(rec, indent=1))
         return 1
     finally:
         torch.cuda.synchronize()
+    rec["total_s"] = time.perf_counter() - t_start
     (OUT / "chip_smoke.json").write_text(json.dumps(rec, indent=1))
-    if args.only is not None:
+    if only is not None:
         return 0
-    for k in kernels:
-        k["launches"] = (launches1 if k["name"] == "paged_pool_decode"
-                         else launches)[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: x[k] for k in keys} for x in kernels]}))

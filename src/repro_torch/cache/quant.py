@@ -34,3 +34,24 @@ def dequantize_fp8(q: torch.Tensor, scale: torch.Tensor, dim: int = -1,
                    dtype=torch.bfloat16) -> torch.Tensor:
     """Eq. 6: k~ = dequant(k_fp8)."""
     return (q.float() * scale.unsqueeze(dim)).to(dtype)
+
+
+# ------------------------------------------------- MLA latent (dual-scale) --
+def quantize_latent(latent: torch.Tensor, lora_rank: int):
+    """MLA latent cache entry ``[c_kv | k_rope]`` (..., R+dr) -> FP8 with two
+    per-token scales (..., 2): column 0 scales the c_kv segment, column 1
+    the k_rope segment. The two segments come from different projections
+    with different dynamic ranges; one shared scale would crush the smaller
+    segment's mantissa."""
+    qc, sc = quantize_fp8(latent[..., :lora_rank])
+    qr, sr = quantize_fp8(latent[..., lora_rank:])
+    return torch.cat([qc, qr], dim=-1), torch.stack([sc, sr], dim=-1)
+
+
+def dequantize_latent(q: torch.Tensor, scales: torch.Tensor, lora_rank: int,
+                      dtype=torch.float32) -> torch.Tensor:
+    """Eq. 6 for the latent layout: (..., R+dr) fp8 + (..., 2) scales ->
+    the dequantized latent, c_kv and k_rope segments scaled separately."""
+    c = dequantize_fp8(q[..., :lora_rank], scales[..., 0], dtype=dtype)
+    r = dequantize_fp8(q[..., lora_rank:], scales[..., 1], dtype=dtype)
+    return torch.cat([c, r], dim=-1)

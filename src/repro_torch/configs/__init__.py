@@ -1,7 +1,8 @@
 """Config registry: ``get_config(arch_id)`` for the architectures ported so far.
 
-The port serves the dense family first; the other arch files arrive with
-their families (see ROADMAP.md), and asking for one raises ``KeyError``.
+The port serves the dense family and the MLA family (deepseek-v2-lite); the
+other arch files arrive with their families (see ROADMAP.md), and asking
+for one raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from repro_torch.configs.base import CacheConfig, ModelConfig, reduced
 # arch-id -> module name
 _ARCH_MODULES = {
     "qwen3-4b": "qwen3_4b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     # the paper's own evaluation model
     "llama13b-gptq": "llama13b_gptq",
 }

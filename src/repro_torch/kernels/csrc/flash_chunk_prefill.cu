@@ -29,16 +29,6 @@ constexpr int kWarps = 8;
 constexpr int kRpw = 4;                       // rows per warp
 constexpr int kTileRows = kWarps * kRpw;      // rows per block
 
-struct ChunkMask {
-  int base, ps, qpos, qseg, pseg, window, sink;
-  __device__ __forceinline__ bool operator()(int j) const {
-    const int kpos = base * ps + j;
-    bool ok = kpos <= qpos && qseg == pseg;
-    if (window) ok = ok && (kpos > qpos - window || kpos < sink * ps);
-    return ok;
-  }
-};
-
 struct ChunkArgs {
   const __nv_bfloat16* q;       // (B, S, Hq, D)
   const int* positions;         // (B, S)

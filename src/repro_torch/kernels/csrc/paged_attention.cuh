@@ -172,6 +172,19 @@ __device__ __forceinline__ void store_row(__nv_bfloat16* __restrict__ out,
     out[lane * DPL + i] = __float2bfloat16_rn(__fdiv_rn(acc[i], den));
 }
 
+// Chunk mask of K3 and K6: causal on absolute positions, the row's segment
+// equal to the page's (concat-prefill packing; key positions restart per
+// segment at page_base * ps), and the window + sink policy.
+struct ChunkMask {
+  int base, ps, qpos, qseg, pseg, window, sink;
+  __device__ __forceinline__ bool operator()(int j) const {
+    const int kpos = base * ps + j;
+    bool ok = kpos <= qpos && qseg == pseg;
+    if (window) ok = ok && (kpos > qpos - window || kpos < sink * ps);
+    return ok;
+  }
+};
+
 // Dynamic shared memory above the 48 KB default needs an opt-in per kernel.
 template <typename K>
 __host__ inline cudaError_t allow_smem(K kernel, size_t bytes) {

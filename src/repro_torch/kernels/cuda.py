@@ -24,18 +24,24 @@ from pathlib import Path
 from typing import Dict
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_HEADERS = ("paged_attention.cuh",)
+_HEADERS = ("paged_attention.cuh", "latent_attention.cuh")
 SOURCES = {                      # library -> source file
     "kv_cache_write": "kv_cache_write.cu",
     "paged_gqa_decode": "paged_gqa_decode.cu",
     "flash_chunk_prefill": "flash_chunk_prefill.cu",
+    "paged_latent_decode": "paged_latent_decode.cu",
+    "latent_chunk_prefill": "latent_chunk_prefill.cu",
+    "flash_prefill": "flash_prefill.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: Dict[str, int] = {"kv_cache_write": 0, "paged_pool_decode": 0,
                             "paged_pool_decode_visits": 0,
-                            "flash_chunk_prefill": 0}
+                            "flash_chunk_prefill": 0,
+                            "paged_latent_decode": 0,
+                            "paged_latent_decode_visits": 0,
+                            "latent_chunk_prefill": 0, "flash_prefill": 0}
 BUILD_LOG: Dict[str, str] = {}   # library -> nvcc output (ptxas -v report)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -47,11 +53,19 @@ _ARGTYPES = {
     "paged_pool_decode": [_P] * 9 + [_I] * 10 + [_F, _P],
     "paged_pool_decode_visits": [_P] * 10 + [_I] * 10 + [_F, _P],
     "flash_chunk_prefill": [_P] * 11 + [_I] * 11 + [_F, _P],
+    "paged_latent_decode": [_P] * 8 + [_I] * 9 + [_F, _P],
+    "paged_latent_decode_visits": [_P] * 9 + [_I] * 9 + [_F, _P],
+    "latent_chunk_prefill": [_P] * 10 + [_I] * 10 + [_F, _P],
+    "flash_prefill": [_P] * 4 + [_I] * 8 + [_F, _P],
 }
 _ENTRIES = {"kv_cache_write": ("kv_cache_write",),
             "paged_gqa_decode": ("paged_pool_decode",
                                  "paged_pool_decode_visits"),
-            "flash_chunk_prefill": ("flash_chunk_prefill",)}
+            "flash_chunk_prefill": ("flash_chunk_prefill",),
+            "paged_latent_decode": ("paged_latent_decode",
+                                    "paged_latent_decode_visits"),
+            "latent_chunk_prefill": ("latent_chunk_prefill",),
+            "flash_prefill": ("flash_prefill",)}
 
 
 def reset_launches() -> None:

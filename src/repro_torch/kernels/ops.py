@@ -1,9 +1,10 @@
 """Dispatch layer between the engine-facing cache layout and the kernels.
 
 The engine's cache is the GLOBAL paged pool — per-layer leaves
-``(2, P_total, ps, Hkv, D)`` with no batch dimension. These functions cut
-it into the kernels' k/v page views (zero-copy) and plug into
-``repro_torch.core`` when ``CoOptConfig.use_kernel`` is set. Each kernel
+``(2, P_total, ps, Hkv, D)`` with no batch dimension, or ``(P_total, ps,
+R+dr)`` latents for MLA. These functions cut it into the kernels' page
+views (zero-copy) and plug into ``repro_torch.core`` and
+``repro_torch.models.mla`` when ``CoOptConfig.use_kernel`` is set. Each kernel
 wrapper launches its CUDA kernel on CUDA tensors, raises if its library
 does not build, and runs its plain PyTorch version only for CPU tensors;
 nothing here catches an error and falls back.
@@ -12,9 +13,13 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.cache.quant import quantize_latent
 from repro_torch.kernels import flash_chunk_prefill as _fc
+from repro_torch.kernels import flash_prefill as _fp
 from repro_torch.kernels import kv_cache_write as _kw
+from repro_torch.kernels import latent_chunk_prefill as _lc
 from repro_torch.kernels import paged_gqa_decode as _pd
+from repro_torch.kernels import paged_latent_decode as _ld
 from repro_torch.kernels import visits as _vs
 
 
@@ -83,3 +88,73 @@ def paged_chunk_prefill(q, positions, kv_pages, scale_pages, phys_table, *,
         _i32(phys_table), opt_kv=opt_kv, opt_gqa=opt_gqa, window=window,
         sink_pages=sink_pages, seg_q=planes[0], page_seg=planes[1],
         page_base=planes[2])
+
+
+def latent_pool_write(lat_cache, scale_cache, latent, slot_idx, *,
+                      opt_kv: bool, lora_rank: int):
+    """MLA latent write: dual-scale quantization (``opt_kv``) and a flat-slot
+    scatter into the global latent pool, in place. lat_cache (P,ps,R+dr);
+    latent (B,S,R+dr); slot_idx (B,S), slots < 0 dropped (the JAX package
+    wraps them onto the pool's last line, which the BlockManager never
+    allocates). A plain scatter: the JAX package has no kernel here either.
+    Returns (lat_cache, scale_cache)."""
+    Pt, ps, W = lat_cache.shape
+    flat = lat_cache.view(Pt * ps, W)
+    slots = slot_idx.reshape(-1).long()
+    keep = (slots >= 0) & (slots < Pt * ps)
+    slots = slots[keep]
+    new = latent.reshape(-1, W)[keep]
+    if opt_kv:
+        q, sc = quantize_latent(new, lora_rank)
+        flat[slots] = q
+        scale_cache.view(Pt * ps, 2)[slots] = sc
+    else:
+        flat[slots] = new.to(flat.dtype)
+    return lat_cache, scale_cache
+
+
+def paged_latent_decode(q_lat, q_rope, lat_pages, scale_pages, cache_len,
+                        phys_table, log_table, *, sm_scale: float,
+                        opt_kv: bool, window: int = 0, sink_pages: int = 0,
+                        share_visits: bool = False):
+    """MLA absorbed decode over the global latent pool. q_lat (B,H,R) f32;
+    q_rope (B,H,dr) f32; lat_pages (P_total,ps,R+dr); scale_pages
+    (P_total,ps,2)|None; phys/log_table (B,NSel) int32 (-1 = never read).
+    With ``share_visits`` and 1 < B <= 32 the visit-list kernel K7 runs;
+    otherwise the per-lane kernel K5. Returns o_lat (B,H,R) f32."""
+    phys, log, cl = _i32(phys_table), _i32(log_table), _i32(cache_len)
+    q_lat, q_rope = q_lat.contiguous(), q_rope.contiguous()
+    if _use_visits(share_visits, q_lat.shape[0]):
+        vp, vm, vl = _vs.plan_visits(phys, log)
+        return _ld.paged_latent_decode_visits(
+            q_lat, q_rope, lat_pages, scale_pages, cl, vp, vm, vl,
+            sm_scale=sm_scale, opt_kv=opt_kv, window=window,
+            sink_pages=sink_pages)
+    return _ld.paged_latent_decode(
+        q_lat, q_rope, lat_pages, scale_pages, cl, phys, log,
+        sm_scale=sm_scale, opt_kv=opt_kv, window=window,
+        sink_pages=sink_pages)
+
+
+def latent_chunk_prefill(q_lat, q_rope, positions, lat_pages, scale_pages,
+                         phys_table, *, sm_scale: float, opt_kv: bool,
+                         window: int = 0, sink_pages: int = 0, seg_q=None,
+                         page_seg=None, page_base=None):
+    """MLA absorbed continuation prefill over the global latent pool (K6): a
+    chunk of absorbed queries q_lat (B,S,H,R) / q_rope (B,S,H,dr) with
+    absolute ``positions`` (B,S) attends the lane's cached latent pages
+    named by ``phys_table`` (B,NP; -1 = never read). The chunk's own
+    latents must already be written. Returns o_lat (B,S,H,R) f32."""
+    planes = [None if t is None else _i32(t)
+              for t in (seg_q, page_seg, page_base)]
+    return _lc.latent_chunk_prefill(
+        q_lat.contiguous(), q_rope.contiguous(), _i32(positions), lat_pages,
+        scale_pages, _i32(phys_table), sm_scale=sm_scale, opt_kv=opt_kv,
+        window=window, sink_pages=sink_pages, seg_q=planes[0],
+        page_seg=planes[1], page_base=planes[2])
+
+
+def flash_prefill(q, k, v, *, window: int = 0, q_offset: int = 0):
+    """Full-prompt causal attention over in-prompt K/V, no pool (K8)."""
+    return _fp.flash_prefill(q.contiguous(), k.contiguous(), v.contiguous(),
+                             window=window, q_offset=q_offset)

@@ -1,7 +1,8 @@
 """Carry a JAX parameter tree across to the port.
 
 The JAX package's param tree, as numpy arrays (``{"embed", "segments":
-[{stacked (L, ...) leaves}], "final_norm", "lm_head"}``), becomes the
+[{stacked (L, ...) leaves}], "final_norm", "lm_head"}``; one segment for a
+dense model, two for a MoE model with leading dense layers), becomes the
 port's dict of tensors, in the same ``(d_in, d_out)`` layout. A bf16 leaf
 arrives as an ``ml_dtypes.bfloat16`` array, which ``torch.from_numpy``
 rejects; it goes through float32, which is exact for bf16 -> f32 -> bf16.
@@ -38,6 +39,9 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
             raise ValueError(f"{key}: shape {tuple(t.shape)} != {shape}")
         return t
 
+    if len(tree["segments"]) != len(spec["segments"]):
+        raise ValueError(f"{len(tree['segments'])} segments, the model has "
+                         f"{len(spec['segments'])}")
     segs = []
     for seg_spec, seg in zip(spec["segments"], tree["segments"]):
         if set(seg) != set(seg_spec):

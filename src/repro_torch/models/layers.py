@@ -30,7 +30,7 @@ def init_param(shape, init: str, gen: torch.Generator, device,
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         std = 1.0 / math.sqrt(max(fan_in, 1))
     x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-    return (x * std).to(dtype)
+    return x.mul_(std).to(dtype)      # in place: one f32 copy at a time
 
 
 # ----------------------------------------------------------------------------

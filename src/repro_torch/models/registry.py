@@ -5,7 +5,8 @@ Every model exposes the engine-facing protocol of the JAX package:
   prefill(params, batch, cache, coopt)         — last-token logits + filled cache
   decode_step(params, batch, cache, coopt, long_window) — one-token step
   cache_shape(batch, max_len, coopt, ...) / init_cache(..., device)
-Only the ``dense`` family is ported; any other family raises.
+The ``dense`` and ``mla`` families are ported (``TransformerModel``); any
+other family raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -16,8 +17,5 @@ from repro_torch.configs.base import ModelConfig
 
 @lru_cache(maxsize=64)
 def get_model(cfg: ModelConfig):
-    if cfg.family == "dense":
-        from repro_torch.models.transformer import TransformerModel
-        return TransformerModel(cfg)
-    raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
-                              "(dense only)")
+    from repro_torch.models.transformer import TransformerModel
+    return TransformerModel(cfg)

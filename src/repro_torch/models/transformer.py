@@ -1,13 +1,18 @@
-"""Decoder-only transformer of the dense family (llama/qwen-style GQA), with
-paged KV caching and the three LLM-CoOpt techniques toggled by a
-``CoOptConfig``. The port of the JAX package's ``TransformerModel`` for the
-``dense`` family.
+"""Decoder-only transformer of the dense family (llama/qwen-style GQA) and
+the mla family (deepseek-v2: latent attention + MoE FFN), with paged KV
+caching and the three LLM-CoOpt techniques toggled by a ``CoOptConfig``.
+The port of the JAX package's ``TransformerModel`` for those families.
 
 Parameters are a plain dict of tensors in the JAX package's layout:
 ``{"embed", "segments": [{stacked (L, ...) leaves}], "final_norm",
-"lm_head"}``, weights ``(d_in, d_out)``. The JAX layer scan becomes a
-Python loop over per-layer views of the stacked leaves and of the stacked
-pool; cache writes update the pool in place.
+"lm_head"}``, weights ``(d_in, d_out)``; a MoE model has two segments (its
+leading dense-FFN layers, then the MoE layers). The JAX layer scan becomes
+a Python loop over per-layer views of the stacked leaves and of the
+stacked pool; cache writes update the pool in place.
+
+Cache layout per layer: dense ``kv (2, P, ps, Hkv, D)`` + ``scale (2, P,
+ps, Hkv)``; mla ``kv (P, ps, R+dr)`` (one latent per token, no K/V axis)
++ ``scale (P, ps, 2)`` (c_kv and k_rope scales).
 
 Step kinds:
   prefill     – chunked (``batch["positions"]`` given: the engine's mixed
@@ -27,9 +32,13 @@ from repro_torch.core.opt_kv import (identity_page_table, identity_slots,
                                      pool_layout, write_kv)
 from repro_torch.core.opt_pa import (paged_chunk_attention,
                                      paged_decode_attention)
+from repro_torch.models import mla as mla_mod
 from repro_torch.models.layers import (apply_rope, causal_attention,
                                        init_param, linear, repeat_kv, rmsnorm,
                                        swiglu)
+from repro_torch.models.moe import moe_ffn
+
+FAMILIES = ("dense", "mla")
 
 
 def check_device(device) -> torch.device:
@@ -42,39 +51,90 @@ def check_device(device) -> torch.device:
 
 
 class TransformerModel:
-    """Family: dense (yi/qwen/deepseek/llama)."""
+    """Families: dense (yi/qwen/deepseek/llama), mla (deepseek-v2)."""
 
     def __init__(self, cfg: ModelConfig):
-        if cfg.family != "dense":
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (dense only)")
+                f"family {cfg.family!r} is not ported yet (ported: "
+                f"{', '.join(FAMILIES)})")
         self.cfg = cfg
 
     # ------------------------------------------------------------- params --
+    def _segments(self):
+        """[(layer count, ffn kind)]: a MoE model's leading dense-FFN layers
+        form their own segment."""
+        cfg = self.cfg
+        moe = "moe" if cfg.num_experts else "dense"
+        if cfg.num_experts and cfg.first_dense_layers:
+            return [(cfg.first_dense_layers, "dense"),
+                    (cfg.num_layers - cfg.first_dense_layers, moe)]
+        return [(cfg.num_layers, moe)]
+
+    def _attn_shapes(self, L: int) -> Dict[str, Any]:
+        cfg = self.cfg
+        d, H, Hkv, D = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+            cfg.head_dim
+        bf, f32 = torch.bfloat16, torch.float32
+        s = {"ln1": ((L, d), "ones", f32)}
+        if cfg.family == "mla":
+            dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+            R, dv = cfg.kv_lora_rank, cfg.v_head_dim
+            s.update(wq=((L, d, H * (dn + dr)), "normal", bf),
+                     w_dkv=((L, d, R + dr), "normal", bf),
+                     kv_norm=((L, R), "ones", f32),
+                     w_uk=((L, R, H * dn), "normal", bf),
+                     w_uv=((L, R, H * dv), "normal", bf),
+                     wo=((L, H * dv, d), "normal", bf))
+            return s
+        s.update(wq=((L, d, H * D), "normal", bf),
+                 wk=((L, d, Hkv * D), "normal", bf),
+                 wv=((L, d, Hkv * D), "normal", bf),
+                 wo=((L, H * D, d), "normal", bf))
+        if cfg.qkv_bias:
+            s.update(bq=((L, H * D), "zeros", bf),
+                     bk=((L, Hkv * D), "zeros", bf),
+                     bv=((L, Hkv * D), "zeros", bf))
+        if cfg.qk_norm:
+            s.update(q_norm=((L, D), "ones", f32),
+                     k_norm=((L, D), "ones", f32))
+        return s
+
+    def _ffn_shapes(self, L: int, kind: str) -> Dict[str, Any]:
+        cfg = self.cfg
+        d = cfg.d_model
+        bf, f32 = torch.bfloat16, torch.float32
+        s = {"ln2": ((L, d), "ones", f32)}
+        if kind == "dense":
+            ff = cfg.d_ff
+            s.update(wg=((L, d, ff), "normal", bf),
+                     wu=((L, d, ff), "normal", bf),
+                     wd=((L, ff, d), "normal", bf))
+            return s
+        E, ff = cfg.num_experts, cfg.moe_d_ff
+        s.update(wr=((L, d, E), "normal", bf),
+                 wg_e=((L, E, d, ff), "normal", bf),
+                 wu_e=((L, E, d, ff), "normal", bf),
+                 wd_e=((L, E, ff, d), "normal", bf))
+        if cfg.num_shared_experts:
+            sf = ff * cfg.num_shared_experts
+            s.update(wg_s=((L, d, sf), "normal", bf),
+                     wu_s=((L, d, sf), "normal", bf),
+                     wd_s=((L, sf, d), "normal", bf))
+        return s
+
     def param_shapes(self) -> Dict[str, Any]:
         """Leaf -> (shape, init, dtype); segments hold stacked layers."""
         cfg = self.cfg
-        L, d = cfg.num_layers, cfg.d_model
-        H, Hkv, D, ff = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
+        d = cfg.d_model
         bf, f32 = torch.bfloat16, torch.float32
-        seg = {"ln1": ((L, d), "ones", f32),
-               "wq": ((L, d, H * D), "normal", bf),
-               "wk": ((L, d, Hkv * D), "normal", bf),
-               "wv": ((L, d, Hkv * D), "normal", bf),
-               "wo": ((L, H * D, d), "normal", bf)}
-        if cfg.qkv_bias:
-            seg.update(bq=((L, H * D), "zeros", bf),
-                       bk=((L, Hkv * D), "zeros", bf),
-                       bv=((L, Hkv * D), "zeros", bf))
-        if cfg.qk_norm:
-            seg.update(q_norm=((L, D), "ones", f32),
-                       k_norm=((L, D), "ones", f32))
-        seg.update(ln2=((L, d), "ones", f32),
-                   wg=((L, d, ff), "normal", bf),
-                   wu=((L, d, ff), "normal", bf),
-                   wd=((L, ff, d), "normal", bf))
+        segs = []
+        for count, kind in self._segments():
+            seg = self._attn_shapes(count)
+            seg.update(self._ffn_shapes(count, kind))
+            segs.append(seg)
         return {"embed": ((cfg.vocab_size, d), "embed", bf),
-                "segments": [seg],
+                "segments": segs,
                 "final_norm": ((d,), "ones", f32),
                 "lm_head": ((d, cfg.vocab_size), "normal", bf)}
 
@@ -108,13 +168,24 @@ class TransformerModel:
         leaves carry no batch dimension; ``length`` stays per-lane."""
         cfg = self.cfg
         P, ps = pool_layout(batch, max_len, coopt, cache_cfg)
-        Hkv, D = cfg.num_kv_heads, cfg.head_dim
-        out = {"kv": ((cfg.num_layers, 2, P, ps, Hkv, D), coopt.kv_dtype,
-                      ("layers", None, "pages", None, "kv_heads",
-                       "head_dim"))}
-        if coopt.opt_kv:
-            out["scale"] = ((cfg.num_layers, 2, P, ps, Hkv), torch.float32,
-                            ("layers", None, "pages", None, "kv_heads"))
+        L = cfg.num_layers
+        if cfg.family == "mla":
+            # one latent per token; two scales per token (c_kv and k_rope
+            # magnitudes differ, a shared scale would crush the smaller)
+            width = cfg.kv_lora_rank + cfg.qk_rope_head_dim
+            out = {"kv": ((L, P, ps, width), coopt.kv_dtype,
+                          ("layers", "pages", None, "latent"))}
+            if coopt.opt_kv:
+                out["scale"] = ((L, P, ps, 2), torch.float32,
+                                ("layers", "pages", None, None))
+        else:
+            Hkv, D = cfg.num_kv_heads, cfg.head_dim
+            out = {"kv": ((L, 2, P, ps, Hkv, D), coopt.kv_dtype,
+                          ("layers", None, "pages", None, "kv_heads",
+                           "head_dim"))}
+            if coopt.opt_kv:
+                out["scale"] = ((L, 2, P, ps, Hkv), torch.float32,
+                                ("layers", None, "pages", None, "kv_heads"))
         out["length"] = ((batch,), torch.int32, ("batch",))
         return out
 
@@ -150,9 +221,12 @@ class TransformerModel:
         return apply_rope(q, positions, cfg.rope_theta)
 
     def _new_kv(self, p, x, positions):
-        """Per-token cache entries (B,S,Hkv,D) of a decode token or chunk."""
+        """Per-token cache entries of a decode token or chunk: (k, v) of
+        shape (B,S,Hkv,D), or (latent (B,S,R+dr), None) for MLA."""
         cfg = self.cfg
         B, S, _ = x.shape
+        if cfg.family == "mla":
+            return mla_mod.mla_project(x, p, cfg, positions)[2], None
         Hkv, D = cfg.num_kv_heads, cfg.head_dim
         k = linear(x, p["wk"], p.get("bk")).reshape(B, S, Hkv, D)
         v = linear(x, p["wv"], p.get("bv")).reshape(B, S, Hkv, D)
@@ -161,15 +235,27 @@ class TransformerModel:
         return apply_rope(k, positions, cfg.rope_theta), v
 
     def _attention_full(self, p, x, positions, coopt: CoOptConfig):
-        """Full-sequence attention (non-chunked prefill). Returns (out, k, v)."""
+        """Full-sequence attention (non-chunked prefill). Returns (out, k, v):
+        the per-token cache entries, (latent, None) for MLA."""
         cfg = self.cfg
         B, S, _ = x.shape
         H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        if cfg.family == "mla":
+            qn, qr, latent = mla_mod.mla_project(x, p, cfg, positions)
+            o = mla_mod.mla_full_attention(qn, qr, latent, p, cfg,
+                                           window=cfg.attn_window)
+            return linear(o.reshape(B, S, -1), p["wo"]), latent, None
         q, k, v = self._qkv(p, x, positions)
-        if coopt.use_kernel and x.is_cuda:
-            # the JAX package runs its flash_prefill kernel here (K8)
-            raise NotImplementedError("flash_prefill (K8) not yet ported")
-        if coopt.opt_gqa or Hkv == H:
+        if coopt.use_kernel:
+            # K8: flash_prefill (its plain version on CPU tensors)
+            from repro_torch.kernels import ops
+            if coopt.opt_gqa or Hkv == H:
+                o = ops.flash_prefill(q, k, v, window=cfg.attn_window)
+            else:
+                o = ops.flash_prefill(q, repeat_kv(k, H // Hkv),
+                                      repeat_kv(v, H // Hkv),
+                                      window=cfg.attn_window)
+        elif coopt.opt_gqa or Hkv == H:
             o = causal_attention(q, k, v, window=cfg.attn_window)
         else:  # Original: KV physically expanded per query head (Fig. 2)
             o = causal_attention(q, repeat_kv(k, H // Hkv),
@@ -186,9 +272,17 @@ class TransformerModel:
         with prefill chunks in one call)."""
         cfg = self.cfg
         B, S, _ = x.shape
+        window = cfg.attn_window or long_window
+        if cfg.family == "mla":
+            qn, qr = mla_mod.mla_query(x, p, cfg, positions)
+            o = mla_mod.mla_chunk_attention(
+                qn, qr, kv_c, sc_c, positions, page_table, p, cfg, coopt,
+                window=window, sink_pages=cfg.sink_blocks, seg_q=seg_q,
+                page_seg=page_seg, page_base=page_base)
+            return linear(o.reshape(B, S, -1), p["wo"])
         q = self._query(p, x, positions)
         o = paged_chunk_attention(q, kv_c, sc_c, positions, page_table,
-                                  coopt, window=cfg.attn_window or long_window,
+                                  coopt, window=window,
                                   sink_pages=cfg.sink_blocks, seg_q=seg_q,
                                   page_seg=page_seg, page_base=page_base)
         return linear(o.reshape(B, S, -1).to(x.dtype), p["wo"])
@@ -199,29 +293,53 @@ class TransformerModel:
         new token already written). Returns the projected output (B,1,d)."""
         cfg = self.cfg
         B = x.shape[0]
+        window = cfg.attn_window or long_window
+        if cfg.family == "mla":
+            qn, qr = mla_mod.mla_query(x, p, cfg, positions)
+            o = mla_mod.mla_paged_decode(
+                qn[:, 0], qr[:, 0], kv_c, sc_c, new_len, p, cfg, coopt,
+                window=window, sink_pages=cfg.sink_blocks,
+                page_table=page_table)
+            return linear(o.reshape(B, 1, -1), p["wo"])
         q = self._query(p, x, positions)
         o = paged_decode_attention(
-            q[:, 0], kv_c, sc_c, new_len, coopt=coopt,
-            window=cfg.attn_window or long_window,
+            q[:, 0], kv_c, sc_c, new_len, coopt=coopt, window=window,
             sink_pages=cfg.sink_blocks, page_table=page_table)
         return linear(o.reshape(B, 1, -1), p["wo"])
 
-    def _ffn(self, p, x):
-        return swiglu(x, p["wg"], p["wu"], p["wd"])
+    def _ffn(self, p, x, kind, coopt: CoOptConfig):
+        cfg = self.cfg
+        if kind == "dense":
+            return swiglu(x, p["wg"], p["wu"], p["wd"])
+        shared = ((p["wg_s"], p["wu_s"], p["wd_s"])
+                  if cfg.num_shared_experts else None)
+        return moe_ffn(x, p["wr"], p["wg_e"], p["wu_e"], p["wd_e"],
+                       top_k=cfg.top_k, shared=shared,
+                       capacity_factor=coopt.moe_capacity_factor)
+
+    def _write_layer(self, kv_c, sc_c, new_a, new_b, slots, coopt):
+        """Write one layer's cache entries (GLOBAL flat slots; < 0 dropped).
+        MLA: new_a = latents (B,S,R+dr) into kv_c (P,ps,R+dr)."""
+        if self.cfg.family == "mla":
+            from repro_torch.kernels import ops
+            return ops.latent_pool_write(kv_c, sc_c, new_a, slots,
+                                         opt_kv=coopt.opt_kv,
+                                         lora_rank=self.cfg.kv_lora_rank)
+        return write_kv(kv_c, sc_c, new_a, new_b, slots, coopt)
 
     def _layers(self, params, cache, coopt):
-        """Per-layer (params, kv, scale) views of the stacked leaves."""
+        """Per-layer (params, kv, scale, ffn kind) views of the stacked
+        leaves."""
         i = 0
-        for seg in params["segments"]:
-            count = next(iter(seg.values())).shape[0]
+        for seg, (count, kind) in zip(params["segments"], self._segments()):
             for j in range(count):
                 yield ({k: v[j] for k, v in seg.items()}, cache["kv"][i],
-                       cache["scale"][i] if coopt.opt_kv else None)
+                       cache["scale"][i] if coopt.opt_kv else None, kind)
                 i += 1
 
     def _pool_defaults(self, cache, batch, B, device):
         """(page_table, total_pages) — batch-provided or lane-identity."""
-        P_total = cache["kv"].shape[2]
+        P_total = cache["kv"].shape[1 if self.cfg.family == "mla" else 2]
         pt = batch.get("page_table")
         if pt is None:
             pt = identity_page_table(B, P_total, device)
@@ -263,20 +381,21 @@ class TransformerModel:
         page_seg = batch.get("page_seg")
         page_base = batch.get("page_base")
 
-        for pl, kv_c, sc_c in self._layers(params, cache, coopt):
+        for pl, kv_c, sc_c, kind in self._layers(params, cache, coopt):
             x = rmsnorm(h, pl["ln1"], cfg.norm_eps)
             if chunked:
                 k, v = self._new_kv(pl, x, positions)
-                write_kv(kv_c, sc_c, k, v, slots, coopt)
+                self._write_layer(kv_c, sc_c, k, v, slots, coopt)
                 a = self._attention_chunk(pl, x, positions, kv_c, sc_c,
                                           page_table, coopt, long_window,
                                           seg_q=seg_q, page_seg=page_seg,
                                           page_base=page_base)
             else:
                 a, k, v = self._attention_full(pl, x, positions, coopt)
-                write_kv(kv_c, sc_c, k, v, slots, coopt)
+                self._write_layer(kv_c, sc_c, k, v, slots, coopt)
             h = h + a
-            h = h + self._ffn(pl, rmsnorm(h, pl["ln2"], cfg.norm_eps))
+            h = h + self._ffn(pl, rmsnorm(h, pl["ln2"], cfg.norm_eps), kind,
+                              coopt)
         cache["length"] = new_len
         h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
         last = batch.get("last_pos")
@@ -316,14 +435,15 @@ class TransformerModel:
             new_len = cache["length"] + 1
         new_len = new_len.to(torch.int32)
 
-        for pl, kv_c, sc_c in self._layers(params, cache, coopt):
+        for pl, kv_c, sc_c, kind in self._layers(params, cache, coopt):
             x = rmsnorm(h, pl["ln1"], cfg.norm_eps)
             k, v = self._new_kv(pl, x, positions)
-            write_kv(kv_c, sc_c, k, v, slots, coopt)
+            self._write_layer(kv_c, sc_c, k, v, slots, coopt)
             h = h + self._attention_decode(pl, x, kv_c, sc_c, positions,
                                            new_len, page_table, coopt,
                                            long_window)
-            h = h + self._ffn(pl, rmsnorm(h, pl["ln2"], cfg.norm_eps))
+            h = h + self._ffn(pl, rmsnorm(h, pl["ln2"], cfg.norm_eps), kind,
+                              coopt)
         cache["length"] = new_len
         h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
         return linear(h[:, 0], params["lm_head"]), cache

@@ -157,14 +157,133 @@ def test_launch_counts(dev):
     assert cuda.LAUNCHES["paged_pool_decode"] == 0
 
 
-def test_full_prefill_kernel_path_raises_until_k8_is_ported(dev):
+def test_full_prefill_kernel_path_launches_k8(dev):
+    """The dense full-prompt prefill with ``use_kernel`` runs K8 once per
+    layer, and K1 beside it."""
     from repro_torch.configs import get_config
     from repro_torch.core.coopt import COOPT
     from repro_torch.models import get_model
-    model = get_model(get_config("qwen3-4b-reduced"))
+    cfg = get_config("qwen3-4b-reduced")
+    model = get_model(cfg)
     coopt = COOPT.replace(use_kernel=True)
     params = model.init(0, dev)
     cache = model.init_cache(1, 64, coopt, device=dev)
     toks = torch.zeros((1, 8), dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError, match="K8"):
-        model.prefill(params, {"tokens": toks}, cache, coopt)
+    cuda.reset_launches()
+    logits, _ = model.prefill(params, {"tokens": toks}, cache, coopt)
+    torch.cuda.synchronize()
+    assert torch.isfinite(logits).all()
+    assert cuda.LAUNCHES["flash_prefill"] == cfg.num_layers
+    assert cuda.LAUNCHES["kv_cache_write"] == cfg.num_layers
+
+
+# ------------------------------------------------ MLA latent kernels ------
+# K5 and K6 return f32: kernel and plain version sum in f32 in different
+# orders (FMA chains and warp butterflies against PyTorch's reductions), a
+# few f32 ulps apart. LAT_RTOL / LAT_ATOL (as in chip_smoke.py) are far
+# tighter than the bf16 criterion.
+LAT_RTOL, LAT_ATOL = 2 ** -12, 2 ** -16
+
+
+def _latent_pool(dev, P, ps, R, dr, opt_kv, seed=0):
+    from repro_torch.cache.quant import quantize_latent
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lat = torch.randn((P, ps, R + dr), generator=g, device=dev)
+    if opt_kv:
+        return quantize_latent(lat, R)
+    return lat.to(torch.bfloat16), None
+
+
+def _latent_q(dev, shape, dr, seed=1):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(shape, generator=g, device=dev),
+            torch.randn(shape[:-1] + (dr,), generator=g, device=dev))
+
+
+@pytest.mark.parametrize("R,dr", [(512, 64), (64, 32)])
+@pytest.mark.parametrize("opt_kv,window,sink", [
+    (True, 0, 0), (False, 0, 0), (True, 48, 1), (True, 40, 2)])
+@pytest.mark.parametrize("shared", [False, True])
+def test_latent_decode_kernels(dev, R, dr, opt_kv, window, sink, shared):
+    """K5 vs its plain version within LAT_RTOL/LAT_ATOL; K7 bit-identical
+    to K5, with lanes sharing a prefix and without."""
+    from repro_torch.kernels import paged_latent_decode as ld
+    B, NP, ps, H = 4, 6, 32, 16
+    lat, sc = _latent_pool(dev, B * NP + 1, ps, R, dr, opt_kv)
+    table = torch.arange(B * NP, device=dev, dtype=torch.int32).reshape(B, NP)
+    if shared:
+        table[1:3, :2] = table[0, :2]
+    cl = torch.tensor([NP * ps, 150, 70, 33], dtype=torch.int32, device=dev)
+    phys, log = decode_page_select(cl, table, ps, window=window,
+                                   sink_pages=sink)
+    ql, qr = _latent_q(dev, (B, H, R), dr)
+    kw = dict(sm_scale=0.07, opt_kv=opt_kv, window=window, sink_pages=sink)
+    k5 = ld.paged_latent_decode(ql, qr, lat, sc, cl, phys, log, **kw)
+    plain = ld.paged_latent_decode_ref(ql, qr, lat, sc, cl, phys, log, **kw)
+    vp, vm, vl = visits.plan_visits(phys, log)
+    k7 = ld.paged_latent_decode_visits(ql, qr, lat, sc, cl, vp, vm, vl, **kw)
+    torch.cuda.synchronize()
+    assert k5.dtype == torch.float32
+    torch.testing.assert_close(k5, plain, rtol=LAT_RTOL, atol=LAT_ATOL)
+    assert torch.equal(k7, k5)
+
+
+@pytest.mark.parametrize("R,dr", [(512, 64), (64, 32)])
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("opt_kv,window", [(True, 0), (False, 0), (True, 40)])
+def test_latent_chunk_kernel(dev, opt_kv, window, packed, R, dr):
+    """K6 vs its plain version within LAT_RTOL/LAT_ATOL: a chunk lane and
+    decode lanes. ``packed``: lane 0's row holds two prompts as segments
+    (24 rows at [0, 24) and 12 rows at [30, 42) whose page_base restarts at
+    0, then 4 pad rows of segment -1), its table interleaving the two
+    segments' pages; the pad rows are exactly 0."""
+    from repro_torch.kernels import latent_chunk_prefill as lc
+    B, NP, ps, H, S = 3, 5, 32, 16, 40
+    lat, sc = _latent_pool(dev, B * NP, ps, R, dr, opt_kv)
+    table = torch.arange(B * NP, device=dev, dtype=torch.int32).reshape(B, NP)
+    table[2, -1] = -1
+    i32 = dict(dtype=torch.int32, device=dev)
+    pos = torch.empty((B, S), **i32)
+    pos[0] = torch.arange(100, 100 + S, device=dev)
+    pos[1] = 60
+    pos[2] = 127
+    planes = {}
+    if packed:
+        pos[0] = torch.cat([torch.arange(24, **i32),
+                            torch.arange(30, 42, **i32),
+                            torch.full((4,), 41, **i32)])
+        seg_q = torch.zeros((B, S), **i32)
+        seg_q[0, 24:36] = 1
+        seg_q[0, 36:] = -1
+        table[0] = torch.tensor([0, 1, 2, 3, -1], **i32)
+        page_seg = torch.zeros((B, NP), **i32)
+        page_seg[0] = torch.tensor([0, 1, 1, 0, 0], **i32)
+        page_base = torch.arange(NP, **i32).repeat(B, 1).contiguous()
+        page_base[0] = torch.tensor([0, 0, 1, 1, 0], **i32)
+        planes = dict(seg_q=seg_q, page_seg=page_seg, page_base=page_base)
+    ql, qr = _latent_q(dev, (B, S, H, R), dr)
+    kw = dict(sm_scale=0.07, opt_kv=opt_kv, window=window, sink_pages=1,
+              **planes)
+    got = ops.latent_chunk_prefill(ql, qr, pos, lat, sc, table, **kw)
+    plain = lc.latent_chunk_prefill_ref(ql, qr, pos, lat, sc, table, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, plain, rtol=LAT_RTOL, atol=LAT_ATOL)
+    if packed:
+        assert torch.all(got[0, 36:] == 0)            # pad rows see no key
+
+
+@pytest.mark.parametrize("S,T,Hq,Hkv,D,window,q_offset", [
+    (256, 256, 32, 8, 128, 0, 0), (200, 200, 8, 8, 64, 0, 0),
+    (256, 256, 32, 8, 128, 100, 0), (64, 320, 16, 4, 128, 96, 256)])
+def test_flash_prefill_kernel(dev, S, T, Hq, Hkv, D, window, q_offset):
+    """K8 vs its plain version within one bf16 ulp, with a window and a
+    q_offset (queries at the last S of T positions)."""
+    from repro_torch.kernels import flash_prefill as fp
+    g = torch.Generator(device=dev).manual_seed(2)
+    q, k, v = (torch.randn(s, generator=g, device=dev).bfloat16()
+               for s in ((2, S, Hq, D), (2, T, Hkv, D), (2, T, Hkv, D)))
+    got = ops.flash_prefill(q, k, v, window=window, q_offset=q_offset)
+    plain = fp.flash_prefill_ref(q, k, v, window=window, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    _assert_close(got, plain)

@@ -27,4 +27,7 @@ def test_no_jax_or_repro_import(path):
 
 def test_guard_sees_the_package():
     names = {p.name for p in FILES}
-    assert {"engine.py", "ops.py", "transformer.py", "chip_smoke.py"} <= names
+    assert {"engine.py", "ops.py", "transformer.py", "chip_smoke.py",
+            "mla.py", "moe.py", "deepseek_v2_lite_16b.py",
+            "paged_latent_decode.py", "latent_chunk_prefill.py",
+            "flash_prefill.py"} <= names

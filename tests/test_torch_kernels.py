@@ -360,3 +360,37 @@ def test_wrappers_raise_on_unsupported_device():
                               torch.zeros((1, 2), dtype=torch.int32,
                                           device="meta"),
                               opt_kv=True, opt_gqa=True)
+
+
+# ------------------------------------------------------------------ K8 ----
+@pytest.mark.parametrize("S,T,Hq,Hkv,D,window,q_offset", [
+    (128, 128, 8, 2, 64, 0, 0),
+    (128, 128, 8, 2, 64, 32, 0),
+    (64, 64, 4, 1, 128, 0, 0),          # MQA
+    (96, 96, 14, 2, 64, 0, 0),          # odd G = 7, a ragged key block
+    (32, 96, 4, 4, 64, 40, 64),         # q_offset: the last 32 of 96 keys
+])
+def test_flash_prefill_plain_matches_pallas_and_oracle(S, T, Hq, Hkv, D,
+                                                       window, q_offset):
+    """K8 plain vs the interpret kernel (KERNEL_ATOL) and the flat oracle
+    (KERNEL_ATOL), and the port's oracle vs the JAX one."""
+    from repro.kernels import flash_prefill as jfp
+    from repro_torch.kernels.flash_prefill import flash_prefill_ref
+    rng = np.random.default_rng(9)
+    B = 2
+    (jq, tq), (jk, tk), (jv, tv) = (
+        _bf16(rng.standard_normal(s).astype(np.float32))
+        for s in ((B, S, Hq, D), (B, T, Hkv, D), (B, T, Hkv, D)))
+    got = ops.flash_prefill(tq, tk, tv, window=window, q_offset=q_offset)
+    assert got.dtype == torch.bfloat16
+    if q_offset == 0:                 # the Pallas tiling wants S == T
+        kern = jfp.flash_prefill(jq, jk, jv, window=window, block_q=64,
+                                 block_k=32, interpret=True)
+        np.testing.assert_allclose(_t2n(got), _f32(kern), atol=KERNEL_ATOL)
+    oracle = jref.flash_prefill_ref(jq, jk, jv, window=window,
+                                    q_offset=q_offset)
+    np.testing.assert_allclose(_t2n(got), _f32(oracle), atol=KERNEL_ATOL)
+    mine = ref.flash_prefill_ref(tq, tk, tv, window=window, q_offset=q_offset)
+    np.testing.assert_allclose(_t2n(mine), _f32(oracle), atol=KERNEL_ATOL)
+    assert torch.equal(flash_prefill_ref(tq, tk, tv, window=window,
+                                         q_offset=q_offset), got)

@@ -102,9 +102,9 @@ def test_prefill_and_decode_logits_match_jax(weights, mode, long_window,
 
 
 def test_full_prefill_matches_jax(weights):
-    """The non-chunked prefill (full causal attention) matches JAX. Its
-    kernel (K8, flash_prefill) is not ported: with ``use_kernel`` on a CUDA
-    tensor it raises (tests/test_torch_cuda.py)."""
+    """The non-chunked prefill (full causal attention) matches JAX. With
+    ``use_kernel`` it runs K8, flash_prefill (test below; on the card in
+    tests/test_torch_cuda.py)."""
     jparams, params = weights
     cfg, jcfg = get_config(ARCH), jget_config(ARCH)
     coopt = MODES["coopt"].replace(page_size=16)
@@ -118,6 +118,28 @@ def test_full_prefill_matches_jax(weights):
         get_model(cfg).init_cache(2, 64, coopt, device="cpu"), coopt)
     np.testing.assert_allclose(tl.float().numpy(), np.asarray(jl, np.float32),
                                atol=LOGIT_ATOL)
+
+
+@pytest.mark.parametrize("mode", ["coopt", "original"])
+def test_full_prefill_kernel_path_matches_jax(weights, mode):
+    """The full-prompt prefill with ``use_kernel``: the port's K8 wrapper
+    (its plain version on CPU tensors) against JAX's flash_prefill kernel in
+    interpret mode; ``original`` expands K/V per query head (G = 1)."""
+    jparams, params = weights
+    cfg, jcfg = get_config(ARCH), jget_config(ARCH)
+    coopt = MODES[mode].replace(page_size=16, use_kernel=True)
+    jcoopt = JMODES[mode].replace(page_size=16, use_kernel=True)
+    toks = np.random.default_rng(2).integers(0, 512, (2, 32)).astype(np.int32)
+    jmodel, model = jget_model(jcfg), get_model(cfg)
+    jl, jcache = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks)},
+                                jmodel.init_cache(2, 64, jcoopt), jcoopt)
+    tl, cache = model.prefill(params, {"tokens": torch.from_numpy(toks)},
+                              model.init_cache(2, 64, coopt, device="cpu"),
+                              coopt)
+    np.testing.assert_allclose(tl.float().numpy(), np.asarray(jl, np.float32),
+                               atol=LOGIT_ATOL)
+    np.testing.assert_array_equal(cache["length"].numpy(),
+                                  np.asarray(jcache["length"]))
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked_for():
