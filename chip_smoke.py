@@ -20,7 +20,10 @@ Phases:
      control (one key masked off, or the packing planes dropped) that must
      fall outside its tolerance. Then each kernel's time (CUDA events, cold
      L2), the plain version's, a library call's that computes the same
-     function, and the least time the card could take (``bound_ms``).
+     function, and the least time the card could take (``bound_ms``),
+     with the achieved rate (the bound's operations over the time) and the
+     share of the bound. K3 is also timed over the pool dequantized to
+     bf16, and its chunk lane apart from its decode lanes.
   3. ``Engine.generate`` on qwen3-4b at full width and depth (random
      weights from a seed) in coopt mode with the kernels: 8 greedy
      requests, 4 sharing a 256-token prefix; K1, K3 and K4 must launch.
@@ -65,7 +68,8 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor cores
 F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
 # Attention outputs are bf16 roundings of f32 sums that the kernel (FMA
-# chains, warp butterflies) and PyTorch take in different orders, so the two
+# chains and warp butterflies, or tensor-core tiles with P carried as two
+# bf16 terms) and PyTorch take in different orders, so the two
 # may round to neighbouring bf16 values: |kernel - plain| <= ATTN_ATOL +
 # ATTN_RTOL * |plain| admits one bf16 ulp anywhere in a binade (an ulp is
 # 2**-8 to 2**-7 of |x|) and nothing near zero beyond 2**-14. Each check
@@ -83,7 +87,8 @@ LAT_ATOL = 2 ** -16
 # CPU's bf16 GEMMs round differently, a few bf16 ulps of |logit| ~ 4. The
 # full-prompt phase holds qwen3-4b's last-token logits (K8 against K3 over
 # a bf16 pool) to the same bound; K8's 64-key blocks and K3's 64-token
-# pages run the same row update in the same order, so they agree exactly.
+# pages run the same tensor-core tile update (``mma::RowTile``) in the same
+# order, so they should agree exactly; that is read, not required.
 LOGIT_ATOL = 0.125
 # A greedy near-tie: the CPU's best two logits within NEAR_TIE, the card's
 # pick among them (the CPU tests' rule against the JAX package).
@@ -151,9 +156,12 @@ def tol_ratio(got, plain, rtol=ATTN_RTOL, atol=ATTN_ATOL):
 
 
 def bound(bytes_moved, flops, rate):
+    """The least time the card could take (``bound_ms``), what bounds it,
+    and the operations counted (``flops``, for the achieved rate)."""
     tb = bytes_moved / HBM_BYTES_PER_S * 1e3
     tf = flops / rate * 1e3
-    return (tb, "bytes") if tb >= tf else (tf, "operations")
+    return dict(bound_ms=max(tb, tf), bound_by="bytes" if tb >= tf
+                else "operations", flops=flops)
 
 
 # -------------------------------------------------------------- kernels --
@@ -235,12 +243,12 @@ def kernel_phase(torch, rec, time_ms):
         opt_kv=True))
     t_lib = time_ms(lambda: flat_a[0].view(torch.uint8).index_copy_(
         0, ok_slots, rows_q))
-    bms, by = bound(k1_bytes, k1_ops, F32_FLOPS)
+    bnd = bound(k1_bytes, k1_ops, F32_FLOPS)
     out.append(dict(name="kv_cache_write", route="cuda",
                     source="src/repro_torch/kernels/csrc/kv_cache_write.cu",
                     replaces="src/repro/kernels/kv_cache_write.py:59",
                     max_abs_err=err1, ms=t_kernel, plain_ms=t_plain,
-                    bound_ms=bms, bound_by=by, library_ms=t_lib,
+                    **bnd, library_ms=t_lib,
                     library="index_copy_ of the pre-quantized K rows "
                             "(scatter only)",
                     shape=f"B={B} S={S} Hkv={Hkv} D={D}, {valid} valid"))
@@ -301,7 +309,7 @@ def kernel_phase(torch, rec, time_ms):
                                               enable_gqa=True)
     lib_err = (sdpa_decode()[:, :, 0].float() - p2.float()).abs().max().item()
     t_lib = time_ms(sdpa_decode)
-    bms, by = bound(dec_bytes, dec_flops, BF16_FLOPS)
+    bnd = bound(dec_bytes, dec_flops, BF16_FLOPS)
     for name, fn, plain, err, line in (
             ("paged_pool_decode",
              lambda: pd.paged_pool_decode(q, kv[0], kv[1], sc[0], sc[1],
@@ -326,7 +334,7 @@ def kernel_phase(torch, rec, time_ms):
                         replaces=f"src/repro/kernels/paged_gqa_decode.py:{line}",
                         max_abs_err=err, ms=time_ms(fn),
                         plain_ms=time_ms(plain, iters=5, warmup=1),
-                        bound_ms=bms, bound_by=by, library_ms=t_lib,
+                        **bnd, library_ms=t_lib,
                         library="F.scaled_dot_product_attention on "
                                 "pre-gathered dequantized bf16 K/V "
                                 f"(max |lib - plain| {lib_err:.3e})",
@@ -411,7 +419,7 @@ def kernel_phase(torch, rec, time_ms):
                                               enable_gqa=True)
     lib_err3 = (sdpa_chunk().transpose(1, 2).float() - p3.float()).abs() \
         .max().item()
-    bms, by = bound(chunk_bytes, chunk_flops, BF16_FLOPS)
+    bnd = bound(chunk_bytes, chunk_flops, BF16_FLOPS)
     out.append(dict(name="flash_chunk_prefill", route="cuda",
                     source="src/repro_torch/kernels/csrc/"
                            "flash_chunk_prefill.cu",
@@ -422,12 +430,28 @@ def kernel_phase(torch, rec, time_ms):
                     plain_ms=time_ms(lambda: fc.flash_chunk_prefill_ref(
                         qc, pos, kv[0], kv[1], sc[0], sc[1], table,
                         opt_kv=True, opt_gqa=True), iters=3, warmup=1),
-                    bound_ms=bms, bound_by=by, library_ms=time_ms(sdpa_chunk),
+                    **bnd, library_ms=time_ms(sdpa_chunk),
                     library="F.scaled_dot_product_attention on pre-gathered "
                             "dequantized bf16 K/V with a causal position "
                             f"mask (max |lib - plain| {lib_err3:.3e})",
                     shape=f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} ps={ps} "
                           f"NP={NP}"))
+    # what K3's time is made of: the same step over the pool dequantized to
+    # bf16 (no fp8 staging, no scales), and the chunk lane apart from the
+    # three decode lanes
+    kvb = torch.stack([kv[i].float() * sc[i][..., None] for i in (0, 1)]) \
+        .to(torch.bfloat16)
+    split = dict(fp8_pool_ms=out[-1]["ms"], bf16_pool_ms=time_ms(
+        lambda: ops.paged_chunk_prefill(qc, pos, kvb, None, table,
+                                        opt_kv=False, opt_gqa=True)))
+    for key, lanes in (("chunk_lane_ms", slice(0, 1)),
+                       ("decode_lanes_ms", slice(1, B))):
+        split[key] = time_ms(lambda: ops.paged_chunk_prefill(
+            qc[lanes], pos[lanes], kv, sc, table[lanes], opt_kv=True,
+            opt_gqa=True))
+    log("K3 split: " + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+    rec["k3_split"] = split
+    del kvb
     rec["ptxas"] = {n: [ln for ln in s.splitlines() if "registers" in ln
                         or "spill" in ln] for n, s in cuda.BUILD_LOG.items()}
     return out
@@ -529,8 +553,8 @@ def mla_kernel_phase(torch, rec, time_ms):
              uniq_pages, 3 * vp.numel() * 4, 277)):
         # K5 reads every selected page (584 B a token: 576 fp8 + 2 f32
         # scales), K7 each distinct page once
-        bms, by = bound(pages * ps * (W + 8) + io_bytes + tables, dec_flops,
-                        F32_FLOPS)
+        bnd = bound(pages * ps * (W + 8) + io_bytes + tables, dec_flops,
+                    F32_FLOPS)
         out.append(dict(name=name, route="cuda",
                         source="src/repro_torch/kernels/csrc/"
                                "paged_latent_decode.cu",
@@ -538,7 +562,7 @@ def mla_kernel_phase(torch, rec, time_ms):
                                  f"{line}",
                         max_abs_err=err5, ms=time_ms(fn),
                         plain_ms=time_ms(plain, iters=5, warmup=1),
-                        bound_ms=bms, bound_by=by, library_ms=t_lib,
+                        **bnd, library_ms=t_lib,
                         library=lib,
                         shape=f"B={B} H={H} R={R} dr={dr} ps={ps} NSel={NP},"
                               f" cache_len {cache_len.tolist()}, "
@@ -615,7 +639,7 @@ def mla_kernel_phase(torch, rec, time_ms):
             q6, lat_d, val_d, attn_mask=cmask, scale=sm_scale,
             enable_gqa=True)
     lib_err6 = (sdpa_chunk().transpose(1, 2).float() - p6).abs().max().item()
-    bms, by = bound(chunk_bytes, chunk_flops, F32_FLOPS)
+    bnd = bound(chunk_bytes, chunk_flops, F32_FLOPS)
     out.append(dict(name="latent_chunk_prefill", route="cuda",
                     source="src/repro_torch/kernels/csrc/"
                            "latent_chunk_prefill.cu",
@@ -626,7 +650,7 @@ def mla_kernel_phase(torch, rec, time_ms):
                     plain_ms=time_ms(lambda: lc.latent_chunk_prefill_ref(
                         qlc, qrc, pos, lat, sc, table, **kw), iters=3,
                         warmup=1),
-                    bound_ms=bms, bound_by=by,
+                    **bnd,
                     library_ms=time_ms(sdpa_chunk, iters=10),
                     library="F.scaled_dot_product_attention on pre-gathered "
                             "dequantized bf16 latents with a causal position "
@@ -662,8 +686,8 @@ def flash_prefill_kernel_phase(torch, rec, time_ms):
     check(rc8 > 1, "the tolerance passes a one-key mask error in K8")
     rec["tolerance"].update(k8=r8, k8_control=rc8, k8_control_err=errc8)
     pairs = B * Hq * S * (S + 1) // 2                 # causal (row, key)
-    bms, by = bound(2 * B * S * Hq * D * 2 + 2 * B * S * Hkv * D * 2,
-                    pairs * D * 4, BF16_FLOPS)
+    bnd = bound(2 * B * S * Hq * D * 2 + 2 * B * S * Hkv * D * 2,
+                pairs * D * 4, BF16_FLOPS)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
 
     def sdpa():
@@ -677,7 +701,7 @@ def flash_prefill_kernel_phase(torch, rec, time_ms):
                  ms=time_ms(lambda: ops.flash_prefill(q, k, v), iters=10),
                  plain_ms=time_ms(lambda: fp.flash_prefill_ref(q, k, v),
                                   iters=3, warmup=1),
-                 bound_ms=bms, bound_by=by,
+                 **bnd,
                  library_ms=time_ms(sdpa, iters=10),
                  library="F.scaled_dot_product_attention(is_causal=True, "
                          f"enable_gqa=True) (max |lib - plain| "
@@ -1103,9 +1127,14 @@ def main(argv=None) -> int:
                 mla_kernel_phase(torch, rec, time_ms) + \
                 flash_prefill_kernel_phase(torch, rec, time_ms)
             for k in kernels:
+                k["tflops"] = k["flops"] / k["ms"] * 1e-9
+                k["bound_share"] = k["bound_ms"] / k["ms"]
                 log(f"  {k['name']}: {k['ms']:.4f} ms (plain "
                     f"{k['plain_ms']:.4f}, library {k['library_ms']:.4f}, "
-                    f"bound {k['bound_ms']:.4f} by {k['bound_by']})")
+                    f"bound {k['bound_ms']:.4f} by {k['bound_by']}); "
+                    f"{k['tflops']:.2f} TFLOP/s, {k['bound_share']:.2%} of "
+                    f"the bound, {k['ms'] / k['library_ms']:.2f}x the "
+                    f"library")
             rec["kernels"] = kernels
             del time_ms
             torch.cuda.empty_cache()

@@ -9,25 +9,33 @@
 // of a kv head (MHA mode: G = 1, one head per block row set). Masks:
 // causal, window + sink, and the concat-prefill packing planes (segment
 // equality, key positions page_base * ps + i). Masked probabilities are
-// hard-zeroed, so a cross-segment or wholly masked page adds exactly 0.
-// A page is skipped when its table entry is -1 or its first key lies
-// beyond every query of the tile (base * ps > max position in the tile).
+// hard-zeroed, so a cross-segment or wholly masked page adds exactly 0 and
+// a row that sees no live key writes 0. A page is skipped when its table
+// entry is -1 (never read) or its first key lies beyond every query of the
+// tile (base * ps > max position in the tile).
 //
-// Bound on the H100: bytes at the engine's shapes (a chunk of S queries
-// against ~1k cached tokens reads every page of the lane once from device
-// memory; S * G * ps * D * 4 operations per page), operations once S * G
-// grows past a few hundred rows per head. Design: one block per (lane,
-// head, tile of 32 rows), 8 warps of 4 rows, each page tile staged in
-// shared memory once per block and read by its 32 rows from there, with
-// (m, l, acc) in registers. Tiles of the same lane re-read its pages from
-// L2; wgmma tiles and TMA are later work.
-#include "paged_attention.cuh"
+// Bound on the H100: operations at the engine's mixed step (4 lanes x 512
+// rows x 32 query heads against ~1k cached keys a lane, the decode lanes
+// padded to the chunk: 3.2e10 operations, 0.032 ms at 989 TFLOP/s bf16,
+// against 0.012 ms for the bytes of the pages and queries). Design: one
+// block of 8 warps per (lane, head, tile of 128 rows); the next live page's
+// K and V (and fp8 scales) staged by cp.async into a double buffer while
+// this page computes; an fp8 page converted once in shared memory to bf16
+// (exact); the rows' update on the tensor cores through the shared
+// `mma::RowTile` (mma_attention.cuh: mma.sync m16n8k16, the K scale on the
+// score columns, the V scale folded into P, P carried as two bf16 terms to
+// hold the one-ulp check), 64 keys a step (a page of 128 in two). A page of
+// ps keys that is not a multiple of 16 is padded with zero rows in shared
+// memory and the padding masked. A warp skips a page wholly in its rows'
+// future, and the mask where the page is wholly visible to its rows.
+#include <climits>
+
+#include "mma_attention.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;
-constexpr int kRpw = 4;                       // rows per warp
-constexpr int kTileRows = kWarps * kRpw;      // rows per block
+constexpr int kRows = 16 * kWarps;            // query rows a block
 
 struct ChunkArgs {
   const __nv_bfloat16* q;       // (B, S, Hq, D)
@@ -45,92 +53,189 @@ struct ChunkArgs {
   float sm_scale;
 };
 
-template <int DPL, typename KVT>
+// Shared memory, in order: the query tile; the bf16 K and V tiles (two
+// pairs for a bf16 pool, staged into directly; one pair for fp8, converted
+// into); for fp8, two pairs of raw e4m3 pages and two pairs of scale rows.
+template <int D, bool kFp8>
+struct Smem {
+  int pr;                       // rows of a bf16 tile: ps rounded up to 16
+  uint32_t q, kv, raw, sc;
+  __device__ __forceinline__ Smem(uint32_t base, int ps) {
+    pr = (ps + 15) & ~15;
+    q = base;
+    kv = q + kRows * D * 2;
+    raw = kv + (kFp8 ? 2 : 4) * pr * D * 2;
+    sc = raw + (kFp8 ? 4 * ps * D : 0);
+  }
+  static __host__ size_t bytes(int ps) {
+    const int pr = (ps + 15) & ~15;
+    return (size_t)kRows * D * 2 + (size_t)(kFp8 ? 2 : 4) * pr * D * 2 +
+           (kFp8 ? (size_t)4 * ps * D + (size_t)4 * ps * sizeof(float) : 0);
+  }
+  __device__ __forceinline__ uint32_t k_tile(int buf) const {
+    return kv + (kFp8 ? 0 : 2 * buf) * pr * D * 2;
+  }
+  __device__ __forceinline__ uint32_t v_tile(int buf) const {
+    return k_tile(buf) + pr * D * 2;
+  }
+};
+
+template <int D, typename KVT>
 __global__ void __launch_bounds__(kWarps * 32) chunk_kernel(ChunkArgs a) {
-  constexpr int D = DPL * 32;
-  extern __shared__ __align__(16) unsigned char smem[];
-  KVT* k_tile = reinterpret_cast<KVT*>(smem);
-  KVT* v_tile = k_tile + a.ps * D;
-  float* k_sc = reinterpret_cast<float*>(v_tile + a.ps * D);
-  float* v_sc = k_sc + a.ps;
-  __shared__ int tile_max_pos;
-  const bool scaled = a.k_scale != nullptr;
+  constexpr bool kFp8 = sizeof(KVT) == 1;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Smem<D, kFp8> sm(mma::smem_addr(smem), a.ps);
+  __shared__ int warp_max[kWarps];
+  const int ps = a.ps;
 
   const int b = blockIdx.x, h = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int G = a.opt_gqa ? a.Hq / a.Hkv : 1;
   const int kvh = a.opt_gqa ? h : h / (a.Hq / a.Hkv);
   const int R = a.S * G;
-  const int row0 = blockIdx.z * kTileRows;
+  const int row0 = blockIdx.z * kRows;
+  const int w0 = row0 + warp * 16;
 
-  if (warp == 0) {                            // tile max position
-    const int r = row0 + lane;
-    int p = -1;
-    if (r < R) p = a.positions[b * a.S + r / G];
-    for (int off = 16; off > 0; off >>= 1) p = max(p, __shfl_xor_sync(PA_FULL, p, off));
-    if (lane == 0) tile_max_pos = p;
-  }
-
-  float q[kRpw][DPL], acc[kRpw][DPL], m[kRpw], l[kRpw];
-  int qpos[kRpw], qseg[kRpw];
+  // the two rows of this lane, rows g and g + 8 of the warp, and the
+  // warp's smallest and largest position over its rows below R
+  int qpos[2], qseg[2];
+  bool real[2];
+  int wmax = INT_MIN, wmin = INT_MAX;
 #pragma unroll
-  for (int i = 0; i < kRpw; ++i) {
-    const int r = row0 + warp * kRpw + i;
-    m[i] = PA_NEG;
-    l[i] = 0.f;
-#pragma unroll
-    for (int t = 0; t < DPL; ++t) acc[i][t] = 0.f;
-    qpos[i] = 0;
-    qseg[i] = 0;
-    if (r < R) {
-      const int s = r / G, g = r % G;
-      load_q_row<DPL>(a.q + (((long long)b * a.S + s) * a.Hq + h * G + g) * D, q[i]);
-      qpos[i] = a.positions[b * a.S + s];
-      if (a.seg_q != nullptr) qseg[i] = a.seg_q[b * a.S + s];
+  for (int i = 0; i < 2; ++i) {
+    const int r = w0 + (lane >> 2) + 8 * i;
+    real[i] = r < R;
+    qpos[i] = real[i] ? a.positions[b * a.S + r / G] : 0;
+    qseg[i] = real[i] && a.seg_q != nullptr ? a.seg_q[b * a.S + r / G] : 0;
+    if (real[i]) {
+      wmax = max(wmax, qpos[i]);
+      wmin = min(wmin, qpos[i]);
     }
   }
+  for (int off = 16; off > 0; off >>= 1) {
+    wmax = max(wmax, __shfl_xor_sync(PA_FULL, wmax, off));
+    wmin = min(wmin, __shfl_xor_sync(PA_FULL, wmin, off));
+  }
+  if (lane == 0) warp_max[warp] = wmax;
   __syncthreads();
-  const int max_pos = tile_max_pos;
-
-  for (int j = 0; j < a.np; ++j) {
-    const int page = a.phys[b * a.np + j];
-    const int base = a.page_base != nullptr ? a.page_base[b * a.np + j] : j;
-    if (page < 0 || base * a.ps > max_pos) continue;   // never loaded
-    const int pseg = a.page_seg != nullptr ? a.page_seg[b * a.np + j] : 0;
-    __syncthreads();
-    load_page_tile<KVT>(static_cast<const KVT*>(a.k_pages), a.k_scale, page,
-                        a.ps, a.Hkv, kvh, D, k_tile, k_sc);
-    load_page_tile<KVT>(static_cast<const KVT*>(a.v_pages), a.v_scale, page,
-                        a.ps, a.Hkv, kvh, D, v_tile, v_sc);
-    __syncthreads();
+  int max_pos = warp_max[0];
 #pragma unroll
-    for (int i = 0; i < kRpw; ++i) {
-      if (row0 + warp * kRpw + i >= R) break;
-      const ChunkMask mask{base, a.ps, qpos[i], qseg[i], pseg, a.window, a.sink};
-      row_page_update<DPL, KVT>(q[i], k_tile, v_tile, scaled ? k_sc : nullptr,
-                                scaled ? v_sc : nullptr, a.ps, a.sm_scale, mask,
-                                true, m[i], l[i], acc[i]);
+  for (int w = 1; w < kWarps; ++w) max_pos = max(max_pos, warp_max[w]);
+
+  const int* phys = a.phys + b * a.np;
+  auto base_of = [&](int j) { return a.page_base != nullptr ? a.page_base[b * a.np + j] : j; };
+  auto next_live = [&](int j) {
+    for (; j < a.np; ++j)
+      if (phys[j] >= 0 && base_of(j) * ps <= max_pos) break;   // never loaded
+    return j;
+  };
+  const long long stride = (long long)a.Hkv * D;
+  auto stage = [&](int j, int buf) {
+    const long long first = (long long)phys[j] * ps * a.Hkv + kvh;
+    if constexpr (kFp8) {
+      const fp8_t* kp = static_cast<const fp8_t*>(a.k_pages) + first * D;
+      const fp8_t* vp = static_cast<const fp8_t*>(a.v_pages) + first * D;
+      const uint32_t raw = sm.raw + 2 * buf * ps * D;
+      constexpr int kChunks = D / 16;
+      for (int c = threadIdx.x; c < ps * kChunks; c += blockDim.x) {
+        const int r = c / kChunks, w = c % kChunks;
+        mma::cp_async16(raw + r * D + w * 16, kp + r * stride + w * 16, true);
+        mma::cp_async16(raw + ps * D + r * D + w * 16, vp + r * stride + w * 16, true);
+      }
+      const uint32_t sc = sm.sc + 2 * buf * ps * 4;
+      for (int r = threadIdx.x; r < ps; r += blockDim.x) {
+        mma::cp_async4(sc + r * 4, a.k_scale + first + r * a.Hkv);
+        mma::cp_async4(sc + ps * 4 + r * 4, a.v_scale + first + r * a.Hkv);
+      }
+    } else {
+      const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(a.k_pages) + first * D;
+      const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(a.v_pages) + first * D;
+      mma::load_rows<D>(sm.k_tile(buf), kp, stride, ps, sm.pr);
+      mma::load_rows<D>(sm.v_tile(buf), vp, stride, ps, sm.pr);
+    }
+  };
+
+  mma::load_q_tile<D>(kRows, sm.q, a.q, b, a.S, a.Hq, h * G, G, row0, R);
+  if (kFp8 && sm.pr > ps) {     // zero the padding rows of the bf16 tiles once
+    const int n = (sm.pr - ps) * D / 8;
+    for (int c = threadIdx.x; c < 2 * n; c += blockDim.x) {
+      const int t = c / n, i = c % n;
+      const int r = ps + i / (D / 8), w = i % (D / 8);
+      const uint32_t dst = (t ? sm.v_tile(0) : sm.k_tile(0)) + mma::swz<D>(r, w);
+      asm volatile("st.shared.v4.u32 [%0], {%1,%1,%1,%1};\n" ::"r"(dst), "r"(0) : "memory");
     }
   }
-#pragma unroll
-  for (int i = 0; i < kRpw; ++i) {
-    const int r = row0 + warp * kRpw + i;
-    if (r >= R) break;
-    const int s = r / G, g = r % G;
-    store_row<DPL>(a.out + (((long long)b * a.S + s) * a.Hq + h * G + g) * D, acc[i], l[i]);
+  int j = next_live(0);
+  if (j < a.np) stage(j, 0);
+  mma::cp_commit();
+  mma::cp_wait_all();
+  __syncthreads();
+  mma::RowTile<D> t;
+  t.init(sm.q);
+  const float scale_log2 = a.sm_scale * mma::kLog2e;
+  const float* sc_f = reinterpret_cast<const float*>(
+      smem + (sm.sc - mma::smem_addr(smem)));
+
+  for (int buf = 0; j < a.np; buf ^= 1) {
+    mma::cp_wait_all();
+    __syncthreads();            // page j staged; every warp done with the other buffer
+    const int jn = next_live(j + 1);
+    if (jn < a.np) stage(jn, buf ^ 1);
+    mma::cp_commit();
+    if constexpr (kFp8) {       // e4m3 -> bf16 tiles, exact
+      const unsigned char* raw = smem + (sm.raw - mma::smem_addr(smem)) + 2 * buf * ps * D;
+      constexpr int kChunks = D / 8;
+      for (int c = threadIdx.x; c < 2 * ps * kChunks; c += blockDim.x) {
+        const int t2 = c / (ps * kChunks), i = c % (ps * kChunks);
+        const int r = i / kChunks, w = i % kChunks;
+        const uint2 x = *reinterpret_cast<const uint2*>(raw + (t2 * ps + r) * D + w * 8);
+        const uint4 y = mma::fp8x8_to_bf16x8(x);
+        const uint32_t dst = (t2 ? sm.v_tile(0) : sm.k_tile(0)) + mma::swz<D>(r, w);
+        asm volatile("st.shared.v4.u32 [%0], {%1,%2,%3,%4};\n" ::"r"(dst), "r"(y.x),
+                     "r"(y.y), "r"(y.z), "r"(y.w) : "memory");
+      }
+      __syncthreads();
+    }
+    const int base = base_of(j);
+    const int kbase = base * ps;
+    if (w0 < R && kbase <= wmax) {    // else wholly in the future of the warp
+      const int pseg = a.page_seg != nullptr ? a.page_seg[b * a.np + j] : 0;
+      // the page wholly visible to the warp's rows: every key at or before
+      // each row, inside its window or sink, and in its segment
+      const bool all_live =
+          kbase + ps - 1 <= wmin &&
+          (!a.window || kbase > wmax - a.window || kbase + ps <= a.sink * ps) &&
+          __all_sync(PA_FULL, (!real[0] || qseg[0] == pseg) &&
+                                  (!real[1] || qseg[1] == pseg));
+      const ChunkMask mk[2] = {{base, ps, qpos[0], qseg[0], pseg, a.window, a.sink},
+                               {base, ps, qpos[1], qseg[1], pseg, a.window, a.sink}};
+      const float* k_sc = kFp8 ? sc_f + 2 * buf * ps : nullptr;
+      const float* v_sc = kFp8 ? k_sc + ps : nullptr;
+      const int tb = kFp8 ? 0 : buf;
+      for (int j0 = 0; j0 < ps; j0 += mma::kKeys) {
+        const uint32_t off = j0 * D * 2;
+        t.template update<true>(sm.k_tile(tb) + off, sm.v_tile(tb) + off,
+                                min(mma::kKeys, ps - j0), scale_log2,
+                                kFp8 ? k_sc + j0 : nullptr, kFp8 ? v_sc + j0 : nullptr,
+                                all_live, [&](int i, int jj) { return mk[i](j0 + jj); });
+      }
+    }
+    j = jn;
   }
+  t.store(a.out, b, a.S, a.Hq, h * G, G, row0, R);
 }
 
-template <int DPL, typename KVT>
+template <int D, typename KVT>
 int launch(const ChunkArgs& a, cudaStream_t st) {
-  constexpr int D = DPL * 32;
   const int heads = a.opt_gqa ? a.Hkv : a.Hq;
   const int G = a.opt_gqa ? a.Hq / a.Hkv : 1;
-  const int tiles = (a.S * G + kTileRows - 1) / kTileRows;
-  const size_t smem = (size_t)2 * a.ps * D * sizeof(KVT) + (size_t)2 * a.ps * sizeof(float);
-  cudaError_t e = allow_smem(chunk_kernel<DPL, KVT>, smem);
+  const int tiles = (a.S * G + kRows - 1) / kRows;
+  const size_t smem = Smem<D, sizeof(KVT) == 1>::bytes(a.ps);
+  // always opt in: the static tile-max array sits on top of the dynamic bytes
+  cudaError_t e = cudaFuncSetAttribute(
+      chunk_kernel<D, KVT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  chunk_kernel<DPL, KVT><<<dim3(a.B, heads, tiles), kWarps * 32, smem, st>>>(a);
+  chunk_kernel<D, KVT><<<dim3(a.B, heads, tiles), kWarps * 32, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -149,10 +254,10 @@ extern "C" int flash_chunk_prefill(
               window, sink, sm_scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d * 2 + (opt_kv ? 1 : 0)) {
-    case 64 * 2 + 1: return launch<2, fp8_t>(a, st);
-    case 64 * 2: return launch<2, __nv_bfloat16>(a, st);
-    case 128 * 2 + 1: return launch<4, fp8_t>(a, st);
-    case 128 * 2: return launch<4, __nv_bfloat16>(a, st);
+    case 64 * 2 + 1: return launch<64, fp8_t>(a, st);
+    case 64 * 2: return launch<64, __nv_bfloat16>(a, st);
+    case 128 * 2 + 1: return launch<128, fp8_t>(a, st);
+    case 128 * 2: return launch<128, __nv_bfloat16>(a, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

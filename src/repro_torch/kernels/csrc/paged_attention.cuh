@@ -1,6 +1,9 @@
-// Shared device code of the paged attention kernels (K2 paged_pool_decode,
-// K4 paged_pool_decode_visits, K3 flash_chunk_prefill): the page-tile load
-// and the per-row online-softmax update.
+// Shared device code of the paged decode kernels (K2 paged_pool_decode,
+// K4 paged_pool_decode_visits): the page-tile load and the per-row
+// online-softmax update on the CUDA cores. K3 flash_chunk_prefill and K8
+// flash_prefill no longer call `row_page_update`: they run their rows on
+// the tensor cores through mma_attention.cuh, and take only `ChunkMask`
+// (K3, as K6 does), the fp8 type and `allow_smem` from here.
 //
 // One warp owns one query row at a time. Lane t holds the row's dims
 // [t*DPL, (t+1)*DPL) of q and of the f32 accumulator, so D = 32 * DPL. A

@@ -24,7 +24,8 @@ from pathlib import Path
 from typing import Dict
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_HEADERS = ("paged_attention.cuh", "latent_attention.cuh")
+_HEADERS = ("paged_attention.cuh", "latent_attention.cuh",
+            "mma_attention.cuh")
 SOURCES = {                      # library -> source file
     "kv_cache_write": "kv_cache_write.cu",
     "paged_gqa_decode": "paged_gqa_decode.cu",

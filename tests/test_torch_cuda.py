@@ -103,17 +103,33 @@ def test_decode_kernels(dev, opt_kv, opt_gqa, window, sink, D):
     assert torch.equal(k4, k2)
 
 
-@pytest.mark.parametrize("packed", [False, True])
-@pytest.mark.parametrize("opt_kv,opt_gqa,window", [
-    (True, True, 0), (False, True, 0), (True, False, 0), (True, True, 40)])
-def test_chunk_kernel(dev, opt_kv, opt_gqa, window, packed):
+_CHUNK_MODES = [(True, True, 0), (False, True, 0), (True, False, 0),
+                (True, True, 40)]
+
+
+@pytest.mark.parametrize(
+    "opt_kv,opt_gqa,window,packed,D,ps,S",
+    [m + (p, 128, 32, 40) for p in (False, True) for m in _CHUNK_MODES]
+    # the edges of the tensor-core tiles: D 64; pages of 8 (half a 16-key
+    # step, padded with zero rows), 16 and 128 (two tile updates a page);
+    # decode lanes only (S = 1); S * G = 92 rows, not a multiple of a tile
+    + [m + (p, 64, 32, 40) for p in (False, True) for m in _CHUNK_MODES]
+    + [(kv, True, w, p, 128, ps, 40) for ps in (8, 16, 128)
+       for kv in (True, False) for w, p in ((0, False), (40, True))]
+    + [(kv, gqa, 0, False, 128, 32, 1) for kv, gqa in
+       ((True, True), (False, True), (True, False))]
+    + [(kv, True, w, False, D, 32, 23) for kv in (True, False)
+       for w, D in ((0, 128), (40, 64))])
+def test_chunk_kernel(dev, opt_kv, opt_gqa, window, packed, D, ps, S):
     """K3 vs its plain version within one bf16 ulp, a chunk lane and decode
     lanes. ``packed``: lane 0's row holds two prompts as segments (24 rows
     at [0, 24) and 12 rows at [30, 42) whose page_base restarts at 0, then 4
     pad rows of segment -1), and its table interleaves the two segments'
     pages, so each segment's rows meet a live page of the other; the other
-    lanes pass planes equal to the unpacked defaults."""
-    B, NP, ps, Hkv, G, D, S = 3, 5, 32, 2, 4, 128, 40
+    lanes pass planes equal to the unpacked defaults. The lanes hold at
+    least 160 keys whatever the page size."""
+    B, Hkv, G = 3, 2, 4
+    NP = max(5, 160 // ps)
     kv, sc = _pool(dev, B * NP, ps, Hkv, D, opt_kv)
     table = torch.arange(B * NP, device=dev, dtype=torch.int32).reshape(B, NP)
     table[2, -1] = -1
@@ -130,11 +146,13 @@ def test_chunk_kernel(dev, opt_kv, opt_gqa, window, packed):
         seg_q = torch.zeros((B, S), **i32)
         seg_q[0, 24:36] = 1
         seg_q[0, 36:] = -1
-        table[0] = torch.tensor([0, 1, 2, 3, -1], **i32)
+        table[0] = -1
+        table[0, :4] = torch.tensor([0, 1, 2, 3], **i32)
         page_seg = torch.zeros((B, NP), **i32)
-        page_seg[0] = torch.tensor([0, 1, 1, 0, 0], **i32)
+        page_seg[0, :4] = torch.tensor([0, 1, 1, 0], **i32)
         page_base = torch.arange(NP, **i32).repeat(B, 1).contiguous()
-        page_base[0] = torch.tensor([0, 0, 1, 1, 0], **i32)
+        page_base[0] = 0
+        page_base[0, :4] = torch.tensor([0, 0, 1, 1], **i32)
         planes = dict(seg_q=seg_q, page_seg=page_seg, page_base=page_base)
     q = torch.randn((B, S, Hkv * G, D), device=dev).bfloat16()
     ks, vs = (sc[0], sc[1]) if opt_kv else (None, None)
@@ -274,10 +292,14 @@ def test_latent_chunk_kernel(dev, opt_kv, window, packed, R, dr):
 
 @pytest.mark.parametrize("S,T,Hq,Hkv,D,window,q_offset", [
     (256, 256, 32, 8, 128, 0, 0), (200, 200, 8, 8, 64, 0, 0),
-    (256, 256, 32, 8, 128, 100, 0), (64, 320, 16, 4, 128, 96, 256)])
+    (256, 256, 32, 8, 128, 100, 0), (64, 320, 16, 4, 128, 96, 256),
+    (2048, 2048, 32, 8, 128, 0, 0),                   # chip_smoke.py's shape
+    (100, 300, 16, 4, 128, 0, 200), (100, 300, 16, 4, 64, 50, 200),
+    (130, 130, 8, 8, 128, 0, 0)])                     # G = 1 at D 128
 def test_flash_prefill_kernel(dev, S, T, Hq, Hkv, D, window, q_offset):
     """K8 vs its plain version within one bf16 ulp, with a window and a
-    q_offset (queries at the last S of T positions)."""
+    q_offset (queries at the last S of T positions), T not a multiple of
+    the 64-key block, and G = 1."""
     from repro_torch.kernels import flash_prefill as fp
     g = torch.Generator(device=dev).manual_seed(2)
     q, k, v = (torch.randn(s, generator=g, device=dev).bfloat16()

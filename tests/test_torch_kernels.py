@@ -394,3 +394,84 @@ def test_flash_prefill_plain_matches_pallas_and_oracle(S, T, Hq, Hkv, D,
     np.testing.assert_allclose(_t2n(mine), _f32(oracle), atol=KERNEL_ATOL)
     assert torch.equal(flash_prefill_ref(tq, tk, tv, window=window,
                                          q_offset=q_offset), got)
+
+
+# ------------------------------------------------------------- build -----
+def test_build_hash_sees_every_header():
+    """A library's file name hashes its source and ``cuda._HEADERS``, so
+    every header a source includes must be listed there (else an edited
+    header leaves a stale library loadable under an unchanged name), and
+    every listed source and header must exist."""
+    import re
+    from repro_torch.kernels import cuda
+    csrc = cuda._CSRC
+    files = sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
+    included = {m for f in files
+                for m in re.findall(r'#include\s+"([^"]+)"', f.read_text())}
+    assert included, "no local includes found"
+    assert included <= set(cuda._HEADERS), included - set(cuda._HEADERS)
+    for name in tuple(cuda.SOURCES.values()) + cuda._HEADERS:
+        assert (csrc / name).is_file(), name
+    assert {f.name for f in csrc.glob("*.cu")} == set(cuda.SOURCES.values())
+
+
+def _tile_emulation(q, k, v, p_round):
+    """K8's tensor-core tile arithmetic (``csrc/mma_attention.cuh``) in
+    PyTorch: 64-key tiles, bf16 inputs with f32 sums, the online softmax in
+    the log2 domain, and P rounded by ``p_round`` (a list of terms whose sum
+    approximates P) before the P V products."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    R = S * G
+    qf = q.float().reshape(B, S, Hkv, G, D).permute(0, 2, 1, 3, 4) \
+        .reshape(B, Hkv, R, D)
+    spos = torch.arange(S).repeat_interleave(G)
+    m = torch.full((B, Hkv, R), -1e30)
+    l = torch.zeros((B, Hkv, R))
+    o = torch.zeros((B, Hkv, R, D))
+    scale = 1.4426950408889634 / np.sqrt(D)
+    for k0 in range(0, S, 64):
+        kb = k[:, k0:k0 + 64].float().transpose(1, 2)
+        vb = v[:, k0:k0 + 64].float().transpose(1, 2)
+        live = (k0 + torch.arange(kb.shape[2]))[None, :] <= spos[:, None]
+        s = torch.where(live, torch.matmul(qf, kb.transpose(-1, -2)) * scale,
+                        -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        o = o * corr[..., None]
+        for term in p_round(p):
+            o = o + torch.matmul(term, vb)
+        m = m_new
+    out = o / l.clamp_min(1e-30)[..., None]
+    return out.reshape(B, Hkv, S, G, D).permute(0, 2, 1, 3, 4) \
+        .reshape(B, S, Hq, D).to(torch.bfloat16)
+
+
+def test_p_as_two_bf16_terms_holds_one_ulp():
+    """Why K3 and K8 carry P into the P V product as two bf16 terms: the
+    tile arithmetic with P = bf16(P) + bf16(P - bf16(P)) stays within one
+    bf16 ulp of the plain version (the card tests' tolerance), while P
+    rounded once to bf16, or to fp16's 10-bit significand, does not."""
+    from repro_torch.kernels.flash_prefill import flash_prefill_ref
+    rng = np.random.default_rng(13)
+    B, S, Hq, Hkv, D = 1, 1024, 8, 2, 128
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(torch.bfloat16)
+               for s in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    plain = flash_prefill_ref(q, k, v).float()
+    tol = 2 ** -14 + 2 ** -7 * plain.abs()
+
+    def bf16(x):
+        return x.to(torch.bfloat16).float()
+
+    def share(p_round):
+        got = _tile_emulation(q, k, v, p_round).float()
+        return ((got - plain).abs() / tol).max().item()
+
+    two_terms = share(lambda p: (bf16(p), bf16(p - bf16(p))))
+    once = share(lambda p: (bf16(p),))
+    fp16 = share(lambda p: (p.half().float(),))
+    assert two_terms <= 1 < fp16 < once, (two_terms, fp16, once)
