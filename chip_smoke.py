@@ -2,7 +2,9 @@
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py            # every phase, one card
-    python3 chip_smoke.py --only kernels   # or engine, prefill, mla, parity
+    python3 chip_smoke.py --only kernels   # or decode|engine|prefill|mla|parity
+    python3 chip_smoke.py --only decode --src OTHER/src
+                                     # K2/K4 of another tree's package
 
 Phases:
   1. the card's name and power limit; build the CUDA kernels from
@@ -15,7 +17,9 @@ Phases:
      packed segments) within one bf16 ulp (``ATTN_RTOL``, ``ATTN_ATOL``).
      K5-K7 at deepseek-v2-lite's (H 16, R 512, dr 64, the same pages and
      lanes): K7 bit-identical to K5, K5 and K6 (unpacked and packed)
-     within the f32 tolerance (``LAT_RTOL``, ``LAT_ATOL``). K8 at 2 x 2048
+     within the f32 tolerance (``LAT_RTOL``, ``LAT_ATOL``). K2 and K4 again
+     at a long context (4 lanes of 8192 tokens, 2048 shared: an fp8 pool
+     larger than L2), with the same checks. K8 at 2 x 2048
      tokens of qwen3-4b's heads within one bf16 ulp. Each check beside a
      control (one key masked off, or the packing planes dropped) that must
      fall outside its tolerance. Then each kernel's time (CUDA events, cold
@@ -23,7 +27,8 @@ Phases:
      function, and the least time the card could take (``bound_ms``),
      with the achieved rate (the bound's operations over the time) and the
      share of the bound. K3 is also timed over the pool dequantized to
-     bf16, and its chunk lane apart from its decode lanes.
+     bf16, and its chunk lane apart from its decode lanes; K2 and K4 record
+     their splits and blocks.
   3. ``Engine.generate`` on qwen3-4b at full width and depth (random
      weights from a seed) in coopt mode with the kernels: 8 greedy
      requests, 4 sharing a 256-token prefix; K1, K3 and K4 must launch.
@@ -48,8 +53,8 @@ set to 0 just before that path and read just after; a kernel that never
 launched fails the run. The line before the last is the JSON ``kernels``
 record; the last line is ``{"ok": true, "device": {...}}``. Any failure
 exits non-zero before it.
-Details go to ``chiprun_out/chip_smoke.json`` and the nvcc (ptxas) log to
-``chiprun_out/build.log``.
+Details go to ``chiprun_out/chip_smoke.json`` (``chip_smoke_src.json``
+with ``--src``) and the nvcc (ptxas) log to ``chiprun_out/build.log``.
 """
 from __future__ import annotations
 
@@ -165,14 +170,171 @@ def bound(bytes_moved, flops, rate):
 
 
 # -------------------------------------------------------------- kernels --
-def kernel_phase(torch, rec, time_ms):
-    """K1-K4 at qwen3-4b's widths."""
-    import torch.nn.functional as F
+def paged_pool(torch, gen, B, NP, shared, Hkv, D, ps):
+    """An fp8 pool of B * NP + 1 pages (the last one reserved), K and V
+    stacked with their scales, and lane b's table of pages b * NP ... b *
+    NP + NP - 1, lanes 1.. sharing lane 0's first ``shared`` pages."""
     from repro_torch.cache.quant import quantize_fp8
-    from repro_torch.kernels import cuda, ops, visits
+    dev = gen.device
+    P = B * NP + 1
+    kq, ks = quantize_fp8(torch.randn((P, ps, Hkv, D), generator=gen,
+                                      device=dev))
+    vq, vs = quantize_fp8(torch.randn((P, ps, Hkv, D), generator=gen,
+                                      device=dev))
+    table = torch.arange(B * NP, device=dev, dtype=torch.int32).reshape(B, NP)
+    table[1:, :shared] = table[0, :shared]
+    return (torch.stack([kq, vq]).contiguous(),
+            torch.stack([ks, vs]).contiguous(), table)
+
+
+def decode_step(torch, rec, time_ms, key, q, kv, sc, table, cache_len,
+                timed_plain=True):
+    """K2 and K4 on one decode step (Opt-KV, Opt-GQA, Opt-Pa page select):
+    K2 within one bf16 ulp of its plain version beside a control (the plain
+    version with each lane's last key masked off) that must fail, K4
+    bit-identical to K2 and within the ulp of its own plain version; then
+    each kernel's time, the bytes bound, SDPA on pre-gathered dequantized
+    bf16 K/V, and the splits. Each plain version runs once for the check
+    (and is timed only if ``timed_plain``). The summary goes to
+    ``rec[key]``; returns the two kernel records."""
+    import torch.nn.functional as F
+    from repro_torch.core.opt_kv import decode_page_select
+    from repro_torch.kernels import paged_gqa_decode as pd
+    from repro_torch.kernels import visits
+    dev = q.device
+    B, Hq, D = q.shape
+    _, ps, Hkv, _ = kv[0].shape
+    NP = table.shape[1]
+    kw = dict(opt_kv=True, opt_gqa=True)
+    pool = (q, kv[0], kv[1], sc[0], sc[1])
+    phys, logt = decode_page_select(cache_len, table, ps, opt_pa=True)
+    vp, vm, vl = visits.plan_visits(phys, logt)
+    k2 = pd.paged_pool_decode(*pool, cache_len, phys, logt, **kw)
+    k4 = pd.paged_pool_decode_visits(*pool, cache_len, vp, vm, vl, **kw)
+    p2 = pd.paged_pool_decode_ref(*pool, cache_len, phys, logt, **kw)
+    p4 = pd.paged_pool_decode_visits_ref(*pool, cache_len, vp, vm, vl, **kw)
+    c2 = pd.paged_pool_decode_ref(*pool, cache_len - 1, phys, logt, **kw)
+    torch.cuda.synchronize()
+    r2, err2 = tol_ratio(k2, p2)
+    r4, err4 = tol_ratio(k4, p4)
+    rc2, errc2 = tol_ratio(k2, c2)
+    bitwise = torch.equal(k4, k2)
+    n_visits = int((vp >= 0).sum().item())
+    log(f"K2 paged_pool_decode ({key}): max |kernel - plain| {err2:.3e} = "
+        f"{r2:.3f} of the tolerance (rtol {ATTN_RTOL}, atol {ATTN_ATOL}); "
+        f"control, one key masked off: {errc2:.3e} = {rc2:.2f}")
+    log(f"K4 paged_pool_decode_visits ({key}): bit-identical to K2 "
+        f"{bitwise}, max |kernel - plain| {err4:.3e} = {r4:.3f} of the "
+        f"tolerance, {n_visits} visits for "
+        f"{int((phys >= 0).sum().item())} lane pages")
+    check(r2 <= 1, f"K2 differs from its plain version ({key})")
+    check(rc2 > 1, f"the tolerance passes a one-key mask error in K2 ({key})")
+    check(bitwise, f"K4 is not bit-identical to K2 ({key})")
+    check(r4 <= 1, f"K4 differs from its plain version ({key})")
+    sfx = "" if key == "decode" else "_" + key
+    rec.setdefault("tolerance", {}).update(
+        {"rtol": ATTN_RTOL, "atol": ATTN_ATOL, "k2" + sfx: r2, "k4" + sfx: r4,
+         "k2_control" + sfx: rc2, "k2_control_err" + sfx: errc2})
+    # exact-data bound: distinct live pages once, q and out, the tables
+    live_pages = torch.unique(phys[phys >= 0]).numel()
+    dec_bytes = live_pages * 2 * ps * Hkv * (D + 4) + 2 * B * Hq * D * 2 + \
+        2 * B * NP * 4 + B * 4
+    dec_flops = int(cache_len.sum().item()) * Hq * D * 4
+    bnd = bound(dec_bytes, dec_flops, BF16_FLOPS)
+    # library yardstick: SDPA on pre-gathered, dequantized bf16 K/V
+    pt = table.long()
+    kd = (kv[0][pt].float() * sc[0][pt][..., None]).to(torch.bfloat16)
+    vd = (kv[1][pt].float() * sc[1][pt][..., None]).to(torch.bfloat16)
+    kd = kd.reshape(B, NP * ps, Hkv, D).transpose(1, 2).contiguous()
+    vd = vd.reshape(B, NP * ps, Hkv, D).transpose(1, 2).contiguous()
+    mask = (torch.arange(NP * ps, device=dev)[None] <
+            cache_len[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+
+    def sdpa_decode():
+        return F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask,
+                                              enable_gqa=True)
+    lib_err = (sdpa_decode()[:, :, 0].float() - p2.float()).abs().max().item()
+    t_lib = time_ms(sdpa_decode)
+    del kd, vd
+    split = getattr(pd, "decode_splits", None)     # absent before the split
+    slots, splits = split(NP, B * Hkv, torch.cuda.get_device_properties(
+        dev).multi_processor_count) if split else (None, None)
+    shape = (f"B={B} Hq={Hq} Hkv={Hkv} D={D} ps={ps} NSel={NP}, cache_len "
+             f"{cache_len.tolist()}, {live_pages} distinct live pages")
+    out, summary = [], dict(shape=shape, library_ms=t_lib, **bnd,
+                            visits=n_visits, slots=slots, splits=splits)
+    for name, fn, plain, err, line, blocks in (
+            ("paged_pool_decode",
+             lambda: pd.paged_pool_decode(*pool, cache_len, phys, logt, **kw),
+             lambda: pd.paged_pool_decode_ref(*pool, cache_len, phys, logt,
+                                              **kw),
+             err2, 122, splits and B * Hkv * splits),
+            ("paged_pool_decode_visits",
+             lambda: pd.paged_pool_decode_visits(*pool, cache_len, vp, vm, vl,
+                                                 **kw),
+             lambda: pd.paged_pool_decode_visits_ref(*pool, cache_len, vp, vm,
+                                                     vl, **kw),
+             err4, 288, splits and Hkv * splits)):
+        ms = time_ms(fn)
+        summary[name] = dict(ms=ms, blocks=blocks,
+                             bound_share=bnd["bound_ms"] / ms,
+                             x_library=ms / t_lib)
+        share = summary[name]["bound_share"]
+        log(f"  {name} ({key}): {ms:.4f} ms, {share:.2%} of the "
+            f"{bnd['bound_ms']:.4f} ms bound, {ms / t_lib:.2f}x SDPA "
+            f"({t_lib:.4f} ms); {splits} splits of {slots} slots, {blocks} "
+            "blocks")
+        out.append(dict(name=name, route="cuda",
+                        source="src/repro_torch/kernels/csrc/"
+                               "paged_gqa_decode.cu",
+                        replaces="src/repro/kernels/paged_gqa_decode.py:"
+                                 f"{line}",
+                        max_abs_err=err, ms=ms,
+                        plain_ms=time_ms(plain, iters=5, warmup=1)
+                        if timed_plain else None,
+                        **bnd, library_ms=t_lib,
+                        library="F.scaled_dot_product_attention on "
+                                "pre-gathered dequantized bf16 K/V "
+                                f"(max |lib - plain| {lib_err:.3e})",
+                        shape=shape))
+    rec[key] = summary
+    return out
+
+
+def long_decode_phase(torch, rec, time_ms):
+    """K2 and K4 at a long context, where bytes dominate: qwen3-4b's heads,
+    4 lanes of 8192 tokens (128 pages of 64), the first 2048 tokens shared
+    by all four (an fp8 pool of ~67 MB, more than L2)."""
+    gen = torch.Generator(device=torch.device(DEV)).manual_seed(5)
+    B, Hq, Hkv, D, ps, NP = 4, 32, 8, 128, 64, 128
+    kv, sc, table = paged_pool(torch, gen, B, NP, 32, Hkv, D, ps)
+    cache_len = torch.tensor([8192, 8150, 8100, 8050], dtype=torch.int32,
+                             device=DEV)
+    q = torch.randn((B, Hq, D), generator=gen, device=DEV).to(torch.bfloat16)
+    decode_step(torch, rec, time_ms, "decode_long", q, kv, sc, table,
+                cache_len, timed_plain=False)
+
+
+def decode_phase(torch, rec, time_ms):
+    """K2 and K4 alone (``--only decode``, for comparing trees): the kernel
+    phase's decode shape on a pool of its own, then the long shape."""
+    gen = torch.Generator(device=torch.device(DEV)).manual_seed(4)
+    B, Hq, Hkv, D, ps, NP = 4, 32, 8, 128, 64, 16
+    kv, sc, table = paged_pool(torch, gen, B, NP, 4, Hkv, D, ps)
+    cache_len = torch.tensor([1024, 1000, 980, 1010], dtype=torch.int32,
+                             device=DEV)
+    q = torch.randn((B, Hq, D), generator=gen, device=DEV).to(torch.bfloat16)
+    decode_step(torch, rec, time_ms, "decode", q, kv, sc, table, cache_len)
+    long_decode_phase(torch, rec, time_ms)
+
+
+def kernel_phase(torch, rec, time_ms):
+    """K1-K4 at qwen3-4b's widths (K2/K4 through ``decode_step``)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import cuda, ops
     from repro_torch.kernels import flash_chunk_prefill as fc
     from repro_torch.kernels import kv_cache_write as kw
-    from repro_torch.kernels import paged_gqa_decode as pd
     dev = torch.device(DEV)
     gen = torch.Generator(device=dev).manual_seed(0)
     B, Hq, Hkv, D, ps, NP = 4, 32, 8, 128, 64, 16
@@ -183,12 +345,7 @@ def kernel_phase(torch, rec, time_ms):
         return torch.randn(shape, generator=gen, device=dev)
 
     # pool: lanes 1-3 share lane 0's first 4 pages (a 256-token prefix)
-    kq, ks = quantize_fp8(randn(P, ps, Hkv, D))
-    vq, vs = quantize_fp8(randn(P, ps, Hkv, D))
-    kv = torch.stack([kq, vq]).contiguous()
-    sc = torch.stack([ks, vs]).contiguous()
-    table = torch.arange(B * NP, device=dev, dtype=torch.int32).reshape(B, NP)
-    table[1:, :4] = table[0, :4]
+    kv, sc, table = paged_pool(torch, gen, B, NP, 4, Hkv, D, ps)
     cache_len = torch.tensor([1024, 1000, 980, 1010], dtype=torch.int32,
                              device=dev)
     # ---- K1: one prefill step's chunk (S = 512) with padded columns -----
@@ -254,92 +411,9 @@ def kernel_phase(torch, rec, time_ms):
                     shape=f"B={B} S={S} Hkv={Hkv} D={D}, {valid} valid"))
 
     # ---- K2 / K4: a decode step of 4 lanes --------------------------------
-    from repro_torch.core.opt_kv import decode_page_select
     q = randn(B, Hq, D).to(torch.bfloat16)
-    phys, logt = decode_page_select(cache_len, table, ps, opt_pa=True)
-    vp, vm, vl = visits.plan_visits(phys, logt)
-    k2 = pd.paged_pool_decode(q, kv[0], kv[1], sc[0], sc[1], cache_len, phys,
-                              logt, opt_kv=True, opt_gqa=True)
-    k4 = pd.paged_pool_decode_visits(q, kv[0], kv[1], sc[0], sc[1], cache_len,
-                                     vp, vm, vl, opt_kv=True, opt_gqa=True)
-    p2 = pd.paged_pool_decode_ref(q, kv[0], kv[1], sc[0], sc[1], cache_len,
-                                  phys, logt, opt_kv=True, opt_gqa=True)
-    p4 = pd.paged_pool_decode_visits_ref(q, kv[0], kv[1], sc[0], sc[1],
-                                         cache_len, vp, vm, vl, opt_kv=True,
-                                         opt_gqa=True)
-    # control: the plain version with each lane's last key masked off
-    c2 = pd.paged_pool_decode_ref(q, kv[0], kv[1], sc[0], sc[1],
-                                  cache_len - 1, phys, logt, opt_kv=True,
-                                  opt_gqa=True)
-    torch.cuda.synchronize()
-    r2, err2 = tol_ratio(k2, p2)
-    r4, err4 = tol_ratio(k4, p4)
-    rc2, errc2 = tol_ratio(k2, c2)
-    bitwise = torch.equal(k4, k2)
-    n_visits = int((vp >= 0).sum().item())
-    log(f"K2 paged_pool_decode: max |kernel - plain| {err2:.3e} = "
-        f"{r2:.3f} of the tolerance (rtol {ATTN_RTOL}, atol {ATTN_ATOL}); "
-        f"control, one key masked off: {errc2:.3e} = {rc2:.2f}")
-    log(f"K4 paged_pool_decode_visits: bit-identical to K2 {bitwise}, "
-        f"max |kernel - plain| {err4:.3e} = {r4:.3f} of the tolerance, "
-        f"{n_visits} visits for {int((phys >= 0).sum().item())} lane pages")
-    check(r2 <= 1, "K2 differs from its plain version")
-    check(rc2 > 1, "the tolerance passes a one-key mask error in K2")
-    check(bitwise, "K4 is not bit-identical to K2")
-    check(r4 <= 1, "K4 differs from its plain version")
-    rec["tolerance"] = dict(rtol=ATTN_RTOL, atol=ATTN_ATOL, k2=r2, k4=r4,
-                            k2_control=rc2, k2_control_err=errc2)
-    # exact-data bound: distinct live pages once, q and out, the tables
-    live_pages = torch.unique(phys[phys >= 0]).numel()
-    dec_bytes = live_pages * 2 * ps * Hkv * (D + 4) + 2 * B * Hq * D * 2 + \
-        2 * B * NP * 4 + B * 4
-    dec_flops = int(cache_len.sum().item()) * Hq * D * 4
-    # library yardstick: SDPA on pre-gathered, dequantized bf16 K/V
-    pt = table.long()
-    kd = (kv[0][pt].float() * sc[0][pt][..., None]).to(torch.bfloat16)
-    vd = (kv[1][pt].float() * sc[1][pt][..., None]).to(torch.bfloat16)
-    kd = kd.reshape(B, NP * ps, Hkv, D).transpose(1, 2).contiguous()
-    vd = vd.reshape(B, NP * ps, Hkv, D).transpose(1, 2).contiguous()
-    mask = (torch.arange(NP * ps, device=dev)[None] <
-            cache_len[:, None])[:, None, None, :]
-    q4 = q[:, :, None, :]
-
-    def sdpa_decode():
-        return F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask,
-                                              enable_gqa=True)
-    lib_err = (sdpa_decode()[:, :, 0].float() - p2.float()).abs().max().item()
-    t_lib = time_ms(sdpa_decode)
-    bnd = bound(dec_bytes, dec_flops, BF16_FLOPS)
-    for name, fn, plain, err, line in (
-            ("paged_pool_decode",
-             lambda: pd.paged_pool_decode(q, kv[0], kv[1], sc[0], sc[1],
-                                          cache_len, phys, logt, opt_kv=True,
-                                          opt_gqa=True),
-             lambda: pd.paged_pool_decode_ref(q, kv[0], kv[1], sc[0], sc[1],
-                                              cache_len, phys, logt,
-                                              opt_kv=True, opt_gqa=True),
-             err2, 122),
-            ("paged_pool_decode_visits",
-             lambda: pd.paged_pool_decode_visits(q, kv[0], kv[1], sc[0],
-                                                 sc[1], cache_len, vp, vm,
-                                                 vl, opt_kv=True,
-                                                 opt_gqa=True),
-             lambda: pd.paged_pool_decode_visits_ref(
-                 q, kv[0], kv[1], sc[0], sc[1], cache_len, vp, vm, vl,
-                 opt_kv=True, opt_gqa=True),
-             err4, 288)):
-        out.append(dict(name=name, route="cuda",
-                        source="src/repro_torch/kernels/csrc/"
-                               "paged_gqa_decode.cu",
-                        replaces=f"src/repro/kernels/paged_gqa_decode.py:{line}",
-                        max_abs_err=err, ms=time_ms(fn),
-                        plain_ms=time_ms(plain, iters=5, warmup=1),
-                        **bnd, library_ms=t_lib,
-                        library="F.scaled_dot_product_attention on "
-                                "pre-gathered dequantized bf16 K/V "
-                                f"(max |lib - plain| {lib_err:.3e})",
-                        shape=f"B={B} Hq={Hq} Hkv={Hkv} D={D} ps={ps} "
-                              f"NSel={NP}, cache_len {cache_len.tolist()}"))
+    out += decode_step(torch, rec, time_ms, "decode", q, kv, sc, table,
+                       cache_len)
 
     # ---- K3: a mixed step: lane 0 a 512-token chunk at [512, 1024), -------
     # lanes 1-3 decode lanes (one token, padding clamped to it)
@@ -406,6 +480,7 @@ def kernel_phase(torch, rec, time_ms):
     chunk_bytes = pages3 * 2 * ps * Hkv * (D + 4) + 2 * B * S * Hq * D * 2 + \
         B * S * 4 + B * NP * 4
     chunk_flops = keys * Hq * D * 4
+    pt = table.long()
     kd3 = (kv[0][pt].float() * sc[0][pt][..., None]).to(torch.bfloat16)
     vd3 = (kv[1][pt].float() * sc[1][pt][..., None]).to(torch.bfloat16)
     kd3 = kd3.reshape(B, NP * ps, Hkv, D).transpose(1, 2).contiguous()
@@ -1077,10 +1152,15 @@ LAUNCH_PATH = {"kv_cache_write": "qwen3-4b", "flash_chunk_prefill": "qwen3-4b",
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("kernels", "engine", "mla", "prefill",
-                                       "parity"),
+    ap.add_argument("--only", choices=("kernels", "decode", "engine", "mla",
+                                       "prefill", "parity"),
                     help="run one phase (debugging; prints no result line)")
+    ap.add_argument("--src", help="import repro_torch from this directory "
+                    "instead of ./src (to time another tree's kernels)")
     args = ap.parse_args(argv)
+    if args.src:
+        sys.path.insert(0, str(Path(args.src).resolve()))
+    record = OUT / ("chip_smoke_src.json" if args.src else "chip_smoke.json")
     try:
         import torch
     except ImportError:
@@ -1101,7 +1181,8 @@ def main(argv=None) -> int:
                          text=True, check=True).stdout.strip().splitlines()[0]
     log(smi)
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+        f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}; "
+        f"repro_torch from {Path(cuda.__file__).parents[2]}")
     rec = {"card": smi, "phase_s": {}}
     OUT.mkdir(exist_ok=True)
     t_start = time.perf_counter()
@@ -1123,8 +1204,9 @@ def main(argv=None) -> int:
         if only in (None, "kernels"):
             t0 = time.perf_counter()
             time_ms = make_timer(torch)
-            kernels = kernel_phase(torch, rec, time_ms) + \
-                mla_kernel_phase(torch, rec, time_ms) + \
+            kernels = kernel_phase(torch, rec, time_ms)
+            long_decode_phase(torch, rec, time_ms)
+            kernels += mla_kernel_phase(torch, rec, time_ms) + \
                 flash_prefill_kernel_phase(torch, rec, time_ms)
             for k in kernels:
                 k["tflops"] = k["flops"] / k["ms"] * 1e-9
@@ -1139,6 +1221,10 @@ def main(argv=None) -> int:
             del time_ms
             torch.cuda.empty_cache()
             done("kernels", t0)
+        if only == "decode":
+            t0 = time.perf_counter()
+            decode_phase(torch, rec, make_timer(torch))
+            done("decode", t0)
         params = None
         if only in (None, "engine"):
             t0 = time.perf_counter()
@@ -1176,12 +1262,12 @@ def main(argv=None) -> int:
                   "the kernels line does not list every kernel")
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
-        (OUT / "chip_smoke.json").write_text(json.dumps(rec, indent=1))
+        record.write_text(json.dumps(rec, indent=1))
         return 1
     finally:
         torch.cuda.synchronize()
     rec["total_s"] = time.perf_counter() - t_start
-    (OUT / "chip_smoke.json").write_text(json.dumps(rec, indent=1))
+    record.write_text(json.dumps(rec, indent=1))
     if only is not None:
         return 0
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

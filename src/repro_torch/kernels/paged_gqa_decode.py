@@ -11,9 +11,12 @@ K4 runs the same math over the deduplicated cross-lane visit list of
 
 The wrappers launch ``csrc/paged_gqa_decode.cu`` on CUDA tensors and run the
 plain PyTorch versions beside them (``paged_pool_decode_ref``,
-``paged_pool_decode_visits_ref``) on CPU tensors. The plain versions follow
-the kernels' page order and masks; K2's masked probabilities are not
-hard-zeroed (exp(-1e30 - m) underflows once a live key has been seen).
+``paged_pool_decode_visits_ref``) on CPU tensors. The plain versions walk
+each lane's slots in order; K2's masked probabilities are not hard-zeroed
+(exp(-1e30 - m) underflows once a live key has been seen). The kernels
+split the slots across blocks (``decode_splits``, the same for both) and
+merge the splits' (m, l, acc) in ascending order in the same launch, which
+moves their f32 sums by rounding only.
 """
 from __future__ import annotations
 
@@ -26,8 +29,68 @@ from repro_torch.kernels import cuda
 
 _NEG = -1e30
 MAX_PAGE_SIZE = 128              # csrc/paged_attention.cuh PA_MAX_PS
-MAX_GROUP = 16                   # K2: 8 warps x 2 rows
 _SMEM_LIMIT = 227 * 1024
+_BLOCKS_PER_SM = 8               # decode_splits' aim: this many blocks an SM
+
+
+def decode_splits(nsel: int, lane_heads: int, sms: int):
+    """(slots per split, splits) of K2 and K4 for ``nsel`` table slots,
+    ``lane_heads`` = B * heads (lane, head) pairs and ``sms`` SMs: enough
+    splits that K2's B * heads * splits blocks reach _BLOCKS_PER_SM an SM
+    (K4 runs heads * splits), never more splits than slots. Split z covers
+    the slots [z * slots, min((z + 1) * slots, nsel)); K4's the visits
+    [z * slots * B, ...), the same slots of every lane."""
+    want = -(-_BLOCKS_PER_SM * sms // max(lane_heads, 1))
+    slots = -(-nsel // max(min(want, nsel), 1)) if nsel > 0 else 1
+    return slots, max(-(-nsel // slots), 1)
+
+
+def _smem_bytes(ps, D, kv_bytes, lanes, G, nstage=1):
+    """Dynamic shared memory of one K2 (lanes 1) or K4 (lanes B) block with
+    an ``nstage``-deep page ring: csrc/paged_gqa_decode.cu ``make_layout``
+    (the kernel takes up to 4 stages while 3 blocks fit an SM, at least 1,
+    and refuses a block that 1 stage does not fit)."""
+    def al(x):
+        return -(-x // 16) * 16
+    rows = lanes * G
+    rb = min(16, rows)
+    ps16 = -(-ps // 16) * 16
+    stage = al(2 * ps * (D * kv_bytes + 16)) + al(2 * ps * 4) + 48
+    return (nstage * stage + al(rows * (D + 8) * 2) + rows * D * 4
+            + 2 * al(rows * 4) + al(lanes * 4) + al(rb * ps * 4)
+            + al(ps16 * (D + 8) * 2) + 2 * al(16 * (ps16 + 8) * 2)
+            + al(rb * 4))
+
+
+_SMS: dict = {}
+_COUNTERS: dict = {}
+
+
+def _split_buffers(name, q, B, heads, G, nsel, lanes, ps, kv_bytes):
+    """Check the block fits, then (slots, f32 scratch for the splits'
+    partials or None, the device's int32 arrival counters: one a (lane,
+    head) for K2, one a head for K4). The counters start at 0 and the
+    kernel's merging block resets each one, so they are kept per device
+    across calls; calls that could run at once on two streams would share
+    them, so the decode runs on one stream, as the engine's does."""
+    D = q.shape[-1]
+    smem = _smem_bytes(ps, D, kv_bytes, lanes, G)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"{name}: {lanes} lanes x {G} rows need {smem} B "
+                         "of shared memory")
+    dev = q.device
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    slots, splits = decode_splits(nsel, B * heads, _SMS[dev])
+    ctr = _COUNTERS.get(dev)
+    if ctr is None or ctr.numel() < B * heads:
+        ctr = _COUNTERS[dev] = torch.zeros(B * heads, dtype=torch.int32,
+                                           device=dev)
+    partial = None
+    if splits > 1:
+        partial = torch.empty(B * heads * splits * G * (D + 4),
+                              dtype=torch.float32, device=dev)
+    return slots, partial, ctr
 
 
 def _geometry(Hq: int, Hkv: int, opt_gqa: bool, device):
@@ -180,7 +243,8 @@ def paged_pool_decode(q, k_pages, v_pages, k_scale, v_scale, cache_len,
     """q: (B, Hq, D) bf16; k/v_pages: (P_total, ps, Hkv, D) GLOBAL pool (fp8
     if ``opt_kv``); k/v_scale: (P_total, ps, Hkv) f32 or None; cache_len:
     (B,) int32; phys/log_table: (B, NSel) int32, -1 = never read. Returns
-    (B, Hq, D) bf16."""
+    (B, Hq, D) bf16. On the card the G rows of a (lane, head) and a
+    one-page ring must fit one block's shared memory (``_smem_bytes``)."""
     if q.device.type == "cpu":
         return paged_pool_decode_ref(
             q, k_pages, v_pages, k_scale, v_scale, cache_len, phys_table,
@@ -192,19 +256,21 @@ def paged_pool_decode(q, k_pages, v_pages, k_scale, v_scale, cache_len,
            cache_len, (phys_table, log_table), opt_kv, opt_gqa)
     B, Hq, D = q.shape
     _, ps, Hkv, _ = k_pages.shape
-    if opt_gqa and Hq // Hkv > MAX_GROUP:
-        raise ValueError(f"paged_pool_decode: group {Hq // Hkv} > {MAX_GROUP}")
     NSel = phys_table.shape[1]
     if tuple(log_table.shape) != (B, NSel) or phys_table.shape[0] != B:
         raise ValueError("paged_pool_decode: tables must be (B, NSel)")
+    heads, G = (Hkv, Hq // Hkv) if opt_gqa else (Hq, 1)
+    slots, partial, ctr = _split_buffers(
+        "paged_pool_decode", q, B, heads, G, NSel, 1, ps, 1 if opt_kv else 2)
     out = torch.empty_like(q)
     fn = cuda.library("paged_gqa_decode").paged_pool_decode
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              cuda.ptr(k_scale if opt_kv else None),
              cuda.ptr(v_scale if opt_kv else None), cache_len.data_ptr(),
              phys_table.data_ptr(), log_table.data_ptr(), out.data_ptr(),
-             B, Hq, Hkv, D, ps, NSel, int(opt_kv), int(opt_gqa), window,
-             sink_pages, 1.0 / math.sqrt(D), cuda.stream_ptr(q.device))
+             cuda.ptr(partial), ctr.data_ptr(), B, Hq, Hkv, D, ps, NSel,
+             int(opt_kv), int(opt_gqa), window, sink_pages, slots,
+             1.0 / math.sqrt(D), cuda.stream_ptr(q.device))
     cuda.check(err, "paged_pool_decode")
     cuda.count("paged_pool_decode")
     return out
@@ -215,8 +281,10 @@ def paged_pool_decode_visits(q, k_pages, v_pages, k_scale, v_scale,
                              *, opt_kv: bool, opt_gqa: bool, window: int = 0,
                              sink_pages: int = 0):
     """Visit-list twin of ``paged_pool_decode``: visit_page/visit_lanes/
-    visit_log are the (NV,) int32 plan vectors of ``plan_visits``. Requires
-    B <= visits.MAX_VISIT_LANES (int32 lane bitmask)."""
+    visit_log are the (B * NSel,) int32 slot-major plan vectors of
+    ``plan_visits``. Requires B <= visits.MAX_VISIT_LANES (int32 lane
+    bitmask) and every lane's q, acc, m and l of a head in one block's
+    shared memory (``_smem_bytes``)."""
     if q.device.type == "cpu":
         return paged_pool_decode_visits_ref(
             q, k_pages, v_pages, k_scale, v_scale, cache_len, visit_page,
@@ -230,25 +298,25 @@ def paged_pool_decode_visits(q, k_pages, v_pages, k_scale, v_scale,
     B, Hq, D = q.shape
     _, ps, Hkv, _ = k_pages.shape
     NV = visit_page.shape[0]
-    if B > 32:
-        raise ValueError(f"paged_pool_decode_visits: {B} lanes > 32")
-    if visit_lanes.shape != (NV,) or visit_log.shape != (NV,):
-        raise ValueError("paged_pool_decode_visits: plan vectors must be (NV,)")
-    G = Hq // Hkv if opt_gqa else 1
-    kv_bytes = 1 if opt_kv else 2
-    smem = 2 * ps * D * kv_bytes + 2 * ps * 4 + B * G * (D + 2) * 4
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"paged_pool_decode_visits: {B} lanes x {G} rows "
-                         f"need {smem} B of shared memory")
+    if not 1 <= B <= 32:
+        raise ValueError(f"paged_pool_decode_visits: {B} lanes not in [1, 32]")
+    if visit_lanes.shape != (NV,) or visit_log.shape != (NV,) or NV % B:
+        raise ValueError("paged_pool_decode_visits: plan vectors must be "
+                         "(B * NSel,)")
+    heads, G = (Hkv, Hq // Hkv) if opt_gqa else (Hq, 1)
+    slots, partial, ctr = _split_buffers(
+        "paged_pool_decode_visits", q, B, heads, G, NV // B, B, ps,
+        1 if opt_kv else 2)
     out = torch.empty_like(q)
     fn = cuda.library("paged_gqa_decode").paged_pool_decode_visits
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              cuda.ptr(k_scale if opt_kv else None),
              cuda.ptr(v_scale if opt_kv else None), cache_len.data_ptr(),
              visit_page.data_ptr(), visit_lanes.data_ptr(),
-             visit_log.data_ptr(), out.data_ptr(), B, Hq, Hkv, D, ps, NV,
-             int(opt_kv), int(opt_gqa), window, sink_pages,
-             1.0 / math.sqrt(D), cuda.stream_ptr(q.device))
+             visit_log.data_ptr(), out.data_ptr(), cuda.ptr(partial),
+             ctr.data_ptr(), B, Hq, Hkv, D, ps, NV // B, int(opt_kv),
+             int(opt_gqa), window, sink_pages, slots, 1.0 / math.sqrt(D),
+             cuda.stream_ptr(q.device))
     cuda.check(err, "paged_pool_decode_visits")
     cuda.count("paged_pool_decode_visits")
     return out

@@ -71,21 +71,82 @@ def test_kv_cache_write_bytes(dev, opt_kv, D):
         assert torch.equal(sa, sb)
 
 
-@pytest.mark.parametrize("opt_kv,opt_gqa,window,sink", [
-    (True, True, 0, 0), (False, True, 0, 0), (True, False, 0, 0),
-    (True, True, 48, 1)])
-@pytest.mark.parametrize("D", [64, 128])
-def test_decode_kernels(dev, opt_kv, opt_gqa, window, sink, D):
+_DECODE_MODES = [(True, True, 0, 0), (False, True, 0, 0), (True, False, 0, 0),
+                 (True, True, 48, 1)]
+# case: (lanes B, table slots NP, page size ps, SM count handed to
+# decode_splits or None for the card's). With Hkv 2 (G 4) the 8 or 16
+# (lane, head) pairs of 4 lanes give one slot a split on the card's 132
+# SMs; a small SM count makes the splits longer.
+_DECODE_CASES = {
+    "base": (4, 6, 32, None),          # lanes 1-2 share 2 pages
+    "ragged_splits": (4, 7, 32, 5),    # 3 slots a split: [0,3) [3,6) [6,7)
+    "nsel1": (4, 1, 32, None),         # one slot a lane
+    "dead_split": (4, 8, 32, 7),       # slots 2-3 of every lane are -1
+    "first_page": (4, 6, 32, 6),       # lanes 1 and 3 end inside page 0
+    "window_split": (4, 10, 16, 6),    # window + sink pages in 2 splits
+    "ps8": (4, 20, 8, 5), "ps16": (4, 10, 16, None),
+    "ps128": (4, 3, 128, None),
+    "b1": (1, 6, 32, None), "b2": (2, 6, 32, 3),
+    "b32": (32, 3, 32, None),          # page 0 shared by all 32: bit 31
+    "all_share": (4, 6, 32, 6),        # a 3-page prefix of every lane
+}
+
+
+def _decode_tables(case, dev):
+    B, NP, ps, _ = _DECODE_CASES[case]
+    table = torch.arange(B * NP, device=dev, dtype=torch.int32).reshape(B, NP)
+    cl = [NP * ps - (b * 29) % (NP * ps // 2) for b in range(B)]
+    if case == "base":
+        table[1:3, :2] = table[0, :2]
+        cl = [NP * ps, 150, 70, 33]
+    elif case == "all_share":
+        table[1:, :3] = table[0, :3]
+    elif case == "b32":
+        table[:, 0] = table[0, 0]
+    elif B > 1:
+        table[1:, :NP // 3] = table[0, :NP // 3]
+    if case == "dead_split":
+        table[:, 2:4] = -1
+    if case == "first_page":
+        cl[1], cl[3] = 5, 1
+    return table, torch.tensor(cl, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize(
+    "opt_kv,opt_gqa,window,sink,D,case",
+    [m + (D, "base") for D in (64, 128) for m in _DECODE_MODES]
+    # the split's edges: ragged and one-slot tables, a split of -1 slots,
+    # a lane ending in its first page, window + sink across a split, MHA
+    # with splits, pages of 8, 16 and 128, K4 at 1, 2 and 32 lanes, a
+    # prefix shared by every lane
+    + [(True, True, 0, 0, 128, "ragged_splits"),
+       (False, True, 0, 0, 128, "ragged_splits"),
+       (True, False, 0, 0, 128, "ragged_splits"),
+       (True, True, 0, 0, 128, "nsel1"), (True, True, 0, 0, 128, "dead_split"),
+       (True, True, 0, 0, 128, "first_page"),
+       (True, True, 48, 1, 128, "window_split"),
+       (True, True, 48, 1, 64, "window_split"),
+       (True, True, 0, 0, 128, "ps8"), (True, True, 0, 0, 64, "ps8"),
+       (False, True, 0, 0, 128, "ps16"), (True, True, 0, 0, 128, "ps128"),
+       (False, True, 0, 0, 128, "ps128"), (True, True, 0, 0, 128, "b1"),
+       (True, True, 0, 0, 128, "b2"), (True, True, 0, 0, 128, "b32"),
+       (False, False, 0, 0, 64, "b32"), (True, True, 0, 0, 128, "all_share")])
+def test_decode_kernels(dev, monkeypatch, opt_kv, opt_gqa, window, sink, D,
+                        case):
     """K2 vs its plain version within one bf16 ulp; K4 bit-identical to
     K2."""
-    B, NP, ps, Hkv, G = 4, 6, 32, 2, 4
+    _, NP, ps, sms = _DECODE_CASES[case]
+    if sms is not None:       # the wrapper keys its SM count by q.device
+        monkeypatch.setitem(pd._SMS, torch.device(
+            "cuda", torch.cuda.current_device()), sms)
+    Hkv, G = 2, 4
+    table, cl = _decode_tables(case, dev)
+    B = table.shape[0]
     kv, sc = _pool(dev, B * NP + 1, ps, Hkv, D, opt_kv)
-    table = torch.arange(B * NP, device=dev, dtype=torch.int32).reshape(B, NP)
-    table[1:3, :2] = table[0, :2]                      # a shared prefix
-    cl = torch.tensor([NP * ps, 150, 70, 33], dtype=torch.int32, device=dev)
     phys, log = decode_page_select(cl, table, ps, window=window,
                                    sink_pages=sink)
-    q = torch.randn((B, Hkv * G, D), device=dev).bfloat16()
+    g = torch.Generator(device=dev).manual_seed(2)
+    q = torch.randn((B, Hkv * G, D), generator=g, device=dev).bfloat16()
     ks, vs = (sc[0], sc[1]) if opt_kv else (None, None)
     gqa = True if window else opt_gqa
     k2 = pd.paged_pool_decode(q, kv[0], kv[1], ks, vs, cl, phys, log,
@@ -101,6 +162,27 @@ def test_decode_kernels(dev, opt_kv, opt_gqa, window, sink, D):
     torch.cuda.synchronize()
     _assert_close(k2, plain)
     assert torch.equal(k4, k2)
+
+
+@pytest.mark.parametrize("visit_list", [False, True])
+def test_decode_launches_once(dev, visit_list):
+    """One K2 or K4 call is one launch, splits and merge included."""
+    table, cl = _decode_tables("ragged_splits", dev)
+    kv, sc = _pool(dev, table.numel() + 1, 32, 2, 128, True)
+    phys, log = decode_page_select(cl, table, 32)
+    q = torch.zeros((4, 8, 128), device=dev).bfloat16()
+    cuda.reset_launches()
+    if visit_list:
+        pd.paged_pool_decode_visits(q, kv[0], kv[1], sc[0], sc[1], cl,
+                                    *visits.plan_visits(phys, log),
+                                    opt_kv=True, opt_gqa=True)
+    else:
+        pd.paged_pool_decode(q, kv[0], kv[1], sc[0], sc[1], cl, phys, log,
+                             opt_kv=True, opt_gqa=True)
+    torch.cuda.synchronize()
+    name = "paged_pool_decode_visits" if visit_list else "paged_pool_decode"
+    assert cuda.LAUNCHES[name] == 1
+    assert sum(cuda.LAUNCHES.values()) == 1
 
 
 _CHUNK_MODES = [(True, True, 0), (False, True, 0), (True, False, 0),

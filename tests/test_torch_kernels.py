@@ -27,6 +27,7 @@ from repro_torch.core.coopt import MODES  # noqa: E402
 from repro_torch.core.opt_kv import decode_page_select  # noqa: E402
 from repro_torch.core.opt_pa import paged_chunk_attention  # noqa: E402
 from repro_torch.kernels import ops, ref, visits  # noqa: E402
+from repro_torch.kernels import paged_gqa_decode as pdm  # noqa: E402
 from repro_torch.kernels.flash_chunk_prefill import flash_chunk_prefill_ref  # noqa: E402
 from repro_torch.kernels.kv_cache_write import kv_cache_write  # noqa: E402
 from repro_torch.kernels.paged_gqa_decode import (  # noqa: E402
@@ -268,6 +269,162 @@ def test_ops_decode_routes_visits_by_lane_count():
     assert torch.equal(a, b)
     assert ops._use_visits(True, 4) and not ops._use_visits(True, 1)
     assert not ops._use_visits(True, 33) and not ops._use_visits(False, 4)
+
+
+# ---------------------------------------------- K2 / K4 split-page decode ----
+@pytest.mark.parametrize("nsel,lane_heads,sms", [
+    (16, 32, 132), (128, 32, 132), (16, 8, 132), (1, 32, 132), (0, 32, 132),
+    (7, 8, 5), (67, 8, 132), (8, 256, 132), (1000, 1, 1)])
+def test_decode_splits_cover_every_slot_once(nsel, lane_heads, sms):
+    """decode_splits cuts the slots into ascending ranges that cover each
+    slot exactly once, with enough splits for _BLOCKS_PER_SM blocks an SM
+    where the slots allow; K4's visit ranges [s0 * B, s1 * B) hold exactly
+    the same slots of every lane (plan_visits is slot-major), so both
+    kernels meet each lane's live slots split by split in the same order."""
+    slots, splits = pdm.decode_splits(nsel, lane_heads, sms)
+    ranges = [(z * slots, min((z + 1) * slots, nsel)) for z in range(splits)]
+    assert slots >= 1 and splits >= 1
+    assert [i for a, b in ranges for i in range(a, b)] == list(range(nsel))
+    assert all(a < b for a, b in ranges) or nsel == 0
+    # the fewest slots a split whose count stays within the aim
+    aim = max(min(-(-pdm._BLOCKS_PER_SM * sms // lane_heads), nsel), 1)
+    assert splits <= aim
+    assert slots == 1 or -(-nsel // (slots - 1)) > aim
+    B = 3
+    rng = np.random.default_rng(nsel)
+    phys = rng.integers(-1, 4, (B, nsel)).astype(np.int32)
+    phys[1:, : nsel // 2] = phys[0, : nsel // 2]          # shared prefix
+    log = np.where(phys >= 0, np.arange(nsel, dtype=np.int32), -1)
+    vp, vm, vl = (x.numpy() for x in visits.plan_visits(
+        torch.from_numpy(phys), torch.from_numpy(log.astype(np.int32))))
+    for a, b in ranges:
+        for lane in range(B):
+            mine = [v // B for v in range(a * B, b * B)
+                    if vp[v] >= 0 and (int(vm[v]) >> lane) & 1]
+            assert mine == [s for s in range(a, b) if phys[lane, s] >= 0]
+
+
+def _split_emulation(q, kv, sc, cl, phys, log, slots, *, opt_kv, opt_gqa,
+                     window=0, sink=0, visits_form=False):
+    """The split-page kernels' arithmetic in PyTorch f32: the slots cut
+    into splits of ``slots`` (as decode_splits gives them), each split's
+    (m, l, acc) from the plain update over its slots (``visits_form``: over
+    its visits [s0 * B, s1 * B) of plan_visits, member rows only), merged
+    in split order: m = max m_s, l = sum l_s e^(m_s - m), acc likewise.
+    Returns the f32 output (B, Hq, D) before the bf16 rounding."""
+    B, Hq, D = q.shape
+    _, ps, Hkv, _ = kv[0].shape
+    heads, G, kv_of = pdm._geometry(Hq, Hkv, opt_gqa, q.device)
+    qf = q.float().reshape(B, heads, G, D)
+    ks, vs = (sc[0], sc[1]) if opt_kv else (None, None)
+    nsel = phys.shape[1]
+    j = torch.arange(ps)
+    lane = torch.arange(B)
+    upd = dict(window=window, sink_pages=sink, ps=ps,
+               sm_scale=1.0 / np.sqrt(D))
+    vp, vm, vl = visits.plan_visits(phys, log)
+
+    def update(state, ids, pos, member):
+        k = pdm._lane_pages(kv[0], ks, ids, kv_of, opt_kv)
+        v = pdm._lane_pages(kv[1], vs, ids, kv_of, opt_kv)
+        return pdm._decode_update(qf, k, v, pos, cl, member, state, **upd)
+
+    parts = []
+    for s0 in range(0, max(nsel, 1), slots):
+        s1 = min(s0 + slots, nsel)
+        st = pdm._init_state(B, heads, G, D, q.device)
+        if not visits_form:
+            for s in range(s0, s1):
+                page = phys[:, s].long()
+                pos = log[:, s].long().clamp_min(0)[:, None] * ps + j
+                st = update(st, page.clamp_min(0), pos, page >= 0)
+        else:
+            for v in range(s0 * B, s1 * B):
+                if int(vp[v]) < 0:
+                    continue
+                pos = (int(vl[v]) * ps + j)[None].expand(B, ps)
+                st = update(st, torch.full((B,), int(vp[v])), pos,
+                            ((int(vm[v]) >> lane) & 1).bool())
+        parts.append(st)
+    m = torch.stack([p[0] for p in parts]).amax(0)
+    l, acc = torch.zeros_like(m), torch.zeros_like(parts[0][2])
+    for pm, pl, pa in parts:
+        w = torch.exp(pm - m)
+        l = l + pl * w
+        acc = acc + pa * w[..., None]
+    return (acc / l.clamp_min(1e-30)[..., None]).reshape(B, Hq, D)
+
+
+# The split merge re-associates the f32 online softmax: a few f32 ulps of
+# the output, far inside the bf16 ulp the card tests hold the kernels to.
+SPLIT_RTOL, SPLIT_ATOL = 2 ** -16, 2 ** -20
+
+
+@pytest.mark.parametrize("mode", ["coopt", "original"])
+@pytest.mark.parametrize("window,sink", [(0, 0), (32, 1)])
+@pytest.mark.parametrize("slots", [1, 2, 4])
+def test_split_emulation_matches_plain_and_pallas(mode, window, sink, slots):
+    """The split-then-merge arithmetic against the plain version (one
+    split: the same bits; more: within SPLIT_RTOL/ATOL in f32) and against
+    the JAX kernel in interpret mode (within one bf16 ulp, KERNEL_ATOL)."""
+    coopt, (jq, jkv, jsc, jcl, jphys, jlog), (tq, tkv, tsc, tcl, tphys,
+                                              tlog) = \
+        _decode_inputs(mode, window, sink)
+    opt_gqa = True if window else coopt.opt_gqa
+    kw = dict(opt_kv=coopt.opt_kv, opt_gqa=opt_gqa, window=window,
+              sink=sink)
+    one = _split_emulation(tq, tkv, tsc, tcl, tphys, tlog, tphys.shape[1],
+                           **kw)
+    tks, tvs = (tsc[0], tsc[1]) if tsc is not None else (None, None)
+    plain = paged_pool_decode_ref(tq, tkv[0], tkv[1], tks, tvs, tcl, tphys,
+                                  tlog, opt_kv=coopt.opt_kv, opt_gqa=opt_gqa,
+                                  window=window, sink_pages=sink)
+    assert torch.equal(one.to(torch.bfloat16), plain)
+    got = _split_emulation(tq, tkv, tsc, tcl, tphys, tlog, slots, **kw)
+    torch.testing.assert_close(got, one, rtol=SPLIT_RTOL, atol=SPLIT_ATOL)
+    jks, jvs = (jsc[0], jsc[1]) if jsc is not None else (None, None)
+    kern = jpd.paged_pool_decode(jq, jkv[0], jkv[1], jks, jvs, jcl, jphys,
+                                 jlog, opt_kv=coopt.opt_kv, opt_gqa=opt_gqa,
+                                 window=window, sink_pages=sink,
+                                 interpret=True)
+    np.testing.assert_allclose(_t2n(got.to(torch.bfloat16)), _f32(kern),
+                               atol=KERNEL_ATOL)
+
+
+@pytest.mark.parametrize("opt_kv,opt_gqa", [(True, True), (False, False)])
+@pytest.mark.parametrize("slots", [1, 2, 4])
+def test_split_emulation_visit_form_bit_identical(opt_kv, opt_gqa, slots):
+    """K4's split over visits [s0 * B, s1 * B) gives the same bits as K2's
+    split over slots [s0, s1): the per-lane and visit-list emulations are
+    torch.equal in f32, on tables with a prefix shared by three lanes and a
+    lane with -1 holes."""
+    rng = np.random.default_rng(6)
+    ps, Hkv, G, D = 16, 2, 4, 64
+    phys, log = _shared_tables()
+    _, _, tkv, tsc = _pool(rng, 40, ps, Hkv, D, opt_kv)
+    tq = torch.from_numpy(rng.standard_normal((4, Hkv * G, D)).astype(
+        np.float32)).to(torch.bfloat16)
+    tcl = torch.tensor([90, 96, 60, 50], dtype=torch.int32)
+    args = (tq, tkv, tsc, tcl, torch.from_numpy(phys), torch.from_numpy(log),
+            slots)
+    lanes = _split_emulation(*args, opt_kv=opt_kv, opt_gqa=opt_gqa)
+    visit = _split_emulation(*args, opt_kv=opt_kv, opt_gqa=opt_gqa,
+                             visits_form=True)
+    assert torch.equal(lanes, visit)
+
+
+def test_decode_smem_plan():
+    """The wrappers' shared-memory plan (csrc ``make_layout``): at qwen3-4b's
+    widths K2 (1 lane) and K4 (4 lanes) take a 2-page ring in a third of
+    the SM's shared memory (3 blocks an SM); K4 fits 32 lanes of G 4 at D
+    128 with pages of 128 bf16 tokens on a 1-page ring, not on 2; 32
+    lanes of G 16 do not fit at all."""
+    limit = pdm._SMEM_LIMIT
+    assert pdm._smem_bytes(64, 128, 1, 1, 4, nstage=2) <= limit // 3
+    assert pdm._smem_bytes(64, 128, 1, 4, 4, nstage=2) <= limit // 3
+    assert pdm._smem_bytes(128, 128, 2, 32, 4) <= limit
+    assert pdm._smem_bytes(128, 128, 2, 32, 4, nstage=2) > limit
+    assert pdm._smem_bytes(64, 128, 1, 32, 16) > limit
 
 
 # ------------------------------------------------------------------ K3 ----
