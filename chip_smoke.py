@@ -19,7 +19,8 @@ Phases:
      lanes): K7 bit-identical to K5, K5 and K6 (unpacked and packed)
      within the f32 tolerance (``LAT_RTOL``, ``LAT_ATOL``). K2 and K4 again
      at a long context (4 lanes of 8192 tokens, 2048 shared: an fp8 pool
-     larger than L2), with the same checks. K8 at 2 x 2048
+     larger than L2), with the same checks; a decode at G 8 and 32 lanes,
+     whose K4 plan does not fit a block, must run K2. K8 at 2 x 2048
      tokens of qwen3-4b's heads within one bf16 ulp. Each check beside a
      control (one key masked off, or the packing planes dropped) that must
      fall outside its tolerance. Then each kernel's time (CUDA events, cold
@@ -27,8 +28,11 @@ Phases:
      function, and the least time the card could take (``bound_ms``),
      with the achieved rate (the bound's operations over the time) and the
      share of the bound. K3 is also timed over the pool dequantized to
-     bf16, and its chunk lane apart from its decode lanes; K2 and K4 record
-     their splits and blocks.
+     bf16, and its chunk lane apart from its decode lanes; K6 its chunk
+     lane apart from its decode lanes, with its launch's blocks, the
+     registers and local bytes its instantiations report, the tensor
+     cores' operations over the bound's, and its bound at the bf16 and the
+     f32 rate; K2 and K4 record their splits and blocks.
   3. ``Engine.generate`` on qwen3-4b at full width and depth (random
      weights from a seed) in coopt mode with the kernels: 8 greedy
      requests, 4 sharing a 256-token prefix; K1, K3 and K4 must launch.
@@ -314,6 +318,40 @@ def long_decode_phase(torch, rec, time_ms):
     q = torch.randn((B, Hq, D), generator=gen, device=DEV).to(torch.bfloat16)
     decode_step(torch, rec, time_ms, "decode_long", q, kv, sc, table,
                 cache_len, timed_plain=False)
+
+
+def oversized_decode_case(torch, rec):
+    """A decode whose K4 plan does not fit one block's shared memory: G 8
+    (Hq 64, Hkv 8, D 128) at 32 lanes over fp8 pages of 128, through
+    ``ops.paged_pool_decode`` with ``share_visits``, must launch K2 and not
+    K4, and give K2's bits."""
+    from repro_torch.core.opt_kv import decode_page_select
+    from repro_torch.kernels import cuda, ops
+    from repro_torch.kernels import paged_gqa_decode as pd
+    gen = torch.Generator(device=torch.device(DEV)).manual_seed(6)
+    B, Hq, Hkv, D, ps, NP = 32, 64, 8, 128, 128, 4
+    kv, sc, table = paged_pool(torch, gen, B, NP, 1, Hkv, D, ps)
+    cache_len = torch.randint(ps + 1, NP * ps + 1, (B,), generator=gen,
+                              device=DEV, dtype=torch.int32)
+    q = torch.randn((B, Hq, D), generator=gen, device=DEV).to(torch.bfloat16)
+    phys, logt = decode_page_select(cache_len, table, ps, opt_pa=True)
+    kw = dict(opt_kv=True, opt_gqa=True)
+    cuda.reset_launches()
+    got = ops.paged_pool_decode(q, kv, sc, cache_len, phys, logt,
+                                share_visits=True, **kw)
+    launches = dict(cuda.LAUNCHES)
+    k2 = pd.paged_pool_decode(q, kv[0], kv[1], sc[0], sc[1], cache_len, phys,
+                              logt, **kw)
+    torch.cuda.synchronize()
+    same = torch.equal(got, k2)
+    log(f"decode G 8 at 32 lanes (fp8 pages of 128): K2 launches "
+        f"{launches['paged_pool_decode']}, K4 launches "
+        f"{launches['paged_pool_decode_visits']}, equal to K2 {same}")
+    check(launches["paged_pool_decode"] == 1 and
+          launches["paged_pool_decode_visits"] == 0,
+          "an oversized K4 plan was not routed to K2")
+    check(same, "the rerouted decode differs from K2")
+    rec["decode_g8_b32"] = dict(launches=launches, equal_to_k2=same)
 
 
 def decode_phase(torch, rec, time_ms):
@@ -705,6 +743,18 @@ def mla_kernel_phase(torch, rec, time_ms):
     chunk_flops = chunk_keys * (2 * W + 2 * R)
     chunk_bytes = torch.unique(used).numel() * ps * (W + 8) + \
         B * S * H * (W + R) * 4 + B * S * 4 + B * NP * 4
+    # what the tensor cores execute: every (row, key) pair of each 64-key
+    # tile (a page shorter than 64 keys fills a whole tile) that a row group
+    # of 16 rows does not skip as wholly in its future, with the kernel's
+    # bf16 terms of q over R + dr dims and of P' over R
+    rows = qpos.repeat_interleave(H, dim=1)
+    rows = F.pad(rows, (0, -rows.shape[1] % 16), value=-1)
+    gmax = rows.reshape(B, -1, 16).amax(-1)             # (B, groups)
+    kstart = torch.arange(NP, device=dev)[:, None] * ps + \
+        torch.arange(0, ps, 64, device=dev)
+    tiles = (table >= 0)[:, None, :, None] & \
+        (kstart[None, None] <= gmax[:, :, None, None])
+    tc_pairs = int(tiles.sum().item()) * 16 * 64
     q6 = torch.cat([qlc, qrc], -1).to(torch.bfloat16).transpose(1, 2) \
         .contiguous()
     cmask = (kpos[None, None] <= pos[:, :, None])[:, None]
@@ -714,7 +764,9 @@ def mla_kernel_phase(torch, rec, time_ms):
             q6, lat_d, val_d, attn_mask=cmask, scale=sm_scale,
             enable_gqa=True)
     lib_err6 = (sdpa_chunk().transpose(1, 2).float() - p6).abs().max().item()
-    bnd = bound(chunk_bytes, chunk_flops, F32_FLOPS)
+    # K6 runs its operations on bf16 tensor cores: the bound is their rate;
+    # the f32 rate's bound (the first version's) stays beside it
+    bnd = bound(chunk_bytes, chunk_flops, BF16_FLOPS)
     out.append(dict(name="latent_chunk_prefill", route="cuda",
                     source="src/repro_torch/kernels/csrc/"
                            "latent_chunk_prefill.cu",
@@ -733,6 +785,36 @@ def mla_kernel_phase(torch, rec, time_ms):
                             f"{lib_err6:.3e})",
                     shape=f"B={B} S={S} H={H} R={R} dr={dr} ps={ps} "
                           f"NP={NP}"))
+    # the kernel as the loaded library reports it, the blocks those of the
+    # timed launch at this shape; the other instantiations' resources beside
+    info = {f"R{r} dr{d} {'fp8' if f else 'bf16'}": lc.kernel_info(r, d, f, dev)
+            for r, d in ((R, dr), (64, 32)) for f in (True, False)}
+    k6 = info[f"R{R} dr{dr} {'fp8' if kw['opt_kv'] else 'bf16'}"]
+    tc_flops = tc_pairs * (k6["q_terms"] * 2 * W + k6["p_terms"] * 2 * R)
+    f32_ms = bound(chunk_bytes, chunk_flops, F32_FLOPS)["bound_ms"]
+    out[-1].update(blocks=k6["last_blocks"],
+                   rows_per_block=k6["rows_per_block"],
+                   registers=k6["registers"], local_bytes=k6["local_bytes"])
+    log(f"K6: {k6['last_blocks']} blocks of {k6['rows_per_block']} rows; "
+        "registers / local bytes a thread " + ", ".join(
+            f"{n} {v['registers']}/{v['local_bytes']}"
+            for n, v in info.items()) +
+        f"; the tensor cores execute {tc_flops / chunk_flops:.3f}x the "
+        f"bound's operations ({k6['q_terms']} q terms, {k6['p_terms']} P' "
+        f"terms); bound {bnd['bound_ms']:.4f} ms at the bf16 rate, "
+        f"{f32_ms:.4f} ms at the f32 rate")
+    rec["k6"] = dict(kernels=info, tc_ops_over_bound=tc_flops / chunk_flops,
+                     bound_bf16_ms=bnd["bound_ms"], bound_f32_ms=f32_ms)
+    # what K6's time is made of: the chunk lane apart from the three decode
+    # lanes (each padded to the chunk's 512 rows of its one token)
+    split = {}
+    for key, lanes in (("chunk_lane_ms", slice(0, 1)),
+                       ("decode_lanes_ms", slice(1, B))):
+        split[key] = time_ms(lambda: ops.latent_chunk_prefill(
+            qlc[lanes], qrc[lanes], pos[lanes], lat, sc, table[lanes], **kw),
+            iters=10)
+    log("K6 split: " + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+    rec["k6_split"] = split
     return out
 
 
@@ -1206,6 +1288,7 @@ def main(argv=None) -> int:
             time_ms = make_timer(torch)
             kernels = kernel_phase(torch, rec, time_ms)
             long_decode_phase(torch, rec, time_ms)
+            oversized_decode_case(torch, rec)
             kernels += mla_kernel_phase(torch, rec, time_ms) + \
                 flash_prefill_kernel_phase(torch, rec, time_ms)
             for k in kernels:
@@ -1272,7 +1355,12 @@ def main(argv=None) -> int:
         return 0
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: x[k] for k in keys} for x in kernels]}))
+    # K6 adds its launch's grid and its registers and local bytes as the
+    # loaded kernel reports them
+    extra = ("blocks", "rows_per_block", "registers", "local_bytes")
+    print(json.dumps({"kernels": [
+        {k: x[k] for k in keys + extra if k in keys or k in x}
+        for x in kernels]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
-// Shared device code of the MLA latent kernels (K5 paged_latent_decode, K7
-// paged_latent_decode_visits, K6 latent_chunk_prefill): the latent page
-// load and the per-row online-softmax update in latent space.
+// Shared device code of the MLA latent decode kernels (K5
+// paged_latent_decode, K7 paged_latent_decode_visits): the latent page load
+// and the per-row online-softmax update in latent space. (K6
+// latent_chunk_prefill runs its rows on the tensor cores instead.)
 //
 // A latent page is (ps, W) with W = R + dr: each token's line packs the
 // compressed c_kv (R values) and the shared rotary key k_rope (dr values),

@@ -2,9 +2,9 @@
 // dequant to f32 (`kv_to_f32`, exact), the masked-score value and warp
 // constants, K3's and K6's `ChunkMask`, and the dynamic shared-memory
 // opt-in. K3/K8 take their tensor-core tile from mma_attention.cuh, and
-// K2/K4 (csrc/paged_gqa_decode.cu) its MMA and ldmatrix helpers beside
-// their own split-page update and merge; K5-K7 take their row update from
-// latent_attention.cuh. The dequant is f32(k) * scale, the Pallas kernels'
+// K2/K4 (csrc/paged_gqa_decode.cu) and K6 (csrc/latent_chunk_prefill.cu)
+// its MMA and ldmatrix helpers beside their own tile updates; K5 and K7
+// take their row update from latent_attention.cuh. The dequant is f32(k) * scale, the Pallas kernels'
 // Eq. 6, with per-(token, head) f32 scales beside each page.
 #pragma once
 

@@ -57,6 +57,7 @@ _ARGTYPES = {
     "paged_latent_decode": [_P] * 8 + [_I] * 9 + [_F, _P],
     "paged_latent_decode_visits": [_P] * 9 + [_I] * 9 + [_F, _P],
     "latent_chunk_prefill": [_P] * 10 + [_I] * 10 + [_F, _P],
+    "latent_chunk_prefill_info": [_I, _I, _I, ctypes.POINTER(_I)],
     "flash_prefill": [_P] * 4 + [_I] * 8 + [_F, _P],
 }
 _ENTRIES = {"kv_cache_write": ("kv_cache_write",),
@@ -65,7 +66,8 @@ _ENTRIES = {"kv_cache_write": ("kv_cache_write",),
             "flash_chunk_prefill": ("flash_chunk_prefill",),
             "paged_latent_decode": ("paged_latent_decode",
                                     "paged_latent_decode_visits"),
-            "latent_chunk_prefill": ("latent_chunk_prefill",),
+            "latent_chunk_prefill": ("latent_chunk_prefill",
+                                     "latent_chunk_prefill_info"),
             "flash_prefill": ("flash_prefill",)}
 
 

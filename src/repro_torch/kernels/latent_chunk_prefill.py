@@ -19,6 +19,8 @@ kernel's page order and masks, on CPU tensors.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import cuda
@@ -147,3 +149,20 @@ def latent_chunk_prefill(q_lat, q_rope, positions, lat_pages, scale_pages,
     cuda.check(err, "latent_chunk_prefill")
     cuda.count("latent_chunk_prefill")
     return out
+
+
+KERNEL_INFO = ("rows_per_block", "threads", "smem_bytes", "registers",
+               "local_bytes", "q_terms", "p_terms", "last_blocks")
+
+
+def kernel_info(R: int, dr: int, opt_kv: bool, device=None) -> dict:
+    """The kernel that runs for (R, dr, opt_kv), as the loaded library
+    reports it: rows and threads a block, dynamic shared bytes, registers
+    and local bytes (spills and stack) a thread, the bf16 terms of q and
+    of P' = p * sc0, and the blocks of the library's last launch."""
+    info = (ctypes.c_int * len(KERNEL_INFO))()
+    with torch.cuda.device(device):
+        err = cuda.library("latent_chunk_prefill").latent_chunk_prefill_info(
+            R, dr, int(opt_kv), info)
+    cuda.check(err, "latent_chunk_prefill_info")
+    return dict(zip(KERNEL_INFO, info))

@@ -30,6 +30,14 @@ def _use_visits(share_visits: bool, B: int) -> bool:
     return bool(share_visits) and 1 < B <= _vs.MAX_VISIT_LANES
 
 
+def _gqa_use_visits(share_visits: bool, B: int, Hq: int, Hkv: int, D: int,
+                    ps: int, opt_kv: bool, opt_gqa: bool) -> bool:
+    # K4 holds the B * G rows of a head in one block's shared memory; where
+    # its one-page plan does not fit, K2 (the same bits) serves the step
+    return _use_visits(share_visits, B) and _pd.plan_fits(
+        B, Hq, Hkv, D, ps, opt_kv, opt_gqa)
+
+
 def _i32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int32).contiguous()
 
@@ -41,11 +49,14 @@ def paged_pool_decode(q, kv_pages, scale_pages, cache_len, phys_table,
     """Fused decode over the global pool. q (B,Hq,D); kv_pages
     (2,P_total,ps,Hkv,D); scale_pages (2,P_total,ps,Hkv)|None; phys/log_table
     (B,NSel) int32 (-1 = never read). With ``share_visits`` and 1 < B <= 32
-    the visit-list kernel K4 runs; otherwise the per-lane kernel K2."""
+    the visit-list kernel K4 runs where its plan fits one block's shared
+    memory; otherwise the per-lane kernel K2."""
     ks = scale_pages[0] if scale_pages is not None else None
     vs = scale_pages[1] if scale_pages is not None else None
     phys, log, cl = _i32(phys_table), _i32(log_table), _i32(cache_len)
-    if _use_visits(share_visits, q.shape[0]):
+    B, Hq, D = q.shape
+    _, _, ps, Hkv, _ = kv_pages.shape
+    if _gqa_use_visits(share_visits, B, Hq, Hkv, D, ps, opt_kv, opt_gqa):
         vp, vm, vl = _vs.plan_visits(phys, log)
         return _pd.paged_pool_decode_visits(
             q, kv_pages[0], kv_pages[1], ks, vs, cl, vp, vm, vl,

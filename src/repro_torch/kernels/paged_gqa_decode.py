@@ -66,18 +66,26 @@ _SMS: dict = {}
 _COUNTERS: dict = {}
 
 
-def _split_buffers(name, q, B, heads, G, nsel, lanes, ps, kv_bytes):
-    """Check the block fits, then (slots, f32 scratch for the splits'
-    partials or None, the device's int32 arrival counters: one a (lane,
-    head) for K2, one a head for K4). The counters start at 0 and the
-    kernel's merging block resets each one, so they are kept per device
+def plan_fits(lanes, Hq, Hkv, D, ps, opt_kv, opt_gqa) -> bool:
+    """Whether one block of K2 (``lanes`` 1) or K4 (``lanes`` B: every
+    lane's rows of a head) fits one block's shared memory with a one-page
+    ring. Where K4's does not, K2 (the same bits) serves the decode."""
+    G = Hq // Hkv if opt_gqa else 1
+    return _smem_bytes(ps, D, 1 if opt_kv else 2, lanes, G) <= _SMEM_LIMIT
+
+
+def _split_buffers(name, q, Hkv, nsel, lanes, ps, opt_kv, opt_gqa):
+    """Check the block fits (``plan_fits``), then (slots, f32 scratch for
+    the splits' partials or None, the device's int32 arrival counters: one
+    a (lane, head) for K2, one a head for K4). The counters start at 0 and
+    the kernel's merging block resets each one, so they are kept per device
     across calls; calls that could run at once on two streams would share
     them, so the decode runs on one stream, as the engine's does."""
-    D = q.shape[-1]
-    smem = _smem_bytes(ps, D, kv_bytes, lanes, G)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"{name}: {lanes} lanes x {G} rows need {smem} B "
-                         "of shared memory")
+    B, Hq, D = q.shape
+    heads, G = (Hkv, Hq // Hkv) if opt_gqa else (Hq, 1)
+    if not plan_fits(lanes, Hq, Hkv, D, ps, opt_kv, opt_gqa):
+        raise ValueError(f"{name}: {lanes} lanes x {G} rows do not fit one "
+                         "block's shared memory")
     dev = q.device
     if dev not in _SMS:
         _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -244,7 +252,7 @@ def paged_pool_decode(q, k_pages, v_pages, k_scale, v_scale, cache_len,
     if ``opt_kv``); k/v_scale: (P_total, ps, Hkv) f32 or None; cache_len:
     (B,) int32; phys/log_table: (B, NSel) int32, -1 = never read. Returns
     (B, Hq, D) bf16. On the card the G rows of a (lane, head) and a
-    one-page ring must fit one block's shared memory (``_smem_bytes``)."""
+    one-page ring must fit one block's shared memory (``plan_fits``)."""
     if q.device.type == "cpu":
         return paged_pool_decode_ref(
             q, k_pages, v_pages, k_scale, v_scale, cache_len, phys_table,
@@ -259,9 +267,8 @@ def paged_pool_decode(q, k_pages, v_pages, k_scale, v_scale, cache_len,
     NSel = phys_table.shape[1]
     if tuple(log_table.shape) != (B, NSel) or phys_table.shape[0] != B:
         raise ValueError("paged_pool_decode: tables must be (B, NSel)")
-    heads, G = (Hkv, Hq // Hkv) if opt_gqa else (Hq, 1)
     slots, partial, ctr = _split_buffers(
-        "paged_pool_decode", q, B, heads, G, NSel, 1, ps, 1 if opt_kv else 2)
+        "paged_pool_decode", q, Hkv, NSel, 1, ps, opt_kv, opt_gqa)
     out = torch.empty_like(q)
     fn = cuda.library("paged_gqa_decode").paged_pool_decode
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -284,7 +291,7 @@ def paged_pool_decode_visits(q, k_pages, v_pages, k_scale, v_scale,
     visit_log are the (B * NSel,) int32 slot-major plan vectors of
     ``plan_visits``. Requires B <= visits.MAX_VISIT_LANES (int32 lane
     bitmask) and every lane's q, acc, m and l of a head in one block's
-    shared memory (``_smem_bytes``)."""
+    shared memory (``plan_fits``)."""
     if q.device.type == "cpu":
         return paged_pool_decode_visits_ref(
             q, k_pages, v_pages, k_scale, v_scale, cache_len, visit_page,
@@ -303,10 +310,8 @@ def paged_pool_decode_visits(q, k_pages, v_pages, k_scale, v_scale,
     if visit_lanes.shape != (NV,) or visit_log.shape != (NV,) or NV % B:
         raise ValueError("paged_pool_decode_visits: plan vectors must be "
                          "(B * NSel,)")
-    heads, G = (Hkv, Hq // Hkv) if opt_gqa else (Hq, 1)
     slots, partial, ctr = _split_buffers(
-        "paged_pool_decode_visits", q, B, heads, G, NV // B, B, ps,
-        1 if opt_kv else 2)
+        "paged_pool_decode_visits", q, Hkv, NV // B, B, ps, opt_kv, opt_gqa)
     out = torch.empty_like(q)
     fn = cuda.library("paged_gqa_decode").paged_pool_decode_visits
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),

@@ -185,6 +185,40 @@ def test_decode_launches_once(dev, visit_list):
     assert sum(cuda.LAUNCHES.values()) == 1
 
 
+@pytest.mark.parametrize("opt_kv,ps", [(True, 128), (False, 64)])
+def test_decode_routes_oversized_visit_plan_to_k2(dev, opt_kv, ps):
+    """G 8 at 32 lanes: K4's one-page plan does not fit one block's shared
+    memory (its wrapper refuses it), so ops.paged_pool_decode with
+    share_visits runs K2, whose output it is bit for bit."""
+    B, Hkv, G, D, NP = 32, 8, 8, 128, 3
+    kv, sc = _pool(dev, B * NP + 1, ps, Hkv, D, opt_kv)
+    table = torch.arange(B * NP, device=dev, dtype=torch.int32).reshape(B, NP)
+    table[:, 0] = table[0, 0]                          # a shared first page
+    cl = torch.tensor([ps + (b * 37) % (2 * ps) + 1 for b in range(B)],
+                      dtype=torch.int32, device=dev)
+    phys, log = decode_page_select(cl, table, ps)
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn((B, Hkv * G, D), generator=g, device=dev).bfloat16()
+    ks, vs = (sc[0], sc[1]) if opt_kv else (None, None)
+    cuda.reset_launches()
+    got = ops.paged_pool_decode(q, kv, sc, cl, phys, log, opt_kv=opt_kv,
+                                opt_gqa=True, share_visits=True)
+    launches = dict(cuda.LAUNCHES)
+    k2 = pd.paged_pool_decode(q, kv[0], kv[1], ks, vs, cl, phys, log,
+                              opt_kv=opt_kv, opt_gqa=True)
+    plain = pd.paged_pool_decode_ref(q, kv[0], kv[1], ks, vs, cl, phys, log,
+                                     opt_kv=opt_kv, opt_gqa=True)
+    torch.cuda.synchronize()
+    assert launches["paged_pool_decode"] == 1
+    assert launches["paged_pool_decode_visits"] == 0
+    assert torch.equal(got, k2)
+    _assert_close(k2, plain)
+    with pytest.raises(ValueError):
+        pd.paged_pool_decode_visits(q, kv[0], kv[1], ks, vs, cl,
+                                    *visits.plan_visits(phys, log),
+                                    opt_kv=opt_kv, opt_gqa=True)
+
+
 _CHUNK_MODES = [(True, True, 0), (False, True, 0), (True, False, 0),
                 (True, True, 40)]
 
@@ -328,26 +362,49 @@ def test_latent_decode_kernels(dev, R, dr, opt_kv, window, sink, shared):
     assert torch.equal(k7, k5)
 
 
-@pytest.mark.parametrize("R,dr", [(512, 64), (64, 32)])
-@pytest.mark.parametrize("packed", [False, True])
-@pytest.mark.parametrize("opt_kv,window", [(True, 0), (False, 0), (True, 40)])
-def test_latent_chunk_kernel(dev, opt_kv, window, packed, R, dr):
-    """K6 vs its plain version within LAT_RTOL/LAT_ATOL: a chunk lane and
-    decode lanes. ``packed``: lane 0's row holds two prompts as segments
-    (24 rows at [0, 24) and 12 rows at [30, 42) whose page_base restarts at
-    0, then 4 pad rows of segment -1), its table interleaving the two
-    segments' pages; the pad rows are exactly 0."""
-    from repro_torch.kernels import latent_chunk_prefill as lc
-    B, NP, ps, H, S = 3, 5, 32, 16, 40
-    lat, sc = _latent_pool(dev, B * NP, ps, R, dr, opt_kv)
-    table = torch.arange(B * NP, device=dev, dtype=torch.int32).reshape(B, NP)
-    table[2, -1] = -1
+def _latent_chunk_layout(case, dev, R, dr, packed):
+    """(B, NP, ps, H, S, table, positions, packing planes) of a K6 case.
+    "small": a 40-token chunk lane at [100, 140) and decode lanes at 60 and
+    127 over 5 pages of 32, lane 2's table ending in -1; ``packed``: lane
+    0's row holds two prompts as segments (24 rows at [0, 24) and 12 rows
+    at [30, 42) whose page_base restarts at 0, then 4 pad rows of segment
+    -1), its table interleaving the two segments' pages. "engine64" /
+    "engine128": the engine's mixed step, a 512-token chunk lane at [512,
+    1024) and three decode lanes (each padded to 512 rows of its one
+    token) over ~1k cached tokens, lane 2's table ending in -1 and lane 1
+    missing a page it would read. "h4": 4 heads (the reduced config), a
+    100-token chunk: 400 rows, not a multiple of a block's rows. "ragged":
+    4 heads at R 512, 41 tokens: 164 rows, the last row group part-filled.
+    "future": a chunk lane at [0, 512) whose first 3 slots are -1, so its
+    rows below position 192 see no page (every page in their future)."""
     i32 = dict(dtype=torch.int32, device=dev)
+    B, NP, ps, H, S = {"small": (3, 5, 32, 16, 40),
+                       "engine64": (4, 16, 64, 16, 512),
+                       "engine128": (4, 8, 128, 16, 512),
+                       "h4": (3, 6, 32, 4, 100),
+                       "ragged": (3, 4, 64, 4, 41),
+                       "future": (2, 8, 64, 16, 512)}[case]
+    table = torch.arange(B * NP, **i32).reshape(B, NP)
     pos = torch.empty((B, S), **i32)
-    pos[0] = torch.arange(100, 100 + S, device=dev)
-    pos[1] = 60
-    pos[2] = 127
     planes = {}
+    if case in ("engine64", "engine128"):
+        pos[0] = torch.arange(512, 1024, **i32)
+        for b, n in ((1, 1000), (2, 980), (3, 1010)):
+            pos[b] = n - 1
+        table[2, -1] = -1
+        table[1, 3] = -1
+        return B, NP, ps, H, S, table, pos, planes
+    if case == "future":
+        pos[0] = torch.arange(S, **i32)
+        pos[1] = 300
+        table[0, :3] = -1
+        return B, NP, ps, H, S, table, pos, planes
+    last = NP * ps - 1
+    pos[0] = torch.arange(last - S, last, **i32) if case != "small" else \
+        torch.arange(100, 100 + S, **i32)
+    pos[1] = 60
+    pos[2] = min(127, last)
+    table[2, -1] = -1
     if packed:
         pos[0] = torch.cat([torch.arange(24, **i32),
                             torch.arange(30, 42, **i32),
@@ -361,15 +418,64 @@ def test_latent_chunk_kernel(dev, opt_kv, window, packed, R, dr):
         page_base = torch.arange(NP, **i32).repeat(B, 1).contiguous()
         page_base[0] = torch.tensor([0, 0, 1, 1, 0], **i32)
         planes = dict(seg_q=seg_q, page_seg=page_seg, page_base=page_base)
+    return B, NP, ps, H, S, table, pos, planes
+
+
+@pytest.mark.parametrize(
+    "opt_kv,window,packed,R,dr,case",
+    [m + (p, R, dr, "small") for R, dr in ((512, 64), (64, 32))
+     for p in (False, True) for m in ((True, 0), (False, 0), (True, 40))]
+    # the engine's mixed step at pages of 64 and 128, fp8 and bf16 pools,
+    # with a window; the reduced config's 4 heads; a part-filled row tile;
+    # rows that see no page
+    + [(kv, w, False, 512, 64, c) for c in ("engine64", "engine128")
+       for kv, w in ((True, 0), (False, 0), (True, 300))]
+    + [(kv, w, False, 64, 32, "h4") for kv, w in ((True, 0), (False, 40))]
+    + [(True, 0, False, 512, 64, "ragged"), (False, 40, False, 512, 64, "ragged")]
+    + [(kv, 0, False, 512, 64, "future") for kv in (True, False)])
+def test_latent_chunk_kernel(dev, opt_kv, window, packed, R, dr, case):
+    """K6 vs its plain version within LAT_RTOL/LAT_ATOL, a chunk lane and
+    decode lanes (layouts in ``_latent_chunk_layout``); pad rows of segment
+    -1, and rows that see no page, are exactly 0."""
+    from repro_torch.kernels import latent_chunk_prefill as lc
+    B, NP, ps, H, S, table, pos, planes = _latent_chunk_layout(
+        case, dev, R, dr, packed)
+    lat, sc = _latent_pool(dev, B * NP, ps, R, dr, opt_kv)
     ql, qr = _latent_q(dev, (B, S, H, R), dr)
     kw = dict(sm_scale=0.07, opt_kv=opt_kv, window=window, sink_pages=1,
               **planes)
+    cuda.reset_launches()
     got = ops.latent_chunk_prefill(ql, qr, pos, lat, sc, table, **kw)
     plain = lc.latent_chunk_prefill_ref(ql, qr, pos, lat, sc, table, **kw)
     torch.cuda.synchronize()
+    assert cuda.LAUNCHES["latent_chunk_prefill"] == 1
     torch.testing.assert_close(got, plain, rtol=LAT_RTOL, atol=LAT_ATOL)
     if packed:
         assert torch.all(got[0, 36:] == 0)            # pad rows see no key
+    if case == "future":
+        assert torch.all(got[0, :3 * ps] == 0)        # every page in the future
+        assert torch.all(got[0, 3 * ps:].abs().amax(-1) > 0)
+
+
+@pytest.mark.parametrize("R,dr,rows", [(512, 64, 32), (64, 32, 128)])
+@pytest.mark.parametrize("opt_kv", [True, False])
+def test_latent_chunk_kernel_info(dev, R, dr, rows, opt_kv):
+    """``kernel_info`` reports what K6 ran: its launch's grid (B x
+    ceil(S * H / rows) blocks), q and P' as 3 and 2 bf16 terms, and no
+    local memory (no spills)."""
+    from repro_torch.kernels import latent_chunk_prefill as lc
+    B, NP, ps, H, S = 2, 3, 32, 4, 41
+    lat, sc = _latent_pool(dev, B * NP, ps, R, dr, opt_kv)
+    ql, qr = _latent_q(dev, (B, S, H, R), dr)
+    table = torch.arange(B * NP, dtype=torch.int32, device=dev).reshape(B, NP)
+    pos = torch.arange(S, dtype=torch.int32, device=dev).repeat(B, 1)
+    ops.latent_chunk_prefill(ql, qr, pos.contiguous(), lat, sc, table,
+                             sm_scale=0.07, opt_kv=opt_kv)
+    info = lc.kernel_info(R, dr, opt_kv, dev)
+    assert (info["rows_per_block"], info["threads"]) == (rows, 256)
+    assert info["last_blocks"] == B * -(-S * H // rows)
+    assert (info["q_terms"], info["p_terms"]) == (3, 2)
+    assert info["local_bytes"] == 0 and 0 < info["registers"] <= 255
 
 
 @pytest.mark.parametrize("S,T,Hq,Hkv,D,window,q_offset", [

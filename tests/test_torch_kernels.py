@@ -269,6 +269,44 @@ def test_ops_decode_routes_visits_by_lane_count():
     assert torch.equal(a, b)
     assert ops._use_visits(True, 4) and not ops._use_visits(True, 1)
     assert not ops._use_visits(True, 33) and not ops._use_visits(False, 4)
+    # K4 holds a head's B * G rows in one block's shared memory: where its
+    # one-page plan does not fit, K2 (the same bits) serves the step.
+    # (share, B, Hq, Hkv, D, ps, opt_kv, opt_gqa) -> K4?
+    for args, k4 in (((True, 32, 32, 8, 128, 64, True, True), True),   # qwen3-4b
+                     ((True, 32, 32, 8, 128, 128, False, True), True),
+                     ((True, 32, 64, 8, 128, 128, True, True), False),  # G 8
+                     ((True, 32, 64, 8, 128, 64, False, True), False),
+                     ((True, 22, 64, 8, 128, 128, True, True), True),
+                     ((True, 23, 64, 8, 128, 128, True, True), False),
+                     ((True, 32, 56, 8, 128, 64, True, True), True),    # G 7
+                     ((True, 32, 64, 8, 128, 128, True, False), True),  # MHA
+                     ((False, 4, 32, 8, 128, 64, True, True), False),
+                     ((True, 1, 64, 8, 128, 64, True, True), False)):
+        assert ops._gqa_use_visits(*args) is k4, args
+
+
+def test_ops_decode_routes_oversized_visit_plans_to_k2(monkeypatch):
+    """At G 8 and 32 lanes (fp8 pages of 128) K4's plan does not fit a
+    block, so ops.paged_pool_decode runs K2 and never K4, with share_visits
+    on; its output equals K2's."""
+    rng = np.random.default_rng(6)
+    B, Hkv, G, D, ps = 32, 1, 8, 128, 128
+    _, _, tkv, tsc = _pool(rng, B + 1, ps, Hkv, D, True)
+    q = torch.from_numpy(rng.standard_normal((B, Hkv * G, D)).astype(
+        np.float32)).to(torch.bfloat16)
+    phys = torch.arange(B, dtype=torch.int32)[:, None].contiguous()
+    phys[1:] = 0                                  # one shared page
+    log = torch.zeros((B, 1), dtype=torch.int32)
+    cl = torch.from_numpy(rng.integers(1, ps + 1, B).astype(np.int32))
+
+    def refuse(*a, **k):
+        raise AssertionError("K4 called for a plan that does not fit")
+    monkeypatch.setattr(pdm, "paged_pool_decode_visits", refuse)
+    got = ops.paged_pool_decode(q, tkv, tsc, cl, phys, log, opt_kv=True,
+                                opt_gqa=True, share_visits=True)
+    k2 = paged_pool_decode_ref(q, tkv[0], tkv[1], tsc[0], tsc[1], cl, phys,
+                               log, opt_kv=True, opt_gqa=True)
+    assert torch.equal(got, k2)
 
 
 # ---------------------------------------------- K2 / K4 split-page decode ----
@@ -632,3 +670,81 @@ def test_p_as_two_bf16_terms_holds_one_ulp():
     once = share(lambda p: (bf16(p),))
     fp16 = share(lambda p: (p.half().float(),))
     assert two_terms <= 1 < fp16 < once, (two_terms, fp16, once)
+
+
+def _latent_tile_emulation(q_lat, q_rope, positions, lat, sc, sm_scale, q_terms,
+                           p_terms):
+    """K6's tensor-core tile arithmetic (``csrc/latent_chunk_prefill.cu``) in
+    PyTorch, one lane, pages of 64 keys in slot order: q_lat and q_rope as
+    ``q_terms`` bf16 terms against the exact fp8 values, the latent and rope
+    scores scaled per key column after the products, the online softmax in
+    the log2 domain with masked probabilities hard-zeroed, and P' = p * sc0
+    as ``p_terms`` bf16 terms against the same exact latent values."""
+    def terms(x, n):
+        out = []
+        for _ in range(n):
+            out.append(x.to(torch.bfloat16).float())
+            x = x - out[-1]
+        return out
+
+    _, S, H, R = q_lat.shape
+    NP, ps, _ = lat.shape
+    qc = terms(q_lat.reshape(S * H, R), q_terms)
+    qr = terms(q_rope.reshape(S * H, -1), q_terms)
+    qpos = positions[0].long().repeat_interleave(H)
+    m = torch.full((S * H,), -1e30)
+    l = torch.zeros(S * H)
+    acc = torch.zeros((S * H, R))
+    scale = sm_scale * 1.4426950408889634
+    for page in range(NP):
+        x = lat[page].float()
+        c, r = x[:, :R], x[:, R:]
+        s = (sum(t @ c.T for t in qc) * sc[page, :, 0]
+             + sum(t @ r.T for t in qr) * sc[page, :, 1]) * scale
+        live = (page * ps + torch.arange(ps))[None] <= qpos[:, None]
+        s = torch.where(live, s, -float("inf"))
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[:, None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[:, None] + sum(
+            t @ c for t in terms(p * sc[page, :, 0], p_terms))
+        m = m_new
+    return (acc / l.clamp_min(1e-30)[:, None]).reshape(q_lat.shape)
+
+
+def test_latent_tile_three_q_terms_hold_f32_tolerance():
+    """Why K6 carries q (q_lat, q_rope) into its score MMAs as three bf16
+    terms and P' = p * sc0 into P' C as two: at deepseek-v2-lite's widths
+    (R 512, dr 64, H 16) over an fp8 pool with dual scales, 256 tokens at
+    the end of 1024 keys, that tile arithmetic stays within the f32
+    tolerance the card holds K6 to (LAT_RTOL 2^-12, LAT_ATOL 2^-16) of the
+    plain version with under half the error of two q terms (which the
+    card's larger kernel-phase shape takes past the tolerance), while q or
+    P' as one bf16 term is far outside it."""
+    from repro_torch.cache.quant import quantize_latent
+    from repro_torch.kernels.latent_chunk_prefill import \
+        latent_chunk_prefill_ref
+    rng = np.random.default_rng(16)
+    R, dr, H, ps, NP, S = 512, 64, 16, 64, 16, 256
+    lat = torch.from_numpy(rng.standard_normal((NP, ps, R + dr)).astype(
+        np.float32))
+    lat[..., R:] *= 3.0                         # k_rope on its own scale
+    lat, sc = quantize_latent(lat, R)
+    q_lat, q_rope = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)) for s in ((1, S, H, R), (1, S, H, dr)))
+    pos = torch.arange(NP * ps - S, NP * ps, dtype=torch.int32)[None]
+    sm_scale = 1.0 / (128 + dr) ** 0.5
+    plain = latent_chunk_prefill_ref(
+        q_lat, q_rope, pos, lat, sc, torch.arange(NP, dtype=torch.int32)[None],
+        sm_scale=sm_scale, opt_kv=True)
+    tol = 2 ** -16 + 2 ** -12 * plain.abs()
+
+    def share(q_terms, p_terms):
+        got = _latent_tile_emulation(q_lat, q_rope, pos, lat, sc, sm_scale,
+                                     q_terms, p_terms)
+        return ((got - plain).abs() / tol).max().item()
+
+    k6, two_q = share(3, 2), share(2, 2)
+    assert k6 <= 1 and 2 * k6 < two_q, (k6, two_q)
+    assert share(1, 2) > 1 and share(3, 1) > 1
