@@ -2,9 +2,11 @@
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py            # every phase, one card
-    python3 chip_smoke.py --only kernels   # or decode|engine|prefill|mla|parity
+    python3 chip_smoke.py --only kernels   # or decode|latent|engine|prefill|mla|parity
     python3 chip_smoke.py --only decode --src OTHER/src
                                      # K2/K4 of another tree's package
+                                     # (--only latent: K5/K7 of a tree
+                                     # whose K5/K7 report kernel_info)
 
 Phases:
   1. the card's name and power limit; build the CUDA kernels from
@@ -23,7 +25,9 @@ Phases:
      whose K4 plan does not fit a block, must run K2. K8 at 2 x 2048
      tokens of qwen3-4b's heads within one bf16 ulp. Each check beside a
      control (one key masked off, or the packing planes dropped) that must
-     fall outside its tolerance. Then each kernel's time (CUDA events, cold
+     fall outside its tolerance. K5 and K7 again at a long context (32
+     lanes of ~4096 tokens, 1024 shared: ~58 MB of distinct fp8 latent
+     pages), with the same checks, K7's time over K5's at equal work. Then each kernel's time (CUDA events, cold
      L2), the plain version's, a library call's that computes the same
      function, and the least time the card could take (``bound_ms``),
      with the achieved rate (the bound's operations over the time) and the
@@ -32,7 +36,8 @@ Phases:
      lane apart from its decode lanes, with its launch's blocks, the
      registers and local bytes its instantiations report, the tensor
      cores' operations over the bound's, and its bound at the bf16 and the
-     f32 rate; K2 and K4 record their splits and blocks.
+     f32 rate; K2 and K4 record their splits and blocks, K5 and K7 their
+     grid, splits, registers and local bytes.
   3. ``Engine.generate`` on qwen3-4b at full width and depth (random
      weights from a seed) in coopt mode with the kernels: 8 greedy
      requests, 4 sharing a 256-token prefix; K1, K3 and K4 must launch.
@@ -570,6 +575,186 @@ def kernel_phase(torch, rec, time_ms):
     return out
 
 
+def latent_decode_step(torch, rec, time_ms, key, lat, sc, table, cache_len,
+                       H, lat_d=None, q=None, timed_plain=True):
+    """K5 and K7 on one decode step of deepseek-v2-lite's widths over the
+    fp8 latent pool ``lat``/``sc``: K5 within the f32 tolerance of its plain
+    version beside a control (each lane's last key masked off) that must
+    fail, K7 bit-identical to K5; then each kernel's time, the bound of the
+    function both compute (bytes of each distinct page once, against
+    operations at the bf16 rate of the tensor cores they run on; the bound
+    of the pages each kernel reads beside it as ``own_bound_ms``), the grid,
+    splits and registers the loaded kernels report, and SDPA on ``lat_d``
+    (each lane's pages gathered and dequantized to bf16) where given.
+    ``q``: (q_lat, q_rope), else drawn from a seed. The summary goes to
+    ``rec[key]``; returns the two kernel records."""
+    import torch.nn.functional as F
+    from repro_torch.core.opt_kv import decode_page_select
+    from repro_torch.kernels import paged_latent_decode as ld
+    from repro_torch.kernels import visits
+    dev = lat.device
+    B, NP = table.shape
+    _, ps, W = lat.shape
+    R, dr = 512, W - 512                        # deepseek-v2-lite's R
+    sm_scale = 1.0 / (128 + dr) ** 0.5          # 1/sqrt(dn + dr), dn 128
+    if q is None:
+        gen = torch.Generator(device=dev).manual_seed(7)
+        q = (torch.randn((B, H, R), generator=gen, device=dev),
+             torch.randn((B, H, dr), generator=gen, device=dev))
+    ql, qr = q
+    phys, logt = decode_page_select(cache_len, table, ps, opt_pa=True)
+    vp, vm, vl = visits.plan_visits(phys, logt)
+    kw = dict(sm_scale=sm_scale, opt_kv=True)
+    k5 = ld.paged_latent_decode(ql, qr, lat, sc, cache_len, phys, logt, **kw)
+    k7 = ld.paged_latent_decode_visits(ql, qr, lat, sc, cache_len, vp, vm, vl,
+                                       **kw)
+    p5 = ld.paged_latent_decode_ref(ql, qr, lat, sc, cache_len, phys, logt,
+                                    **kw)
+    c5 = ld.paged_latent_decode_ref(ql, qr, lat, sc, cache_len - 1, phys,
+                                    logt, **kw)
+    torch.cuda.synchronize()
+    r5, err5 = tol_ratio(k5, p5, LAT_RTOL, LAT_ATOL)
+    rc5, errc5 = tol_ratio(k5, c5, LAT_RTOL, LAT_ATOL)
+    bitwise = torch.equal(k7, k5)
+    n_visits = int((vp >= 0).sum().item())
+    sel_pages = int((phys >= 0).sum().item())
+    uniq_pages = torch.unique(phys[phys >= 0]).numel()
+    log(f"K5 paged_latent_decode ({key}): max |kernel - plain| {err5:.3e} = "
+        f"{r5:.3f} of the f32 tolerance (rtol {LAT_RTOL}, atol {LAT_ATOL}); "
+        f"control, one key masked off: {errc5:.3e} = {rc5:.2f}")
+    log(f"K7 paged_latent_decode_visits ({key}): bit-identical to K5 "
+        f"{bitwise}, {n_visits} visits for {sel_pages} lane pages "
+        f"({uniq_pages} distinct)")
+    check(r5 <= 1, f"K5 differs from its plain version ({key})")
+    check(rc5 > 1, f"the tolerance passes a one-key mask error in K5 ({key})")
+    check(bitwise, f"K7 is not bit-identical to K5 ({key})")
+    sfx = "" if key == "latent" else "_" + key
+    rec.setdefault("tolerance", {}).update(
+        {"lat_rtol": LAT_RTOL, "lat_atol": LAT_ATOL, "k5" + sfx: r5,
+         "k5_control" + sfx: rc5, "k5_control_err" + sfx: errc5})
+    keys = int(cache_len.sum().item())
+    dec_flops = keys * H * (2 * W + 2 * R)      # score + weighted sum
+    io_bytes = B * H * (W + R) * 4 + B * 4      # q in, o_lat out, lengths
+    lib, t_lib = None, None
+    if lat_d is not None:
+        q_d = torch.cat([ql, qr], -1).to(torch.bfloat16)[:, :, None, :]
+        kpos = torch.arange(lat_d.shape[2], device=dev)
+        dmask = (kpos[None] < cache_len[:, None])[:, None, None, :]
+        val_d = lat_d[..., :R]
+
+        def sdpa_decode():
+            return F.scaled_dot_product_attention(
+                q_d, lat_d, val_d, attn_mask=dmask, scale=sm_scale,
+                enable_gqa=True)
+        lib_err = (sdpa_decode()[:, :, 0].float() - p5).abs().max().item()
+        t_lib = time_ms(sdpa_decode)
+        lib = ("F.scaled_dot_product_attention on pre-gathered dequantized "
+               f"bf16 latents, scale= given (max |lib - plain| "
+               f"{lib_err:.3e})")
+    lens = cache_len.tolist() if B <= 4 else f"mean {keys / B:.1f}"
+    shape = (f"B={B} H={H} R={R} dr={dr} ps={ps} NSel={NP}, cache_len "
+             f"{lens}, {sel_pages} lane pages, {uniq_pages} distinct")
+    # the function's bound counts each distinct page once (584 B a token:
+    # 576 fp8 + 2 f32 scales); K5 reads every selected page, which its own
+    # reads' bound below states beside it
+    bnd = bound(uniq_pages * ps * (W + 8) + io_bytes + 3 * vp.numel() * 4,
+                dec_flops, BF16_FLOPS)
+    out, summary = [], dict(shape=shape, library_ms=t_lib, **bnd,
+                            visits=n_visits, lane_pages=sel_pages,
+                            distinct_pages=uniq_pages)
+    for name, fn, plain, pages, tables, line, visit_list in (
+            ("paged_latent_decode",
+             lambda: ld.paged_latent_decode(ql, qr, lat, sc, cache_len, phys,
+                                            logt, **kw),
+             lambda: ld.paged_latent_decode_ref(ql, qr, lat, sc, cache_len,
+                                                phys, logt, **kw),
+             sel_pages, 2 * B * NP * 4, 132, False),
+            ("paged_latent_decode_visits",
+             lambda: ld.paged_latent_decode_visits(ql, qr, lat, sc, cache_len,
+                                                   vp, vm, vl, **kw),
+             lambda: ld.paged_latent_decode_visits_ref(
+                 ql, qr, lat, sc, cache_len, vp, vm, vl, **kw),
+             uniq_pages, 3 * vp.numel() * 4, 277, True)):
+        own = bound(pages * ps * (W + 8) + io_bytes + tables, dec_flops,
+                    BF16_FLOPS)
+        ms = time_ms(fn)
+        fn()                                    # the grid of this shape
+        torch.cuda.synchronize()
+        k = ld.kernel_info(R, dr, True, visit_list, dev)
+        summary[name] = dict(ms=ms, bound_share=bnd["bound_ms"] / ms,
+                             own_bound_ms=own["bound_ms"],
+                             own_bound_share=own["bound_ms"] / ms,
+                             x_library=t_lib and ms / t_lib, **k)
+        log(f"  {name} ({key}): {ms:.4f} ms, "
+            f"{summary[name]['bound_share']:.2%} of the {bnd['bound_ms']:.4f}"
+            f" ms bound (distinct pages once; its own reads "
+            f"{summary[name]['own_bound_share']:.2%} of "
+            f"{own['bound_ms']:.4f} ms)" +
+            (f", {ms / t_lib:.2f}x SDPA ({t_lib:.4f} ms)" if t_lib else "") +
+            f"; {k['last_blocks']} blocks of {k['lanes_per_block']} lanes, "
+            f"{k['last_splits']} splits, registers / local bytes a thread "
+            f"{k['registers']}/{k['local_bytes']}")
+        out.append(dict(name=name, route="cuda",
+                        source="src/repro_torch/kernels/csrc/"
+                               "paged_latent_decode.cu",
+                        replaces="src/repro/kernels/paged_latent_decode.py:"
+                                 f"{line}",
+                        max_abs_err=err5, ms=ms,
+                        plain_ms=time_ms(plain, iters=5, warmup=1)
+                        if timed_plain else None,
+                        **bnd, own_bound_ms=own["bound_ms"], library_ms=t_lib,
+                        library=lib, shape=shape, registers=k["registers"],
+                        local_bytes=k["local_bytes"], blocks=k["last_blocks"],
+                        splits=k["last_splits"],
+                        lanes_per_block=k["lanes_per_block"]))
+    summary["k7_over_k5"] = summary["paged_latent_decode_visits"]["ms"] / \
+        summary["paged_latent_decode"]["ms"]
+    log(f"  K7 / K5 at equal work ({key}): {summary['k7_over_k5']:.3f}")
+    rec[key] = summary
+    return out
+
+
+def latent_long_case(torch, rec, time_ms):
+    """K5 and K7 at a long context, where bytes dominate: deepseek-v2-lite's
+    widths, 32 lanes of ~4096 cached tokens (64 pages of 64), the first 1024
+    tokens shared by all 32 (an fp8 latent pool of ~58 MB of distinct pages,
+    more than L2)."""
+    from repro_torch.cache.quant import quantize_latent
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    B, H, R, dr, ps, NP, shared = 32, 16, 512, 64, 64, 64, 16
+    P = B * NP + 1
+    lat_f = torch.randn((P, ps, R + dr), generator=gen, device=dev)
+    lat_f[..., R:] *= 3.0
+    lat, sc = quantize_latent(lat_f, R)
+    del lat_f
+    table = torch.arange(B * NP, device=dev, dtype=torch.int32).reshape(B, NP)
+    table[1:, :shared] = table[0, :shared]
+    cache_len = (NP * ps - torch.arange(B, device=dev, dtype=torch.int32)
+                 ).contiguous()
+    latent_decode_step(torch, rec, time_ms, "latent_long", lat, sc, table,
+                       cache_len, H, timed_plain=False)
+
+
+def latent_phase(torch, rec, time_ms):
+    """K5 and K7 alone (``--only latent``, for comparing trees): the kernel
+    phase's decode shape on a pool of its own, then the long shape."""
+    from repro_torch.cache.quant import quantize_latent
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    B, H, R, dr, ps, NP = 4, 16, 512, 64, 64, 16
+    lat_f = torch.randn((B * NP + 1, ps, R + dr), generator=gen, device=dev)
+    lat_f[..., R:] *= 3.0
+    lat, sc = quantize_latent(lat_f, R)
+    table = torch.arange(B * NP, device=dev, dtype=torch.int32).reshape(B, NP)
+    table[1:, :4] = table[0, :4]
+    cache_len = torch.tensor([1024, 1000, 980, 1010], dtype=torch.int32,
+                             device=dev)
+    latent_decode_step(torch, rec, time_ms, "latent", lat, sc, table,
+                       cache_len, H, timed_plain=False)
+    latent_long_case(torch, rec, time_ms)
+
+
 def mla_kernel_phase(torch, rec, time_ms):
     """K5, K7 and K6 at deepseek-v2-lite's widths (H 16, R 512, dr 64, pages
     of 64): a decode step of 4 lanes with ~1024 cached tokens and a shared
@@ -577,10 +762,8 @@ def mla_kernel_phase(torch, rec, time_ms):
     three decode lanes."""
     import torch.nn.functional as F
     from repro_torch.cache.quant import quantize_latent
-    from repro_torch.core.opt_kv import decode_page_select
-    from repro_torch.kernels import ops, visits
+    from repro_torch.kernels import ops
     from repro_torch.kernels import latent_chunk_prefill as lc
-    from repro_torch.kernels import paged_latent_decode as ld
     dev = torch.device(DEV)
     gen = torch.Generator(device=dev).manual_seed(1)
     B, H, R, dr, ps, NP, S = 4, 16, 512, 64, 64, 16, 512
@@ -609,77 +792,10 @@ def mla_kernel_phase(torch, rec, time_ms):
     kpos = torch.arange(NP * ps, device=dev)
 
     # ---- K5 / K7: a decode step ------------------------------------------
-    ql, qr = randn(B, H, R), randn(B, H, dr)
-    phys, logt = decode_page_select(cache_len, table, ps, opt_pa=True)
-    vp, vm, vl = visits.plan_visits(phys, logt)
     kw = dict(sm_scale=sm_scale, opt_kv=True)
-    k5 = ld.paged_latent_decode(ql, qr, lat, sc, cache_len, phys, logt, **kw)
-    k7 = ld.paged_latent_decode_visits(ql, qr, lat, sc, cache_len, vp, vm, vl,
-                                       **kw)
-    p5 = ld.paged_latent_decode_ref(ql, qr, lat, sc, cache_len, phys, logt,
-                                    **kw)
-    c5 = ld.paged_latent_decode_ref(ql, qr, lat, sc, cache_len - 1, phys,
-                                    logt, **kw)
-    torch.cuda.synchronize()
-    r5, err5 = tol_ratio(k5, p5, LAT_RTOL, LAT_ATOL)
-    rc5, errc5 = tol_ratio(k5, c5, LAT_RTOL, LAT_ATOL)
-    bitwise = torch.equal(k7, k5)
-    n_visits = int((vp >= 0).sum().item())
-    log(f"K5 paged_latent_decode: max |kernel - plain| {err5:.3e} = "
-        f"{r5:.3f} of the f32 tolerance (rtol {LAT_RTOL}, atol {LAT_ATOL}); "
-        f"control, one key masked off: {errc5:.3e} = {rc5:.2f}")
-    log(f"K7 paged_latent_decode_visits: bit-identical to K5 {bitwise}, "
-        f"{n_visits} visits for {int((phys >= 0).sum().item())} lane pages")
-    check(r5 <= 1, "K5 differs from its plain version")
-    check(rc5 > 1, "the tolerance passes a one-key mask error in K5")
-    check(bitwise, "K7 is not bit-identical to K5")
-    rec["tolerance"].update(lat_rtol=LAT_RTOL, lat_atol=LAT_ATOL, k5=r5,
-                            k5_control=rc5, k5_control_err=errc5)
-    keys = int(cache_len.sum().item())
-    dec_flops = keys * H * (2 * W + 2 * R)      # score + weighted sum
-    io_bytes = B * H * (W + R) * 4 + B * 4      # q in, o_lat out, lengths
-    sel_pages = int((phys >= 0).sum().item())
-    uniq_pages = torch.unique(phys[phys >= 0]).numel()
-    q_d = torch.cat([ql, qr], -1).to(torch.bfloat16)[:, :, None, :]
-    dmask = (kpos[None] < cache_len[:, None])[:, None, None, :]
-
-    def sdpa_decode():
-        return F.scaled_dot_product_attention(
-            q_d, lat_d, val_d, attn_mask=dmask, scale=sm_scale,
-            enable_gqa=True)
-    lib_err = (sdpa_decode()[:, :, 0].float() - p5).abs().max().item()
-    t_lib = time_ms(sdpa_decode)
-    lib = ("F.scaled_dot_product_attention on pre-gathered dequantized bf16 "
-           f"latents, scale= given (max |lib - plain| {lib_err:.3e})")
-    for name, fn, plain, pages, tables, line in (
-            ("paged_latent_decode",
-             lambda: ld.paged_latent_decode(ql, qr, lat, sc, cache_len, phys,
-                                            logt, **kw),
-             lambda: ld.paged_latent_decode_ref(ql, qr, lat, sc, cache_len,
-                                                phys, logt, **kw),
-             sel_pages, 2 * B * NP * 4, 132),
-            ("paged_latent_decode_visits",
-             lambda: ld.paged_latent_decode_visits(ql, qr, lat, sc, cache_len,
-                                                   vp, vm, vl, **kw),
-             lambda: ld.paged_latent_decode_visits_ref(
-                 ql, qr, lat, sc, cache_len, vp, vm, vl, **kw),
-             uniq_pages, 3 * vp.numel() * 4, 277)):
-        # K5 reads every selected page (584 B a token: 576 fp8 + 2 f32
-        # scales), K7 each distinct page once
-        bnd = bound(pages * ps * (W + 8) + io_bytes + tables, dec_flops,
-                    F32_FLOPS)
-        out.append(dict(name=name, route="cuda",
-                        source="src/repro_torch/kernels/csrc/"
-                               "paged_latent_decode.cu",
-                        replaces="src/repro/kernels/paged_latent_decode.py:"
-                                 f"{line}",
-                        max_abs_err=err5, ms=time_ms(fn),
-                        plain_ms=time_ms(plain, iters=5, warmup=1),
-                        **bnd, library_ms=t_lib,
-                        library=lib,
-                        shape=f"B={B} H={H} R={R} dr={dr} ps={ps} NSel={NP},"
-                              f" cache_len {cache_len.tolist()}, "
-                              f"{pages} pages read"))
+    out += latent_decode_step(torch, rec, time_ms, "latent", lat, sc, table,
+                              cache_len, H, lat_d,
+                              q=(randn(B, H, R), randn(B, H, dr)))
 
     # ---- K6: a mixed step: lane 0 a 512-token chunk at [512, 1024), -------
     # lanes 1-3 decode lanes (one token, padding clamped to it)
@@ -1234,8 +1350,8 @@ LAUNCH_PATH = {"kv_cache_write": "qwen3-4b", "flash_chunk_prefill": "qwen3-4b",
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("kernels", "decode", "engine", "mla",
-                                       "prefill", "parity"),
+    ap.add_argument("--only", choices=("kernels", "decode", "latent",
+                                       "engine", "mla", "prefill", "parity"),
                     help="run one phase (debugging; prints no result line)")
     ap.add_argument("--src", help="import repro_torch from this directory "
                     "instead of ./src (to time another tree's kernels)")
@@ -1291,6 +1407,7 @@ def main(argv=None) -> int:
             oversized_decode_case(torch, rec)
             kernels += mla_kernel_phase(torch, rec, time_ms) + \
                 flash_prefill_kernel_phase(torch, rec, time_ms)
+            latent_long_case(torch, rec, time_ms)
             for k in kernels:
                 k["tflops"] = k["flops"] / k["ms"] * 1e-9
                 k["bound_share"] = k["bound_ms"] / k["ms"]
@@ -1308,6 +1425,10 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             decode_phase(torch, rec, make_timer(torch))
             done("decode", t0)
+        if only == "latent":
+            t0 = time.perf_counter()
+            latent_phase(torch, rec, make_timer(torch))
+            done("latent", t0)
         params = None
         if only in (None, "engine"):
             t0 = time.perf_counter()
@@ -1355,9 +1476,12 @@ def main(argv=None) -> int:
         return 0
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # K6 adds its launch's grid and its registers and local bytes as the
-    # loaded kernel reports them
-    extra = ("blocks", "rows_per_block", "registers", "local_bytes")
+    # K5, K6 and K7 add their launch's grid (K5/K7: and splits) and their
+    # registers and local bytes as the loaded kernels report them; K5 and K7
+    # the bound of the pages each reads (``own_bound_ms``) beside the
+    # function's
+    extra = ("blocks", "splits", "rows_per_block", "lanes_per_block",
+             "registers", "local_bytes", "own_bound_ms")
     print(json.dumps({"kernels": [
         {k: x[k] for k in keys + extra if k in keys or k in x}
         for x in kernels]}))

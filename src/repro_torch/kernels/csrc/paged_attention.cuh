@@ -1,11 +1,10 @@
-// Device code shared by the attention kernels: the pool's fp8 type and its
-// dequant to f32 (`kv_to_f32`, exact), the masked-score value and warp
-// constants, K3's and K6's `ChunkMask`, and the dynamic shared-memory
-// opt-in. K3/K8 take their tensor-core tile from mma_attention.cuh, and
-// K2/K4 (csrc/paged_gqa_decode.cu) and K6 (csrc/latent_chunk_prefill.cu)
-// its MMA and ldmatrix helpers beside their own tile updates; K5 and K7
-// take their row update from latent_attention.cuh. The dequant is f32(k) * scale, the Pallas kernels'
-// Eq. 6, with per-(token, head) f32 scales beside each page.
+// Device code shared by the attention kernels: the pool's fp8 type, the
+// masked-score value and warp constants, K3's and K6's `ChunkMask`, and the
+// dynamic shared-memory opt-in. K3/K8 take their tensor-core tile from
+// mma_attention.cuh; K2/K4 (csrc/paged_gqa_decode.cu) its MMA and ldmatrix
+// helpers beside their own tile update; K5, K6 and K7 their latent tile
+// from latent_mma.cuh. Every kernel dequantizes as f32(k) * scale, the
+// Pallas kernels' Eq. 6, with per-(token, head) f32 scales beside each page.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -20,13 +19,6 @@
 #define PA_FULL 0xffffffffu
 
 typedef __nv_fp8_storage_t fp8_t;   // raw e4m3 byte
-
-__device__ __forceinline__ float kv_to_f32(fp8_t x) {
-  return __half2float(__half(__nv_cvt_fp8_to_halfraw(x, __NV_E4M3)));
-}
-__device__ __forceinline__ float kv_to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 // Chunk mask of K3 and K6: causal on absolute positions, the row's segment
 // equal to the page's (concat-prefill packing; key positions restart per

@@ -24,8 +24,7 @@ from pathlib import Path
 from typing import Dict
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_HEADERS = ("paged_attention.cuh", "latent_attention.cuh",
-            "mma_attention.cuh")
+_HEADERS = ("paged_attention.cuh", "mma_attention.cuh", "latent_mma.cuh")
 SOURCES = {                      # library -> source file
     "kv_cache_write": "kv_cache_write.cu",
     "paged_gqa_decode": "paged_gqa_decode.cu",
@@ -54,8 +53,9 @@ _ARGTYPES = {
     "paged_pool_decode": [_P] * 11 + [_I] * 11 + [_F, _P],
     "paged_pool_decode_visits": [_P] * 12 + [_I] * 11 + [_F, _P],
     "flash_chunk_prefill": [_P] * 11 + [_I] * 11 + [_F, _P],
-    "paged_latent_decode": [_P] * 8 + [_I] * 9 + [_F, _P],
-    "paged_latent_decode_visits": [_P] * 9 + [_I] * 9 + [_F, _P],
+    "paged_latent_decode": [_P] * 8 + [_I] * 10 + [_F, _P],
+    "paged_latent_decode_visits": [_P] * 9 + [_I] * 10 + [_F, _P],
+    "paged_latent_decode_info": [_I] * 4 + [ctypes.POINTER(_I)],
     "latent_chunk_prefill": [_P] * 10 + [_I] * 10 + [_F, _P],
     "latent_chunk_prefill_info": [_I, _I, _I, ctypes.POINTER(_I)],
     "flash_prefill": [_P] * 4 + [_I] * 8 + [_F, _P],
@@ -65,7 +65,8 @@ _ENTRIES = {"kv_cache_write": ("kv_cache_write",),
                                  "paged_pool_decode_visits"),
             "flash_chunk_prefill": ("flash_chunk_prefill",),
             "paged_latent_decode": ("paged_latent_decode",
-                                    "paged_latent_decode_visits"),
+                                    "paged_latent_decode_visits",
+                                    "paged_latent_decode_info"),
             "latent_chunk_prefill": ("latent_chunk_prefill",
                                      "latent_chunk_prefill_info"),
             "flash_prefill": ("flash_prefill",)}

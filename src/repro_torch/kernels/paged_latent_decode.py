@@ -19,9 +19,18 @@ the plain PyTorch versions beside them (``paged_latent_decode_ref``,
 ``paged_latent_decode_visits_ref``) on CPU tensors. The plain versions
 follow the kernels' page order and masks; masked probabilities are not
 hard-zeroed (exp(-1e30 - m) underflows once a live key has been seen), as
-in the Pallas kernels.
+in the Pallas kernels. The kernels hard-zero them, which differs only for
+a lane that sees no live key at all (the kernels write 0). They split the
+slots across blocks (``latent_splits``, the same for both), run a lane's
+splits as one thread-block cluster and merge their (m, l, acc) in
+ascending order through the cluster's shared memory in the same launch,
+which moves their f32 sums by rounding only. K7 takes every 1 < B <= 32
+that the Pallas K7 serves: its blocks hold a fixed number of lanes,
+whatever B. Both take at most MAX_HEADS heads (one 16-row MMA group).
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -33,7 +42,13 @@ MAX_PAGE_SIZE = 128              # csrc/paged_attention.cuh PA_MAX_PS
 # (kv_lora_rank, qk_rope_head_dim) pairs the kernels are built for:
 # deepseek-v2-lite and its reduced form
 LATENT_WIDTHS = ((512, 64), (64, 32))
-_SMEM_LIMIT = 227 * 1024
+# splits a lane at most: a lane's splits are one thread-block cluster, 8
+# blocks at most (the portable cluster size; csrc kMaxSplits)
+_MAX_SPLITS = 8
+# heads a lane at most: one 16-row MMA group holds a lane's heads
+MAX_HEADS = 16
+
+_SMS: dict = {}
 
 
 def _latent_tiles(lat_pages, scale_pages, page_ids, R, opt_kv):
@@ -164,6 +179,8 @@ def _check(name, q_lat, q_rope, lat_pages, scale_pages, cache_len, tables,
             q_rope.shape[:2] != (B, H) or q_rope.dim() != 3:
         raise ValueError(f"{name}: q_lat (B,H,R) and q_rope (B,H,dr) must "
                          "be f32")
+    if H > MAX_HEADS:
+        raise ValueError(f"{name}: {H} heads > {MAX_HEADS}")
     check_latent_pool(name, lat_pages, scale_pages, R, q_rope.shape[2],
                       opt_kv)
     if cache_len.dtype != torch.int32 or tuple(cache_len.shape) != (B,):
@@ -174,6 +191,27 @@ def _check(name, q_lat, q_rope, lat_pages, scale_pages, cache_len, tables,
     for t in (q_lat,) + operands:
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def latent_splits(nsel: int, B: int, sms: int):
+    """(slots per split, splits) of K5 and K7 for ``nsel`` table slots, B
+    lanes and ``sms`` SMs: enough splits that K5's B * splits blocks (165 KB
+    of shared memory each at R 512) reach one an SM, at most _MAX_SPLITS,
+    never more splits than slots. Split z covers the slots [z * slots,
+    min((z + 1) * slots, nsel)); K7's the visits [z * slots * B, ...), the
+    same slots of every lane."""
+    want = max(min(_MAX_SPLITS, nsel, -(-sms // max(B, 1))), 1)
+    slots = -(-nsel // want) if nsel > 0 else 1
+    return slots, max(-(-nsel // slots), 1)
+
+
+def _slots(q_lat, nsel):
+    """The slots a split for this call (``latent_splits`` on the device's
+    SM count)."""
+    dev = q_lat.device
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return latent_splits(nsel, q_lat.shape[0], _SMS[dev])[0]
 
 
 def paged_latent_decode(q_lat, q_rope, lat_pages, scale_pages, cache_len,
@@ -199,13 +237,15 @@ def paged_latent_decode(q_lat, q_rope, lat_pages, scale_pages, cache_len,
     if tuple(phys_table.shape) != (B, NSel) or \
             tuple(log_table.shape) != (B, NSel):
         raise ValueError("paged_latent_decode: tables must be (B, NSel)")
+    slots = _slots(q_lat, NSel)
     out = torch.empty_like(q_lat)
     fn = cuda.library("paged_latent_decode").paged_latent_decode
     err = fn(q_lat.data_ptr(), q_rope.data_ptr(), lat_pages.data_ptr(),
              cuda.ptr(scale_pages if opt_kv else None), cache_len.data_ptr(),
              phys_table.data_ptr(), log_table.data_ptr(), out.data_ptr(),
              B, H, R, q_rope.shape[2], lat_pages.shape[1], NSel, int(opt_kv),
-             window, sink_pages, sm_scale, cuda.stream_ptr(q_lat.device))
+             window, sink_pages, slots, sm_scale,
+             cuda.stream_ptr(q_lat.device))
     cuda.check(err, "paged_latent_decode")
     cuda.count("paged_latent_decode")
     return out
@@ -216,8 +256,9 @@ def paged_latent_decode_visits(q_lat, q_rope, lat_pages, scale_pages,
                                *, sm_scale: float, opt_kv: bool,
                                window: int = 0, sink_pages: int = 0):
     """Visit-list twin of ``paged_latent_decode``: visit_page/visit_lanes/
-    visit_log are the (NV,) int32 plan vectors of ``plan_visits``. Requires
-    B <= visits.MAX_VISIT_LANES (int32 lane bitmask)."""
+    visit_log are the (B * NSel,) int32 slot-major plan vectors of
+    ``plan_visits``. Requires B <= visits.MAX_VISIT_LANES (int32 lane
+    bitmask)."""
     if q_lat.device.type == "cpu":
         return paged_latent_decode_visits_ref(
             q_lat, q_rope, lat_pages, scale_pages, cache_len, visit_page,
@@ -230,25 +271,42 @@ def paged_latent_decode_visits(q_lat, q_rope, lat_pages, scale_pages,
            scale_pages, cache_len, (visit_page, visit_lanes, visit_log),
            opt_kv)
     B, H, R = q_lat.shape
-    P, ps, W = lat_pages.shape
     NV = visit_page.shape[0]
-    if B > 32:
-        raise ValueError(f"paged_latent_decode_visits: {B} lanes > 32")
-    if visit_lanes.shape != (NV,) or visit_log.shape != (NV,):
+    if not 1 <= B <= 32:
+        raise ValueError(f"paged_latent_decode_visits: {B} lanes not in "
+                         "[1, 32]")
+    if visit_lanes.shape != (NV,) or visit_log.shape != (NV,) or NV % B:
         raise ValueError("paged_latent_decode_visits: plan vectors must be "
-                         "(NV,)")
-    smem = ps * W * lat_pages.element_size() + 2 * ps * 4 + B * (R + 2) * 4
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"paged_latent_decode_visits: {B} lanes need {smem} "
-                         "B of shared memory")
+                         "(B * NSel,)")
+    slots = _slots(q_lat, NV // B)
     out = torch.empty_like(q_lat)
     fn = cuda.library("paged_latent_decode").paged_latent_decode_visits
     err = fn(q_lat.data_ptr(), q_rope.data_ptr(), lat_pages.data_ptr(),
              cuda.ptr(scale_pages if opt_kv else None), cache_len.data_ptr(),
              visit_page.data_ptr(), visit_lanes.data_ptr(),
              visit_log.data_ptr(), out.data_ptr(), B, H, R, q_rope.shape[2],
-             ps, NV, int(opt_kv), window, sink_pages, sm_scale,
-             cuda.stream_ptr(q_lat.device))
+             lat_pages.shape[1], NV // B, int(opt_kv), window, sink_pages,
+             slots, sm_scale, cuda.stream_ptr(q_lat.device))
     cuda.check(err, "paged_latent_decode_visits")
     cuda.count("paged_latent_decode_visits")
     return out
+
+
+KERNEL_INFO = ("lanes_per_block", "threads", "smem_bytes", "registers",
+               "local_bytes", "q_terms", "p_terms", "last_blocks",
+               "last_splits")
+
+
+def kernel_info(R: int, dr: int, opt_kv: bool, visits: bool,
+                device=None) -> dict:
+    """The K5 (``visits`` False) or K7 kernel that runs for (R, dr,
+    opt_kv), as the loaded library reports it: lanes and threads a block,
+    dynamic shared bytes, registers and local bytes (spills and stack) a
+    thread, the bf16 terms of q and of P' = p * sc0, and the blocks and
+    splits of that kernel's last launch."""
+    info = (ctypes.c_int * len(KERNEL_INFO))()
+    with torch.cuda.device(device):
+        err = cuda.library("paged_latent_decode").paged_latent_decode_info(
+            R, dr, int(opt_kv), int(visits), info)
+    cuda.check(err, "paged_latent_decode_info")
+    return dict(zip(KERNEL_INFO, info))

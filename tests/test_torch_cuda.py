@@ -334,22 +334,82 @@ def _latent_q(dev, shape, dr, seed=1):
             torch.randn(shape[:-1] + (dr,), generator=g, device=dev))
 
 
-@pytest.mark.parametrize("R,dr", [(512, 64), (64, 32)])
-@pytest.mark.parametrize("opt_kv,window,sink", [
-    (True, 0, 0), (False, 0, 0), (True, 48, 1), (True, 40, 2)])
-@pytest.mark.parametrize("shared", [False, True])
-def test_latent_decode_kernels(dev, R, dr, opt_kv, window, sink, shared):
-    """K5 vs its plain version within LAT_RTOL/LAT_ATOL; K7 bit-identical
-    to K5, with lanes sharing a prefix and without."""
-    from repro_torch.kernels import paged_latent_decode as ld
-    B, NP, ps, H = 4, 6, 32, 16
-    lat, sc = _latent_pool(dev, B * NP + 1, ps, R, dr, opt_kv)
+# case: (lanes B, table slots NP, page size ps, heads H, SM count handed to
+# latent_splits or None for the card's). On the card's 132 SMs a lane of a
+# few pages gets one slot a split; one SM gives one split; 9 SMs give the
+# 4-lane tables 3 slots a split.
+_LATENT_CASES = {
+    "base": (4, 6, 32, 16, None),      # lanes 1-2 share 2 pages
+    "one_split": (4, 6, 32, 16, 1),
+    "ragged_splits": (4, 7, 32, 16, 9),   # [0,3) [3,6) [6,7)
+    "window_split": (4, 10, 16, 16, 6),   # window + sink pages in 2 splits
+    "dead_lane": (4, 6, 32, 16, None),    # lane 2's pages all -1
+    "original": (4, 6, 32, 16, 5),     # every page, tiles past the length
+    "b1": (1, 6, 32, 16, None), "b2": (2, 6, 32, 16, 3),
+    "b17": (17, 3, 64, 16, None),      # an odd lane count: a half block
+    "b32": (32, 3, 32, 16, None),      # page 0 shared by all 32: bit 31
+    "b32_one_split": (32, 4, 64, 16, 1),
+    "ps8": (4, 20, 8, 16, 5), "ps16": (4, 10, 16, 16, None),
+    "ps64": (4, 4, 64, 16, None), "ps128": (4, 3, 128, 16, None),
+    "h4": (4, 6, 32, 4, None),         # the reduced config's 4 heads
+    "b1_capped": (1, 40, 16, 16, None),   # 40 slots: splits capped at 8
+    "long_list": (2, 600, 8, 16, 1),   # one split of 600 live slots: the
+                                       # block lists them in two rounds
+    "r64_5_splits": (4, 10, 16, 4, 9),    # 64 columns in 5 slices
+}
+
+
+def _latent_tables(case, shared, dev):
+    B, NP, ps, _, _ = _LATENT_CASES[case]
     table = torch.arange(B * NP, device=dev, dtype=torch.int32).reshape(B, NP)
+    cl = [NP * ps - (b * 29) % (NP * ps // 2) for b in range(B)]
+    if case in ("base", "one_split", "dead_lane", "h4"):
+        cl = [NP * ps, 150, 70, 33]
     if shared:
-        table[1:3, :2] = table[0, :2]
-    cl = torch.tensor([NP * ps, 150, 70, 33], dtype=torch.int32, device=dev)
+        if case == "b32":
+            table[:, 0] = table[0, 0]
+        elif B > 1:
+            table[1:3, :max(NP // 3, 1)] = table[0, :max(NP // 3, 1)]
+    if case == "dead_lane":
+        table[2] = -1
+    return table, torch.tensor(cl, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize(
+    "R,dr,opt_kv,window,sink,shared,case",
+    [(R, dr) + m + (sh, "base") for R, dr in ((512, 64), (64, 32))
+     for m in ((True, 0, 0), (False, 0, 0), (True, 48, 1), (True, 40, 2))
+     for sh in (False, True)]
+    # one split and many, ragged splits, window + sink across a split, a
+    # lane with no live page, every page of the table (tiles past the
+    # length), 1, 2, 17 and 32 lanes, pages of 8 to 128, 4 heads, a split
+    # count capped at a cluster's 8 blocks, more live entries than a block
+    # lists at once, R 64 merged in 5 column slices
+    + [(512, 64, kv, 0, 0, sh, c) for c in (
+        "one_split", "ragged_splits", "dead_lane", "original", "b1", "b2",
+        "b17", "b32", "b32_one_split", "ps8", "ps16", "ps64", "ps128", "h4")
+       for kv, sh in ((True, True), (False, False))]
+    + [(512, 64, True, 0, 0, True, c) for c in ("b1_capped", "long_list")]
+    + [(512, 64, True, 48, 1, True, "window_split"),
+       (64, 32, True, 48, 1, True, "window_split")]
+    + [(64, 32, kv, 0, 0, True, c) for c in ("ragged_splits", "b17", "b32",
+                                             "ps128", "h4", "r64_5_splits")
+       for kv in (True, False)])
+def test_latent_decode_kernels(dev, monkeypatch, R, dr, opt_kv, window, sink,
+                               shared, case):
+    """K5 vs its plain version within LAT_RTOL/LAT_ATOL; K7 bit-identical
+    to K5 (layouts in ``_LATENT_CASES``), with lanes sharing a prefix and
+    without."""
+    from repro_torch.kernels import paged_latent_decode as ld
+    B, NP, ps, H, sms = _LATENT_CASES[case]
+    if sms is not None:       # the wrapper keys its SM count by q.device
+        monkeypatch.setitem(ld._SMS, torch.device(
+            "cuda", torch.cuda.current_device()), sms)
+    lat, sc = _latent_pool(dev, B * NP + 1, ps, R, dr, opt_kv)
+    table, cl = _latent_tables(case, shared, dev)
     phys, log = decode_page_select(cl, table, ps, window=window,
-                                   sink_pages=sink)
+                                   sink_pages=sink,
+                                   opt_pa=case != "original")
     ql, qr = _latent_q(dev, (B, H, R), dr)
     kw = dict(sm_scale=0.07, opt_kv=opt_kv, window=window, sink_pages=sink)
     k5 = ld.paged_latent_decode(ql, qr, lat, sc, cl, phys, log, **kw)
@@ -360,6 +420,68 @@ def test_latent_decode_kernels(dev, R, dr, opt_kv, window, sink, shared):
     assert k5.dtype == torch.float32
     torch.testing.assert_close(k5, plain, rtol=LAT_RTOL, atol=LAT_ATOL)
     assert torch.equal(k7, k5)
+    if case == "dead_lane":
+        assert torch.all(k5[2] == 0)
+
+
+@pytest.mark.parametrize("R,dr,lanes", [(512, 64, 2), (64, 32, 8)])
+@pytest.mark.parametrize("opt_kv", [True, False])
+def test_latent_decode_kernel_info(dev, R, dr, lanes, opt_kv):
+    """One K5 or K7 call is one launch, splits and merge included;
+    ``kernel_info`` reports each one's grid (K5: B x splits blocks of one
+    lane; K7: ceil(B / lanes) x splits), q and P' as 3 and 2 bf16 terms,
+    and no local memory (no spills)."""
+    from repro_torch.kernels import paged_latent_decode as ld
+    B, NP, ps, H = 5, 6, 32, 16
+    lat, sc = _latent_pool(dev, B * NP, ps, R, dr, opt_kv)
+    table = torch.arange(B * NP, dtype=torch.int32, device=dev).reshape(B, NP)
+    cl = torch.full((B,), NP * ps, dtype=torch.int32, device=dev)
+    phys, log = decode_page_select(cl, table, ps)
+    ql, qr = _latent_q(dev, (B, H, R), dr)
+    kw = dict(sm_scale=0.07, opt_kv=opt_kv)
+    slots, splits = ld.latent_splits(NP, B, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    for visit_list, per_block in ((False, 1), (True, lanes)):
+        cuda.reset_launches()
+        if visit_list:
+            ld.paged_latent_decode_visits(ql, qr, lat, sc, cl,
+                                          *visits.plan_visits(phys, log), **kw)
+        else:
+            ld.paged_latent_decode(ql, qr, lat, sc, cl, phys, log, **kw)
+        torch.cuda.synchronize()
+        assert sum(cuda.LAUNCHES.values()) == 1
+        info = ld.kernel_info(R, dr, opt_kv, visit_list, dev)
+        assert info["lanes_per_block"] == per_block
+        assert splits > 1 and info["last_splits"] == splits
+        assert info["last_blocks"] == -(-B // per_block) * splits
+        assert (info["q_terms"], info["p_terms"]) == (3, 2)
+        assert info["local_bytes"] == 0 and 0 < info["registers"] <= 255
+
+
+@pytest.mark.parametrize("B", [17, 32])
+def test_latent_decode_routes_every_visit_plan_to_k7(dev, B):
+    """K7 holds a fixed number of lanes a block, so ops.paged_latent_decode
+    with share_visits runs it for every 1 < B <= 32 the Pallas K7 serves,
+    with K5's bits."""
+    from repro_torch.kernels import paged_latent_decode as ld
+    NP, ps, H, R, dr = 3, 64, 16, 512, 64
+    lat, sc = _latent_pool(dev, B * NP + 1, ps, R, dr, True)
+    table = torch.arange(B * NP, device=dev, dtype=torch.int32).reshape(B, NP)
+    table[:, 0] = table[0, 0]
+    cl = torch.tensor([ps + (b * 37) % (2 * ps) + 1 for b in range(B)],
+                      dtype=torch.int32, device=dev)
+    phys, log = decode_page_select(cl, table, ps)
+    ql, qr = _latent_q(dev, (B, H, R), dr)
+    kw = dict(sm_scale=0.07, opt_kv=True)
+    cuda.reset_launches()
+    got = ops.paged_latent_decode(ql, qr, lat, sc, cl, phys, log,
+                                  share_visits=True, **kw)
+    launches = dict(cuda.LAUNCHES)
+    k5 = ld.paged_latent_decode(ql, qr, lat, sc, cl, phys, log, **kw)
+    torch.cuda.synchronize()
+    assert launches["paged_latent_decode_visits"] == 1
+    assert launches["paged_latent_decode"] == 0
+    assert torch.equal(got, k5)
 
 
 def _latent_chunk_layout(case, dev, R, dr, packed):
@@ -376,14 +498,17 @@ def _latent_chunk_layout(case, dev, R, dr, packed):
     100-token chunk: 400 rows, not a multiple of a block's rows. "ragged":
     4 heads at R 512, 41 tokens: 164 rows, the last row group part-filled.
     "future": a chunk lane at [0, 512) whose first 3 slots are -1, so its
-    rows below position 192 see no page (every page in their future)."""
+    rows below position 192 see no page (every page in their future).
+    "decode": four decode lanes of one token (K5's shape, through the
+    latent tile K5, K6 and K7 share)."""
     i32 = dict(dtype=torch.int32, device=dev)
     B, NP, ps, H, S = {"small": (3, 5, 32, 16, 40),
                        "engine64": (4, 16, 64, 16, 512),
                        "engine128": (4, 8, 128, 16, 512),
                        "h4": (3, 6, 32, 4, 100),
                        "ragged": (3, 4, 64, 4, 41),
-                       "future": (2, 8, 64, 16, 512)}[case]
+                       "future": (2, 8, 64, 16, 512),
+                       "decode": (4, 6, 32, 16, 1)}[case]
     table = torch.arange(B * NP, **i32).reshape(B, NP)
     pos = torch.empty((B, S), **i32)
     planes = {}
@@ -393,6 +518,9 @@ def _latent_chunk_layout(case, dev, R, dr, packed):
             pos[b] = n - 1
         table[2, -1] = -1
         table[1, 3] = -1
+        return B, NP, ps, H, S, table, pos, planes
+    if case == "decode":
+        pos[:, 0] = torch.tensor([NP * ps - 1, 149, 69, 32], **i32)
         return B, NP, ps, H, S, table, pos, planes
     if case == "future":
         pos[0] = torch.arange(S, **i32)
@@ -432,7 +560,8 @@ def _latent_chunk_layout(case, dev, R, dr, packed):
        for kv, w in ((True, 0), (False, 0), (True, 300))]
     + [(kv, w, False, 64, 32, "h4") for kv, w in ((True, 0), (False, 40))]
     + [(True, 0, False, 512, 64, "ragged"), (False, 40, False, 512, 64, "ragged")]
-    + [(kv, 0, False, 512, 64, "future") for kv in (True, False)])
+    + [(kv, 0, False, 512, 64, c) for c in ("future", "decode")
+       for kv in (True, False)])
 def test_latent_chunk_kernel(dev, opt_kv, window, packed, R, dr, case):
     """K6 vs its plain version within LAT_RTOL/LAT_ATOL, a chunk lane and
     decode lanes (layouts in ``_latent_chunk_layout``); pad rows of segment

@@ -748,3 +748,175 @@ def test_latent_tile_three_q_terms_hold_f32_tolerance():
     k6, two_q = share(3, 2), share(2, 2)
     assert k6 <= 1 and 2 * k6 < two_q, (k6, two_q)
     assert share(1, 2) > 1 and share(3, 1) > 1
+
+
+# ------------------------------------------- K5 / K7 split-page decode ----
+@pytest.mark.parametrize("nsel,B,sms", [
+    (16, 4, 132), (64, 32, 132), (6, 4, 132), (1, 4, 132), (0, 4, 132),
+    (40, 1, 132), (7, 4, 5), (600, 2, 1), (2560, 1, 132), (3, 32, 132)])
+def test_latent_splits_cover_every_slot_once(nsel, B, sms):
+    """latent_splits cuts the slots into ascending ranges that cover each
+    slot exactly once, in at most _MAX_SPLITS splits (a lane's splits are
+    one thread-block cluster); K7's visit ranges [s0 * B, s1 * B) hold
+    exactly the same live slots of every lane (plan_visits is slot-major),
+    so K5 and K7 meet each lane's pages split by split in the same order."""
+    from repro_torch.kernels import paged_latent_decode as ld
+    slots, splits = ld.latent_splits(nsel, B, sms)
+    ranges = [(z * slots, min((z + 1) * slots, nsel)) for z in range(splits)]
+    assert slots >= 1 and 1 <= splits <= ld._MAX_SPLITS
+    assert [i for a, b in ranges for i in range(a, b)] == list(range(nsel))
+    assert all(a < b for a, b in ranges) or nsel == 0
+    # the fewest slots a split that keep K5's B * splits blocks within one
+    # an SM and the cluster's _MAX_SPLITS
+    cap = max(min(ld._MAX_SPLITS, -(-sms // B)), 1)
+    assert splits <= cap
+    assert slots == 1 or -(-nsel // (slots - 1)) > cap
+    rng = np.random.default_rng(nsel + B)
+    n = min(nsel, 64)                           # the plan check, cut short
+    phys = rng.integers(-1, 4, (B, n)).astype(np.int32)
+    phys[1:, : n // 2] = phys[0, : n // 2]      # shared prefix
+    log = np.where(phys >= 0, np.arange(n, dtype=np.int32), -1)
+    vp, vm, vl = (x.numpy() for x in visits.plan_visits(
+        torch.from_numpy(phys), torch.from_numpy(log.astype(np.int32))))
+    for a, b in ranges:
+        for lane in range(B):
+            mine = [v // B for v in range(a * B, min(b, n) * B)
+                    if vp[v] >= 0 and (int(vm[v]) >> lane) & 1]
+            assert mine == [s for s in range(a, min(b, n))
+                            if phys[lane, s] >= 0]
+
+
+def test_ops_latent_decode_routes_every_visit_plan_to_k7(monkeypatch):
+    """K7 holds a fixed number of lanes a block, whatever B, so it gains no
+    limit of its own: ops.paged_latent_decode with share_visits runs K7 for
+    every 1 < B <= 32 and K5 for B 1 and B 33 (K7's int32 lane bitmask),
+    through the one predicate ``ops._use_visits``."""
+    from repro_torch.kernels import paged_latent_decode as ld
+    calls = []
+
+    def spy(name):
+        def fn(q_lat, *a, **k):
+            calls.append((name, q_lat.shape[0]))
+            return torch.zeros_like(q_lat)
+        return fn
+    monkeypatch.setattr(ld, "paged_latent_decode", spy("k5"))
+    monkeypatch.setattr(ld, "paged_latent_decode_visits", spy("k7"))
+    R, dr, ps = 64, 32, 16
+    lat = torch.zeros((2, ps, R + dr), dtype=torch.bfloat16)
+    for B in (1, 2, 17, 32, 33):
+        phys = torch.zeros((B, 1), dtype=torch.int32)
+        ql, qr = torch.zeros((B, 4, R)), torch.zeros((B, 4, dr))
+        ops.paged_latent_decode(ql, qr, lat, None, torch.ones(B), phys, phys,
+                                sm_scale=0.1, opt_kv=False, share_visits=True)
+        ops.paged_latent_decode(ql, qr, lat, None, torch.ones(B), phys, phys,
+                                sm_scale=0.1, opt_kv=False, share_visits=False)
+    assert calls == [("k5", 1), ("k5", 1), ("k7", 2), ("k5", 2), ("k7", 17),
+                     ("k5", 17), ("k7", 32), ("k5", 32), ("k5", 33),
+                     ("k5", 33)]
+
+
+def _latent_decode_split_emulation(q_lat, q_rope, lat, sc, cache_len, phys,
+                                   log, sm_scale, slots, q_terms, p_terms,
+                                   window=0, sink=0):
+    """K5's and K7's arithmetic (``csrc/paged_latent_decode.cu`` on the tile
+    of ``csrc/latent_mma.cuh``) in PyTorch: each lane's table slots cut into
+    splits of ``slots``; each split's (m, l, acc) from 64-key tiles of its
+    pages in slot order (q_lat and q_rope as ``q_terms`` bf16 terms against
+    the exact fp8 values, each key's scales after the products, the online
+    softmax in the log2 domain, masked probabilities hard-zeroed, P' = p *
+    sc0 as ``p_terms`` bf16 terms); then the splits merged in ascending
+    order: m = max m_s, l = sum l_s 2^(m_s - m), acc likewise."""
+    def terms(x, n):
+        out = []
+        for _ in range(n):
+            out.append(x.to(torch.bfloat16).float())
+            x = x - out[-1]
+        return out
+
+    B, H, R = q_lat.shape
+    _, ps, _ = lat.shape
+    nsel = phys.shape[1]
+    scale = sm_scale * 1.4426950408889634
+    out = torch.zeros((B, H, R))
+    for b in range(B):
+        qc, qr = terms(q_lat[b], q_terms), terms(q_rope[b], q_terms)
+        length = int(cache_len[b])
+        parts = []
+        for s0 in range(0, max(nsel, 1), slots):
+            m = torch.full((H,), -1e30)
+            l = torch.zeros(H)
+            acc = torch.zeros((H, R))
+            for s in range(s0, min(s0 + slots, nsel)):
+                page = int(phys[b, s])
+                if page < 0:
+                    continue
+                for j0 in range(0, ps, 64):
+                    x = lat[page, j0:j0 + 64].float()
+                    c, r = x[:, :R], x[:, R:]
+                    s0c, s1c = sc[page, j0:j0 + 64, 0], sc[page, j0:j0 + 64, 1]
+                    pos = int(log[b, s]) * ps + j0 + torch.arange(x.shape[0])
+                    live = pos < length
+                    if window:
+                        live &= (pos >= max(length - window, 0)) | \
+                            (pos < sink * ps)
+                    sc_ = (sum(t @ c.T for t in qc) * s0c
+                           + sum(t @ r.T for t in qr) * s1c) * scale
+                    sc_ = torch.where(live[None], sc_, -float("inf"))
+                    m_new = torch.maximum(m, sc_.amax(-1))
+                    corr = torch.exp2(m - m_new)
+                    p = torch.exp2(sc_ - m_new[:, None])
+                    l = l * corr + p.sum(-1)
+                    acc = acc * corr[:, None] + sum(
+                        t @ c for t in terms(p * s0c, p_terms))
+                    m = m_new
+            parts.append((m, l, acc))
+        mm = torch.stack([p[0] for p in parts]).amax(0)
+        ll, aa = torch.zeros(H), torch.zeros((H, R))
+        for pm, pl, pa in parts:
+            w = torch.exp2(pm - mm)
+            ll = ll + pl * w
+            aa = aa + pa * w[:, None]
+        out[b] = aa / ll.clamp_min(1e-30)[:, None]
+    return out
+
+
+def test_latent_decode_split_merge_holds_f32_tolerance():
+    """Why K5 and K7 may split a lane's pages across blocks and merge the
+    splits in the same launch: at deepseek-v2-lite's widths (R 512, dr 64,
+    H 16) over an fp8 pool with dual scales and a window + sink, the tile
+    arithmetic with q as three bf16 terms and P' as two stays within the
+    f32 tolerance the card holds K5 to (LAT_RTOL 2^-12, LAT_ATOL 2^-16) of
+    the plain version with one split, 3 and 12 (one slot each), while the
+    same arithmetic with q as one bf16 term is far outside it."""
+    from repro_torch.cache.quant import quantize_latent
+    from repro_torch.kernels.paged_latent_decode import \
+        paged_latent_decode_ref
+    rng = np.random.default_rng(17)
+    R, dr, H, ps, NP, B = 512, 64, 16, 64, 12, 2
+    lat = torch.from_numpy(rng.standard_normal((B * NP, ps, R + dr)).astype(
+        np.float32))
+    lat[..., R:] *= 3.0                         # k_rope on its own scale
+    lat, sc = quantize_latent(lat, R)
+    q_lat, q_rope = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)) for s in ((B, H, R), (B, H, dr)))
+    table = torch.arange(B * NP, dtype=torch.int32).reshape(B, NP)
+    table[1, :4] = table[0, :4]                 # a shared prefix
+    cache_len = torch.tensor([NP * ps, NP * ps - 37], dtype=torch.int32)
+    window, sink = 500, 1
+    phys, log = decode_page_select(cache_len, table, ps, window=window,
+                                   sink_pages=sink)
+    sm_scale = 1.0 / (128 + dr) ** 0.5
+    plain = paged_latent_decode_ref(q_lat, q_rope, lat, sc, cache_len, phys,
+                                    log, sm_scale=sm_scale, opt_kv=True,
+                                    window=window, sink_pages=sink)
+    tol = 2 ** -16 + 2 ** -12 * plain.abs()
+
+    def share(slots, q_terms):
+        got = _latent_decode_split_emulation(
+            q_lat, q_rope, lat, sc, cache_len, phys, log, sm_scale, slots,
+            q_terms, 2, window, sink)
+        return ((got - plain).abs() / tol).max().item()
+
+    for slots in (NP, 4, 1):
+        assert share(slots, 3) <= 1, slots
+    assert share(4, 1) > 1
