@@ -2,11 +2,13 @@
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py            # every phase, one card
-    python3 chip_smoke.py --only kernels   # or decode|latent|engine|prefill|mla|parity
+    python3 chip_smoke.py --only kernels   # or write|decode|latent|engine|
+                                           # prefill|mla|parity
     python3 chip_smoke.py --only decode --src OTHER/src
                                      # K2/K4 of another tree's package
-                                     # (--only latent: K5/K7 of a tree
-                                     # whose K5/K7 report kernel_info)
+                                     # (--only write: K1; --only latent:
+                                     # K5/K7 of a tree whose K5/K7 report
+                                     # kernel_info)
 
 Phases:
   1. the card's name and power limit; build the CUDA kernels from
@@ -14,9 +16,13 @@ Phases:
   2. each kernel at its path's shapes, held against its plain PyTorch
      version on the card. K1-K4 at qwen3-4b's widths (Hq 32, Hkv 8, D 128,
      pages of 64, 4 lanes with ~1024 cached tokens and a shared 256-token
-     prefix): K1 pool bytes and scales equal (the JAX sentinel line
-     excluded), K4 bit-identical to K2, K2 and K3 (unpacked and with two
-     packed segments) within one bf16 ulp (``ATTN_RTOL``, ``ATTN_ATOL``).
+     prefix): K1 at four shapes (``K1_SHAPES``: the engine's mixed chunk
+     and decode step, the full prompt of 2 x 2048 tokens over a bf16 and an
+     fp8 pool), pool bytes and scales equal (the JAX sentinel line
+     excluded), beside one launch's floor (a 4-byte ``zero_()``) and its
+     host microseconds a call; K4 bit-identical to K2, K2 and K3
+     (unpacked and with two packed segments) within one bf16 ulp
+     (``ATTN_RTOL``, ``ATTN_ATOL``).
      K5-K7 at deepseek-v2-lite's (H 16, R 512, dr 64, the same pages and
      lanes): K7 bit-identical to K5, K5 and K6 (unpacked and packed)
      within the f32 tolerance (``LAT_RTOL``, ``LAT_ATOL``). K2 and K4 again
@@ -59,9 +65,10 @@ Phases:
      mis-routes that the check must flag; greedy agreement.
 Each kernel's launch count is read from the path that runs it, the counts
 set to 0 just before that path and read just after; a kernel that never
-launched fails the run. The line before the last is the JSON ``kernels``
-record; the last line is ``{"ok": true, "device": {...}}``. Any failure
-exits non-zero before it.
+launched fails the run. K1's are also split by the shape that runs them
+(the 4-lane engine's mixed and decode steps, the full-prompt path). The
+line before the last is the JSON ``kernels`` record; the last line is
+``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
 Details go to ``chiprun_out/chip_smoke.json`` (``chip_smoke_src.json``
 with ``--src``) and the nvcc (ptxas) log to ``chiprun_out/build.log``.
 """
@@ -133,20 +140,25 @@ def check(cond, what):
 
 
 # ------------------------------------------------------------- timing --
-def make_timer(torch):
+def make_timer(torch, clean=False):
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=DEV)
 
     def time_ms(fn, iters=20, warmup=3):
         """Mean device time of ``fn`` over ``iters`` calls, L2 flushed
         before each (the pool layer a step reads is cold in L2). A spin of
         ~0.5 ms keeps the card busy while the host reaches the launch, so
-        a short kernel's time holds no wait for its Python wrapper."""
+        a short kernel's time holds no wait for its Python wrapper. The
+        flush zeroes a 128 MB buffer, which leaves L2 full of dirty lines;
+        with ``clean`` it reads the buffer, which leaves them clean."""
         for _ in range(warmup):
             fn()
         torch.cuda.synchronize()
         total = 0.0
         for _ in range(iters):
-            flush.zero_()
+            if clean:
+                flush.max()
+            else:
+                flush.zero_()
             torch.cuda._sleep(1_000_000)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
@@ -372,16 +384,175 @@ def decode_phase(torch, rec, time_ms):
     long_decode_phase(torch, rec, time_ms)
 
 
+# ------------------------------------------------------------------ K1 --
+# K1's shapes, all at qwen3-4b's widths (Hkv 8, D 128, pages of 64): key,
+# lanes B, tokens a lane S, valid tokens of each lane, the first one's
+# position, pages a lane, fp8 pool (Opt-KV), and the run that launches K1
+# at this shape (the 4-lane engine's mixed or decode steps, the full-prompt
+# path; None: no path writes an fp8 pool of 2 x 2048 tokens at once).
+K1_SHAPES = (
+    ("mixed", 4, 512, (512, 300, 1, 64), 0, 16, True, "qwen3-4b prefill"),
+    ("decode", 4, 1, (1, 1, 1, 1), 1000, 16, True, "qwen3-4b decode"),
+    ("full_prompt_bf16", 2, 2048, (2048, 2048), 0, 32, False,
+     "qwen3-4b full prompt"),
+    ("full_prompt_fp8", 2, 2048, (2048, 2048), 0, 32, True, None),
+)
+
+
+def write_case(torch, time_ms, gen, key, B, S, n_valid, start, NP, opt_kv,
+               Hkv=8, D=128, ps=64):
+    """K1 at one shape through ``ops.kv_cache_write``: pool bytes and scales
+    equal to the plain version's (the JAX sentinel line excluded; at the
+    mixed shape also the e4m3 edge row), then the kernel's time, the plain
+    version's, ``index_copy_`` of the written K rows and the bytes bound."""
+    from repro_torch.kernels import kv_cache_write as kw
+    from repro_torch.kernels import ops
+    dev = gen.device
+    P = B * NP + 1                          # + the reserved last page
+    kn = torch.randn((B, S, Hkv, D), generator=gen, device=dev).bfloat16()
+    vn = torch.randn((B, S, Hkv, D), generator=gen, device=dev).bfloat16()
+    if key == "mixed":
+        kn[0, 0, 0, :] = 448.0              # exact e4m3 edge: scale 1
+        kn[0, 0, 0, 1:9] = torch.tensor([1.0625, 1.1875, -1.0625, 432.0,
+                                         -432.0, 0.0, 3.25, 208.0])  # ties
+    slots = torch.full((B, S), -1, dtype=torch.int32, device=dev)
+    for b, n in enumerate(n_valid):
+        slots[b, :n] = (torch.arange(n, device=dev, dtype=torch.int32)
+                        + b * NP * ps + start)
+    dt = torch.float8_e4m3fn if opt_kv else torch.bfloat16
+    pool_a = torch.zeros((2, P, ps, Hkv, D), dtype=dt, device=dev)
+    sc_a = torch.zeros((2, P, ps, Hkv), device=dev) if opt_kv else None
+    pool_b = pool_a.clone()
+    sc_b = sc_a.clone() if opt_kv else None
+    flat_a = pool_a.view(2, P * ps, Hkv, D)
+    flat_b = pool_b.view(2, P * ps, Hkv, D)
+    sflat_b = sc_b.view(2, P * ps, Hkv) if opt_kv else (None, None)
+
+    def kernel():
+        ops.kv_cache_write(pool_a, sc_a, kn, vn, slots, opt_kv=opt_kv)
+
+    def plain():
+        kw.kv_cache_write_ref(kn, vn, slots, flat_b[0], flat_b[1],
+                              sflat_b[0], sflat_b[1], opt_kv=opt_kv)
+    kernel()
+    plain()
+    torch.cuda.synchronize()
+    n = P * ps - 1
+    same = torch.equal(flat_a[:, :n].view(torch.uint8),
+                       flat_b[:, :n].view(torch.uint8))
+    same_sc = True
+    if opt_kv:
+        sflat_a = sc_a.view(2, P * ps, Hkv)
+        same_sc = torch.equal(sflat_a[:, :n], sflat_b[:, :n])
+        err = (flat_a[:, :n].float() * sflat_a[:, :n, :, None] -
+               flat_b[:, :n].float() * sflat_b[:, :n, :, None]).abs().max()
+    else:
+        err = (flat_a[:, :n].float() - flat_b[:, :n].float()).abs().max()
+    res = dict(key=key, max_abs_err=err.item(), bytes_equal=same,
+               scales_equal=same_sc)
+    log(f"K1 kv_cache_write ({key}): pool bytes equal {same}, scales equal "
+        f"{same_sc}")
+    check(same and same_sc, f"K1 differs from its plain version ({key})")
+    if key == "mixed":
+        edge = flat_a[0, 0, 0, :9].float().tolist()
+        log(f"K1 e4m3 edge values {edge}")
+        check(edge == [448.0, 1.0, 1.25, -1.0, 448.0, -448.0, 0.0, 3.25,
+                       208.0], f"K1 e4m3 edge/tie values {edge}")
+    # the kernel reads every slot but the K/V rows of valid slots only (a
+    # dropped slot's row is never read), and writes each valid token's lines
+    valid = sum(n_valid)
+    out_bytes = D + 4 if opt_kv else 2 * D
+    k1_bytes = (2 * valid * Hkv * D * 2 + B * S * 4
+                + 2 * valid * Hkv * out_bytes)
+    k1_ops = 2 * valid * Hkv * D * 4 if opt_kv else 0  # abs, max, div, cvt
+    ok_slots = slots.reshape(-1)[slots.reshape(-1) >= 0].long()
+    rows = flat_b[0][ok_slots].view(torch.uint8).contiguous()
+    res.update(ms=time_ms(kernel), plain_ms=time_ms(plain),
+               library_ms=time_ms(lambda: flat_a[0].view(
+                   torch.uint8).index_copy_(0, ok_slots, rows)),
+               **bound(k1_bytes, k1_ops, F32_FLOPS),
+               shape=f"B={B} S={S} Hkv={Hkv} D={D}, {valid} valid, "
+                     f"{'fp8' if opt_kv else 'bf16'} pool")
+    return res
+
+
+def host_us(torch, fn, calls=1000):
+    """Host microseconds a call: the mean of ``calls`` back-to-back calls,
+    no sync between them (the cost the engine's host pays)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def write_phase(torch, rec, time_ms, gen=None):
+    """K1 at its four shapes (``K1_SHAPES``; the mixed chunk from ``gen``,
+    the others from a generator of their own), one launch's floor (a 4-byte
+    ``zero_()``) in the same timer, and the host microseconds of
+    ``ops.kv_cache_write`` at the decode shape. Returns the K1 ``kernels``
+    entry: the mixed shape's numbers, with a record for each shape."""
+    from repro_torch.kernels import ops
+    dev = torch.device(DEV)
+    gen = gen or torch.Generator(device=dev).manual_seed(0)
+    own = torch.Generator(device=dev).manual_seed(9)
+    shapes = [write_case(torch, time_ms, gen if key == "mixed" else own, key,
+                         *args) for key, *args, _ in K1_SHAPES]
+    z = torch.zeros(1, dtype=torch.int32, device=dev)
+    floor_ms = time_ms(z.zero_)
+    B, Hkv, D, P, ps = 4, 8, 128, 65, 64
+    kn = torch.randn((B, 1, Hkv, D), generator=own, device=dev).bfloat16()
+    slots = (torch.arange(B, device=dev, dtype=torch.int32) * 1024 + 1000
+             ).reshape(B, 1)
+    pool = torch.zeros((2, P, ps, Hkv, D), dtype=torch.float8_e4m3fn,
+                       device=dev)
+    sc = torch.zeros((2, P, ps, Hkv), device=dev)
+    us = host_us(torch, lambda: ops.kv_cache_write(pool, sc, kn, kn, slots,
+                                                   opt_kv=True))
+    # the mixed shape again with L2 left clean by the flush: what evicting
+    # the timer's dirty lines costs K1 (5.5 MB) and index_copy_ (1.8 MB)
+    clean = write_case(torch, make_timer(torch, clean=True),
+                       torch.Generator(device=dev).manual_seed(9),
+                       *K1_SHAPES[0][:-1])
+    for r in shapes:
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        r["x_lib"] = r["ms"] / r["library_ms"]
+        r["floor_share"] = r["bound_ms"] / floor_ms
+        log(f"  K1 {r['key']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+            f"index_copy_ {r['library_ms']:.4f}, bound {r['bound_ms']:.5f} "
+            f"by {r['bound_by']}); {r['bound_share']:.2%} of the bound, "
+            f"{r['x_lib']:.2f}x index_copy_, {r['ms'] / floor_ms:.2f}x the "
+            f"launch floor")
+    log(f"  K1 launch floor (4-byte zero_): {floor_ms:.4f} ms; host "
+        f"{us:.1f} us a call at the decode shape (mean of 1000, no sync); "
+        f"mixed with a clean L2: {clean['ms']:.4f} ms, index_copy_ "
+        f"{clean['library_ms']:.4f}")
+    mixed = shapes[0]
+    entry = dict(name="kv_cache_write", route="cuda",
+                 source="src/repro_torch/kernels/csrc/kv_cache_write.cu",
+                 replaces="src/repro/kernels/kv_cache_write.py:59",
+                 library="index_copy_ of the written K rows (scatter only)",
+                 shapes=shapes, launch_floor_ms=floor_ms, host_us=us,
+                 clean_l2=dict(ms=clean["ms"],
+                               library_ms=clean["library_ms"]),
+                 **{k: mixed[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                          "library_ms", "bound_ms",
+                                          "bound_by", "flops", "shape")})
+    rec["write"] = entry
+    return entry
+
+
 def kernel_phase(torch, rec, time_ms):
     """K1-K4 at qwen3-4b's widths (K2/K4 through ``decode_step``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import cuda, ops
     from repro_torch.kernels import flash_chunk_prefill as fc
-    from repro_torch.kernels import kv_cache_write as kw
     dev = torch.device(DEV)
     gen = torch.Generator(device=dev).manual_seed(0)
     B, Hq, Hkv, D, ps, NP = 4, 32, 8, 128, 64, 16
-    P = B * NP + 1                          # + the reserved last page
     out = []
 
     def randn(*shape):
@@ -391,67 +562,9 @@ def kernel_phase(torch, rec, time_ms):
     kv, sc, table = paged_pool(torch, gen, B, NP, 4, Hkv, D, ps)
     cache_len = torch.tensor([1024, 1000, 980, 1010], dtype=torch.int32,
                              device=dev)
-    # ---- K1: one prefill step's chunk (S = 512) with padded columns -----
+    # ---- K1 at its paths' shapes (the mixed chunk from this generator) ----
     S = 512
-    kn = randn(B, S, Hkv, D).to(torch.bfloat16)
-    vn = randn(B, S, Hkv, D).to(torch.bfloat16)
-    kn[0, 0, 0, :] = 448.0                  # exact e4m3 edge: scale 1
-    kn[0, 0, 0, 1:9] = torch.tensor([1.0625, 1.1875, -1.0625, 432.0, -432.0,
-                                     0.0, 3.25, 208.0])   # ties at scale 1
-    slots = torch.full((B, S), -1, dtype=torch.int32, device=dev)
-    n_valid = [512, 300, 1, 64]
-    for b, n in enumerate(n_valid):
-        slots[b, :n] = (torch.arange(n, device=dev, dtype=torch.int32)
-                        + b * NP * ps)
-    pool_a = torch.zeros((2, P, ps, Hkv, D), dtype=torch.float8_e4m3fn,
-                         device=dev)
-    sc_a = torch.zeros((2, P, ps, Hkv), device=dev)
-    pool_b, sc_b = pool_a.clone(), sc_a.clone()
-    ops.kv_cache_write(pool_a, sc_a, kn, vn, slots, opt_kv=True)
-    flat_b = pool_b.view(2, P * ps, Hkv, D)
-    sflat_b = sc_b.view(2, P * ps, Hkv)
-    kw.kv_cache_write_ref(kn, vn, slots, flat_b[0], flat_b[1], sflat_b[0],
-                          sflat_b[1], opt_kv=True)
-    torch.cuda.synchronize()
-    n = P * ps - 1
-    same = torch.equal(pool_a.view(2, P * ps, Hkv, D)[:, :n].view(torch.uint8),
-                       flat_b[:, :n].view(torch.uint8))
-    same_sc = torch.equal(sc_a.view(2, P * ps, Hkv)[:, :n], sflat_b[:, :n])
-    deq_a = pool_a.view(2, P * ps, Hkv, D)[:, :n].float() * \
-        sc_a.view(2, P * ps, Hkv)[:, :n, :, None]
-    deq_b = flat_b[:, :n].float() * sflat_b[:, :n, :, None]
-    err1 = (deq_a - deq_b).abs().max().item()
-    edge = pool_a.view(2, P * ps, Hkv, D)[0, 0, 0, :9].float().tolist()
-    log(f"K1 kv_cache_write: pool bytes equal {same}, scales equal {same_sc},"
-        f" edge values {edge}")
-    check(same and same_sc, "K1 differs from its plain version")
-    check(edge == [448.0, 1.0, 1.25, -1.0, 448.0, -448.0, 0.0, 3.25, 208.0],
-          f"K1 e4m3 edge/tie values {edge}")
-    # the kernel reads every slot but the K/V rows of valid slots only
-    # (a slot < 0 returns before its row is read)
-    valid = sum(n_valid)
-    k1_bytes = 2 * valid * Hkv * D * 2 + B * S * 4 + \
-        2 * valid * Hkv * (D + 4)
-    k1_ops = 2 * valid * Hkv * D * 4                 # abs, max, div, cvt
-    flat_a = pool_a.view(2, P * ps, Hkv, D)
-    ok_slots = slots.reshape(-1)[slots.reshape(-1) >= 0].long()
-    rows_q = flat_b[0][ok_slots].view(torch.uint8).contiguous()
-    t_kernel = time_ms(lambda: ops.kv_cache_write(pool_a, sc_a, kn, vn, slots,
-                                                  opt_kv=True))
-    t_plain = time_ms(lambda: kw.kv_cache_write_ref(
-        kn, vn, slots, flat_b[0], flat_b[1], sflat_b[0], sflat_b[1],
-        opt_kv=True))
-    t_lib = time_ms(lambda: flat_a[0].view(torch.uint8).index_copy_(
-        0, ok_slots, rows_q))
-    bnd = bound(k1_bytes, k1_ops, F32_FLOPS)
-    out.append(dict(name="kv_cache_write", route="cuda",
-                    source="src/repro_torch/kernels/csrc/kv_cache_write.cu",
-                    replaces="src/repro/kernels/kv_cache_write.py:59",
-                    max_abs_err=err1, ms=t_kernel, plain_ms=t_plain,
-                    **bnd, library_ms=t_lib,
-                    library="index_copy_ of the pre-quantized K rows "
-                            "(scatter only)",
-                    shape=f"B={B} S={S} Hkv={Hkv} D={D}, {valid} valid"))
+    out.append(write_phase(torch, rec, time_ms, gen))
 
     # ---- K2 / K4: a decode step of 4 lanes --------------------------------
     q = randn(B, Hq, D).to(torch.bfloat16)
@@ -1027,9 +1140,12 @@ def engine_phase(torch, rec, arch="qwen3-4b", keep_params=False):
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
     finite = []
     run_model = eng._run_model
+    k1_by_kind = {"prefill": 0, "decode": 0}
 
     def checked(sb):
+        n0 = cuda.LAUNCHES["kv_cache_write"]
         logits = run_model(sb)
+        k1_by_kind[sb.kind] += cuda.LAUNCHES["kv_cache_write"] - n0
         finite.append(torch.isfinite(logits).all())
         return logits
     eng._run_model = checked
@@ -1052,7 +1168,8 @@ def engine_phase(torch, rec, arch="qwen3-4b", keep_params=False):
                decode_steps=st.decode_steps, prefill_calls=st.prefill_calls,
                shared_page_visits=st.shared_page_visits,
                dup_page_streams_saved=st.dup_page_streams_saved,
-               launches=launches, logits_finite=all_finite,
+               launches=launches, k1_launches_by_step=k1_by_kind,
+               logits_finite=all_finite,
                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     res["gib_allocated"] = torch.cuda.memory_allocated() / 2**30
     log(f"engine: {done}/{len(reqs)} finished, {st.generated_tokens} tokens "
@@ -1350,7 +1467,7 @@ LAUNCH_PATH = {"kv_cache_write": "qwen3-4b", "flash_chunk_prefill": "qwen3-4b",
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("kernels", "decode", "latent",
+    ap.add_argument("--only", choices=("kernels", "write", "decode", "latent",
                                        "engine", "mla", "prefill", "parity"),
                     help="run one phase (debugging; prints no result line)")
     ap.add_argument("--src", help="import repro_torch from this directory "
@@ -1421,6 +1538,10 @@ def main(argv=None) -> int:
             del time_ms
             torch.cuda.empty_cache()
             done("kernels", t0)
+        if only == "write":
+            t0 = time.perf_counter()
+            write_phase(torch, rec, make_timer(torch))
+            done("write", t0)
         if only == "decode":
             t0 = time.perf_counter()
             decode_phase(torch, rec, make_timer(torch))
@@ -1464,6 +1585,15 @@ def main(argv=None) -> int:
                       f"its path ({LAUNCH_PATH[k['name']]})")
             check(sorted(k["name"] for k in kernels) == sorted(LAUNCH_PATH),
                   "the kernels line does not list every kernel")
+            by_step = rec["engine"]["k1_launches_by_step"]
+            runs = {"qwen3-4b prefill": by_step["prefill"],
+                    "qwen3-4b decode": by_step["decode"],
+                    "qwen3-4b full prompt":
+                        paths["qwen3-4b full prompt"]["kv_cache_write"]}
+            for r, (*_, path) in zip(rec["write"]["shapes"], K1_SHAPES):
+                r["path"], r["launches"] = path, runs.get(path, 0)
+            log("K1 launches by shape: " + ", ".join(
+                f"{r['key']} {r['launches']}" for r in rec["write"]["shapes"]))
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         record.write_text(json.dumps(rec, indent=1))
@@ -1479,9 +1609,11 @@ def main(argv=None) -> int:
     # K5, K6 and K7 add their launch's grid (K5/K7: and splits) and their
     # registers and local bytes as the loaded kernels report them; K5 and K7
     # the bound of the pages each reads (``own_bound_ms``) beside the
-    # function's
+    # function's; K1 a record for each of its shapes, one launch's floor,
+    # its host microseconds a call and the mixed shape with L2 left clean
     extra = ("blocks", "splits", "rows_per_block", "lanes_per_block",
-             "registers", "local_bytes", "own_bound_ms")
+             "registers", "local_bytes", "own_bound_ms", "shapes",
+             "launch_floor_ms", "host_us", "clean_l2")
     print(json.dumps({"kernels": [
         {k: x[k] for k in keys + extra if k in keys or k in x}
         for x in kernels]}))

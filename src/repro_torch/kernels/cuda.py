@@ -49,7 +49,8 @@ _LOCK = threading.Lock()
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ARGTYPES = {
-    "kv_cache_write": [_P, _P, _P, _L, _I, _I, _P, _P, _P, _P, _L, _I, _P],
+    "kv_cache_write": [_P] * 3 + [_L, _I, _I] + [_P] * 4 + [_L] + [_I] * 4
+    + [_P],
     "paged_pool_decode": [_P] * 11 + [_I] * 11 + [_F, _P],
     "paged_pool_decode_visits": [_P] * 12 + [_I] * 11 + [_F, _P],
     "flash_chunk_prefill": [_P] * 11 + [_I] * 11 + [_F, _P],

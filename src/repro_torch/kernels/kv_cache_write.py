@@ -6,6 +6,7 @@ runs ``kv_cache_write_ref``, its plain PyTorch version, on CPU tensors. Both
 update the cache in place and drop every slot < 0 (the SkipSet). The JAX
 kernel instead routes those tokens to the pool's last line, a sentinel the
 BlockManager never allocates, so the two pools agree everywhere but there.
+The kernel takes its launch from ``write_plan``.
 """
 from __future__ import annotations
 
@@ -13,6 +14,32 @@ import torch
 
 from repro_torch.cache.quant import FP8_DTYPE, fp8_scale
 from repro_torch.kernels import cuda
+
+HEAD_DIMS = (64, 128)
+THREADS = 128            # threads a block at most (csrc kMaxThreads)
+MAX_VECS = 2             # vectors a thread at most
+_SMS = 132               # the H100's SMs: sizes the plan, never the result
+
+
+def write_plan(n_tokens: int, hkv: int, d: int) -> tuple[int, int, int]:
+    """The kernel's launch: (threads a block, vectors a thread, blocks).
+
+    D/8 threads (a group) own one (token, K|V, head) vector, vectors being
+    numbered in that order. A block holds threads / (D/8) groups, each
+    taking ``vecs`` vectors ``groups`` apart, so block b covers vectors
+    [b * groups * vecs, (b + 1) * groups * vecs). A launch that one vector
+    a thread spreads over at most one block an SM (a decode step) takes one
+    vector a thread; a larger one takes MAX_VECS, whose loads a thread
+    issues together, at half the threads. A launch smaller than a block
+    takes fewer threads, down to one warp."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"kv_cache_write: head_dim {d} not in {HEAD_DIMS}")
+    g = d // 8
+    n_vec = 2 * n_tokens * hkv
+    vecs = 1 if n_vec * g <= THREADS * _SMS else MAX_VECS
+    groups = -(-n_vec // vecs)
+    threads = min(THREADS, max(32, -(-groups * g // 32) * 32))
+    return threads, vecs, -(-n_vec // (threads // g * vecs))
 
 
 def kv_cache_write_ref(k_new, v_new, slot_idx, k_cache, v_cache, k_scale,
@@ -47,8 +74,8 @@ def _check(k_new, v_new, slot_idx, k_cache, v_cache, k_scale, v_scale,
             or v_new.dtype != torch.bfloat16:
         raise ValueError("kv_cache_write: k_new/v_new must be bf16 "
                          f"(B,S,Hkv,D), got {k_new.dtype} {tuple(k_new.shape)}")
-    if D not in (64, 128):
-        raise ValueError(f"kv_cache_write: head_dim {D} not in (64, 128)")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"kv_cache_write: head_dim {D} not in {HEAD_DIMS}")
     if slot_idx.dtype != torch.int32 or tuple(slot_idx.shape) != (B, S):
         raise ValueError("kv_cache_write: slot_idx must be int32 (B, S)")
     want = FP8_DTYPE if opt_kv else torch.bfloat16
@@ -66,6 +93,10 @@ def _check(k_new, v_new, slot_idx, k_cache, v_cache, k_scale, v_scale,
     for t in (k_new, v_new, slot_idx, k_cache, v_cache, k_scale, v_scale):
         if t is not None and not t.is_contiguous():
             raise ValueError("kv_cache_write: tensors must be contiguous")
+    for t in (k_new, v_new, k_cache, v_cache):     # 16-byte rows and lines
+        if t.data_ptr() % 16:
+            raise ValueError("kv_cache_write: k/v_new and the caches must "
+                             "start on a 16-byte boundary")
 
 
 def kv_cache_write(k_new, v_new, slot_idx, k_cache, v_cache, k_scale,
@@ -79,14 +110,23 @@ def kv_cache_write(k_new, v_new, slot_idx, k_cache, v_cache, k_scale,
                                   k_scale, v_scale, opt_kv=opt_kv)
     if not k_new.is_cuda:
         raise ValueError(f"kv_cache_write: unsupported device {k_new.device}")
+    _launch(k_new, v_new, slot_idx, k_cache, v_cache, k_scale, v_scale,
+            opt_kv)
+    return k_cache, v_cache, k_scale, v_scale
+
+
+def _launch(k_new, v_new, slot_idx, k_cache, v_cache, k_scale, v_scale,
+            opt_kv):
+    """Check the operands, then launch the kernel once."""
     _check(k_new, v_new, slot_idx, k_cache, v_cache, k_scale, v_scale, opt_kv)
     B, S, Hkv, D = k_new.shape
+    threads, vecs, blocks = write_plan(B * S, Hkv, D)
     fn = cuda.library("kv_cache_write").kv_cache_write
     err = fn(k_new.data_ptr(), v_new.data_ptr(), slot_idx.data_ptr(), B * S,
              Hkv, D, k_cache.data_ptr(), v_cache.data_ptr(),
              cuda.ptr(k_scale if opt_kv else None),
              cuda.ptr(v_scale if opt_kv else None), k_cache.shape[0],
-             int(opt_kv), cuda.stream_ptr(k_new.device))
+             int(opt_kv), threads, vecs, blocks,
+             cuda.stream_ptr(k_new.device))
     cuda.check(err, "kv_cache_write")
     cuda.count("kv_cache_write")
-    return k_cache, v_cache, k_scale, v_scale

@@ -46,29 +46,116 @@ def _pool(dev, P, ps, Hkv, D, opt_kv, seed=0):
     return torch.stack([k, v]).to(torch.bfloat16), None
 
 
-@pytest.mark.parametrize("opt_kv", [False, True])
-@pytest.mark.parametrize("D", [64, 128])
-def test_kv_cache_write_bytes(dev, opt_kv, D):
-    B, S, Hkv, P, ps = 2, 40, 4, 8, 16
+# K1 cases: (opt_kv, D, Hkv, B, S, slots). "base": distinct random slots,
+# every 7th token dropped (-1); "none": every slot -1; "pool_edge": the
+# pool's last line (NSlot - 1) written, slots past the pool dropped;
+# "values": an all-zero vector, e4m3 ties and +-448 saturation at scale 1,
+# bf16 subnormals.
+_WRITE_CASES = (
+    [(o, D, 4, 2, 40, "base") for o in (False, True) for D in (64, 128)]
+    + [(o, D, h, 2, 40, "base") for h in (1, 2, 8, 40) for D in (64, 128)
+       for o in (False, True)]
+    + [(True, 128, 8, 4, 1, "base"), (False, 64, 2, 4, 1, "base"),
+       (True, 128, 8, 2, 2048, "base"), (False, 128, 8, 2, 2048, "base"),
+       (True, 64, 40, 2, 2048, "base"),
+       (True, 128, 8, 2, 40, "none"), (False, 64, 2, 2, 40, "none"),
+       (True, 128, 8, 2, 40, "pool_edge"), (False, 64, 40, 2, 40, "pool_edge"),
+       (True, 128, 8, 2, 40, "values"), (True, 64, 2, 2, 40, "values"),
+       (False, 128, 8, 2, 40, "values")])
+_EDGE = [1.0625, 1.1875, -1.0625, 432.0, -432.0, 0.0, 3.25, 208.0]
+
+
+def _write_inputs(dev, opt_kv, D, Hkv, B, S, case):
     g = torch.Generator(device=dev).manual_seed(1)
     kn = torch.randn((B, S, Hkv, D), generator=g, device=dev).bfloat16()
     vn = torch.randn((B, S, Hkv, D), generator=g, device=dev).bfloat16()
-    slots = torch.randperm(P * ps - 1, device=dev)[:B * S].reshape(B, S)
+    ps = 16
+    P = max(8, -(-B * S * 8 // 7 // ps) + 1)
+    slots = torch.randperm(P * ps - 1, generator=g, device=dev)[:B * S]
+    slots = slots.reshape(B, S).to(torch.int32)
     slots[:, ::7] = -1
-    slots = slots.to(torch.int32)
+    if case == "none":
+        slots[:] = -1
+    elif case == "pool_edge":
+        slots[0, 1] = P * ps - 1                   # the last line: written
+        slots[0, 2], slots[1, 3] = P * ps, 2 ** 31 - 1      # past: dropped
+    elif case == "values":                         # tokens (0, 1), (0, 2)
+        kn[0, 1, :, :8] = torch.tensor(_EDGE)  # ties at scale 1
+        kn[0, 1, :, 8:] = 0.0
+        kn[0, 1, :, 8] = 448.0
+        kn[0, 2] = 0.0                             # all zero: scale eps
+        bits = torch.arange(1, D + 1, device=dev, dtype=torch.int16)
+        bits[1::2] |= -2 ** 15                     # negative subnormals
+        vn[0, 1] = bits.view(torch.bfloat16)
+        vn[0, 2, :, ::2] *= 2 ** -130              # subnormals beside normals
     dt = torch.float8_e4m3fn if opt_kv else torch.bfloat16
-    a = torch.zeros((2, P, ps, Hkv, D), dtype=dt, device=dev)
-    sa = torch.zeros((2, P, ps, Hkv), device=dev) if opt_kv else None
+    # the pool starts as random bytes: lines no token writes must keep them
+    a = torch.randint(0, 256, (2, P, ps, Hkv, D * dt.itemsize),
+                      generator=g, device=dev, dtype=torch.uint8).view(dt)
+    sa = torch.rand((2, P, ps, Hkv), generator=g, device=dev) \
+        if opt_kv else None
+    return kn, vn, slots, a, sa
+
+
+@pytest.mark.parametrize("opt_kv,D,Hkv,B,S,case", _WRITE_CASES)
+def test_kv_cache_write_bytes(dev, opt_kv, D, Hkv, B, S, case):
+    """K1 equals its plain version bit for bit (pool bytes and scales, every
+    line), in one launch; lines no valid slot names keep their bytes."""
+    kn, vn, slots, a, sa = _write_inputs(dev, opt_kv, D, Hkv, B, S, case)
+    _, P, ps, _, _ = a.shape
     b, sb = a.clone(), None if sa is None else sa.clone()
+    cuda.reset_launches()
     ops.kv_cache_write(a, sa, kn, vn, slots, opt_kv=opt_kv)
+    assert cuda.LAUNCHES["kv_cache_write"] == 1
     fb = b.view(2, P * ps, Hkv, D)
     fs = sb.view(2, P * ps, Hkv) if opt_kv else (None, None)
+    init = fb.clone()
+    sinit = sb.view(2, P * ps, Hkv).clone() if opt_kv else None
     kw.kv_cache_write_ref(kn, vn, slots, fb[0], fb[1], fs[0], fs[1],
                           opt_kv=opt_kv)
     torch.cuda.synchronize()
     assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
     if opt_kv:
         assert torch.equal(sa, sb)
+    flat = slots.reshape(-1)
+    written = torch.zeros(P * ps, dtype=torch.bool, device=dev)
+    written[flat[(flat >= 0) & (flat < P * ps)].long()] = True
+    fa = a.view(2, P * ps, Hkv, D)
+    assert torch.equal(fa[:, ~written].view(torch.uint8),
+                       init[:, ~written].view(torch.uint8))
+    if opt_kv:
+        assert torch.equal(sa.view(2, P * ps, Hkv)[:, ~written],
+                           sinit[:, ~written])
+    if case == "values" and opt_kv:
+        ties, zero = slots[0, 1].item(), slots[0, 2].item()
+        want = [1.0, 1.25, -1.0, 448.0, -448.0, 0.0, 3.25, 208.0, 448.0]
+        assert fa[0, ties, :, :9].float().tolist() == [want] * Hkv
+        assert torch.all(fa[0, zero].view(torch.uint8) == 0)  # +0 bytes
+        eps = (torch.tensor(1e-12) / torch.tensor(448.0)).item()
+        assert torch.all(sa.view(2, -1, Hkv)[0, zero] == eps)
+
+
+def test_kv_cache_write_refuses_misaligned_views(dev):
+    """A new-token or cache view off a 16-byte boundary raises ValueError
+    before any launch."""
+    kn, vn, slots, a, sa = _write_inputs(dev, True, 128, 8, 2, 40, "base")
+    _, P, ps, Hkv, D = a.shape
+    flat = a.view(2, P * ps, Hkv, D)
+    n = kn.numel()
+    off = torch.empty(n + 8, dtype=torch.bfloat16, device=dev)[1:n + 1]
+    bad_new = off.view(kn.shape).copy_(kn)
+    m = P * ps * Hkv * D
+    bad_cache = torch.empty(m + 16, dtype=torch.uint8, device=dev)[8:m + 8]
+    bad_cache = bad_cache.view(torch.float8_e4m3fn).view(P * ps, Hkv, D)
+    sflat = sa.view(2, P * ps, Hkv)
+    cuda.reset_launches()
+    for args in ((bad_new, vn, flat[0], flat[1]),
+                 (kn, bad_new, flat[0], flat[1]),
+                 (kn, vn, bad_cache, flat[1]), (kn, vn, flat[0], bad_cache)):
+        with pytest.raises(ValueError, match="16-byte"):
+            kw.kv_cache_write(args[0], args[1], slots, args[2], args[3],
+                              sflat[0], sflat[1], opt_kv=True)
+    assert cuda.LAUNCHES["kv_cache_write"] == 0
 
 
 _DECODE_MODES = [(True, True, 0, 0), (False, True, 0, 0), (True, False, 0, 0),
@@ -286,7 +373,7 @@ def test_chunk_kernel(dev, opt_kv, opt_gqa, window, packed, D, ps, S):
 
 def test_launch_counts(dev):
     cuda.reset_launches()
-    test_kv_cache_write_bytes(dev, True, 128)
+    test_kv_cache_write_bytes(dev, True, 128, 4, 2, 40, "base")
     assert cuda.LAUNCHES["kv_cache_write"] == 1
     assert cuda.LAUNCHES["paged_pool_decode"] == 0
 

@@ -26,7 +26,8 @@ from repro_torch.cache.quant import quantize_fp8  # noqa: E402
 from repro_torch.core.coopt import MODES  # noqa: E402
 from repro_torch.core.opt_kv import decode_page_select  # noqa: E402
 from repro_torch.core.opt_pa import paged_chunk_attention  # noqa: E402
-from repro_torch.kernels import ops, ref, visits  # noqa: E402
+from repro_torch.kernels import cuda, ops, ref, visits  # noqa: E402
+from repro_torch.kernels import kv_cache_write as kwm  # noqa: E402
 from repro_torch.kernels import paged_gqa_decode as pdm  # noqa: E402
 from repro_torch.kernels.flash_chunk_prefill import flash_chunk_prefill_ref  # noqa: E402
 from repro_torch.kernels.kv_cache_write import kv_cache_write  # noqa: E402
@@ -143,6 +144,68 @@ def test_kv_cache_write_plain_drops_skipset_in_place():
     assert torch.all(k_cache[3] == 1.0)
     keep = [i for i in range(NS) if i != 3]
     assert torch.all(k_cache[keep] == 7.0)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("Hkv", [1, 2, 8, 40])
+@pytest.mark.parametrize("n_tokens", [1, 4, 877, 2048, 4096])
+def test_write_plan_covers_every_vector_once(n_tokens, Hkv, D):
+    """Through write_plan's launch, the kernel's index map (block b, thread
+    t, vector i of the thread: vector b * groups * vecs + t // (D/8) + i *
+    groups, its 8 values t % (D/8)) covers each value of every (token,
+    K|V, head) vector exactly once; the D/8 threads of a group take the
+    same vector, so no group straddles two; no block is idle. A decode
+    step takes one vector a thread, a chunk or a prompt two."""
+    threads, vecs, blocks = kwm.write_plan(n_tokens, Hkv, D)
+    g = D // 8
+    assert threads % 32 == 0 and 32 <= threads <= kwm.THREADS
+    assert 1 <= vecs <= kwm.MAX_VECS
+    groups = threads // g
+    n_vec = 2 * n_tokens * Hkv
+    t = np.arange(threads)
+    v = (np.arange(blocks)[:, None, None] * groups * vecs
+         + np.arange(vecs)[None, :, None] * groups + (t // g)[None, None])
+    by_group = v.reshape(blocks, vecs, groups, g)
+    assert (by_group == by_group[..., :1]).all()
+    cells = (v * g + t % g)[v < n_vec]
+    np.testing.assert_array_equal(np.sort(cells), np.arange(n_vec * g))
+    assert (blocks - 1) * groups * vecs < n_vec
+    if n_tokens <= 4:                 # a decode step: one vector a thread
+        assert vecs == 1
+    if n_tokens >= 2048:              # a chunk or a prompt: two
+        assert vecs == kwm.MAX_VECS
+
+
+def test_kv_cache_write_checks_before_launch(monkeypatch):
+    """The kernel path refuses a head_dim outside (64, 128) and a new-token
+    or cache view off a 16-byte boundary with ValueError, before the
+    library is loaded or a launch counted."""
+    def refuse(name):
+        raise AssertionError("the library was loaded")
+    monkeypatch.setattr(cuda, "library", refuse)
+    before = dict(cuda.LAUNCHES)
+    B, S, Hkv, NS = 1, 3, 2, 32
+    slots = torch.tensor([[3, -1, 5]], dtype=torch.int32)
+
+    def operands(D, new_off=0, cache_off=0):
+        n, m = B * S * Hkv * D, NS * Hkv * D
+        kn = torch.zeros(n + 8, dtype=torch.bfloat16)[new_off:new_off + n]
+        kc = torch.zeros(m + 16, dtype=torch.uint8)[cache_off:cache_off + m]
+        return (kn.view(B, S, Hkv, D), torch.zeros((B, S, Hkv, D),
+                                                     dtype=torch.bfloat16),
+                slots, kc.view(torch.float8_e4m3fn).view(NS, Hkv, D),
+                torch.zeros((NS, Hkv, D), dtype=torch.float8_e4m3fn),
+                torch.zeros((NS, Hkv)), torch.zeros((NS, Hkv)), True)
+    with pytest.raises(ValueError, match="head_dim 96"):
+        kwm._launch(*operands(96))
+    with pytest.raises(ValueError, match="head_dim 32"):
+        kwm.write_plan(4, Hkv, 32)
+    for off in (dict(new_off=1), dict(cache_off=8)):
+        with pytest.raises(ValueError, match="16-byte"):
+            kwm._launch(*operands(64, **off))
+    with pytest.raises(AssertionError, match="library"):   # aligned: loads
+        kwm._launch(*operands(64))
+    assert cuda.LAUNCHES == before
 
 
 # ------------------------------------------------------------------ K2 ----
