@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --only kernels   # or write|decode|latent|engine|
-                                           # prefill|mla|parity
+                                           # prefill|async|mla|parity
     python3 chip_smoke.py --only decode --src OTHER/src
                                      # K2/K4 of another tree's package
                                      # (--only write: K1; --only latent:
@@ -52,6 +52,28 @@ Phases:
      positions) of 2 x 2048 tokens on the same qwen3-4b weights: K8 must
      launch once per layer, and the last-token logits must agree with the
      same prompts chunked through K1/K3 within ``LOGIT_ATOL``.
+  4b. ``AsyncEngine`` (the async pipeline: one CUDA graph a step shape,
+     sampling on the card, one event-synced host ring) against
+     ``Engine.generate`` in the same call, on the same qwen3-4b weights,
+     settings and requests: 5 runners captured, no miss, K1, K3 and K4
+     launched through replays (once per layer a step of their kind),
+     greedy tokens equal to the sync run's or parted only at a near-tie of
+     its logits (``NEAR_TIE``), tokens/s, TTFT and TPOT beside the sync
+     run's; the async engine also at pipeline depth 1 (the same graphs,
+     no overlap of host and card). Each of the three is served again
+     under ``torch.profiler``: the card's busy time (the union of its
+     kernels, copies and memsets) and idle share of the wall, and the
+     trace's kernels must equal the launches the wrappers counted. One
+     decode and one mixed step replayed against the eager body from the
+     same pool state: logits and pool bytes equal; the decode and the
+     512-token prefill graph's replays traced: kernels by group, the span
+     and the gaps between kernels, each replay's kernels equal to its
+     capture's counts.
+     deepseek-v2-lite-16b at 4 layers (1 dense + 3 MoE) the same way (K6,
+     K7 and the latent write replayed). At 4 layers of qwen3-4b: a step
+     fault closes every stream with ERROR and leaves no page in use, a
+     cancel mid-stream frees its pages, and temperature 0.8 gives tokens
+     inside the vocabulary.
   5. ``Engine.generate`` on deepseek-v2-lite-16b (MLA + MoE) at full width
      and depth, the same requests: K6 and K7 must launch. Then a one-lane
      engine (4 layers: 1 dense-FFN, 3 MoE) on which K5 must launch.
@@ -65,7 +87,9 @@ Phases:
      mis-routes that the check must flag; greedy agreement.
 Each kernel's launch count is read from the path that runs it, the counts
 set to 0 just before that path and read just after; a kernel that never
-launched fails the run. K1's are also split by the shape that runs them
+launched fails the run. Launches through a CUDA graph count once a replay
+(the counts its capture made, ``kernels/cuda.py:capture_launches``); the
+``kernels`` line gives them as ``async_launches``. K1's are also split by the shape that runs them
 (the 4-lane engine's mixed and decode steps, the full-prompt path). The
 line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
@@ -1106,6 +1130,19 @@ ENGINE_KERNELS = {
 }
 
 
+def engine_prompts(cfg):
+    """The engines' 8 requests: 300-700 prompt tokens, the first 4 sharing
+    a 256-token prefix."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, cfg.vocab_size, 256)
+    lens = rng.integers(300, 701, 8)
+    return [np.concatenate([prefix, rng.integers(0, cfg.vocab_size,
+                                                 n - 256)])
+            if i < 4 else rng.integers(0, cfg.vocab_size, n)
+            for i, n in enumerate(lens)]
+
+
 def engine_phase(torch, rec, arch="qwen3-4b", keep_params=False):
     """``Engine.generate`` at full width and depth (8 greedy requests, 4
     lanes), then a one-lane engine at 4 layers. Returns (launches of the
@@ -1120,13 +1157,7 @@ def engine_phase(torch, rec, arch="qwen3-4b", keep_params=False):
     cfg = get_config(arch)
     need4, need1 = ENGINE_KERNELS[arch]
     key = "engine" if arch == "qwen3-4b" else f"engine_{arch}"
-    rng = np.random.default_rng(0)
-    prefix = rng.integers(0, cfg.vocab_size, 256)
-    lens = rng.integers(300, 701, 8)
-    prompts = [np.concatenate([prefix, rng.integers(0, cfg.vocab_size,
-                                                    n - 256)])
-               if i < 4 else rng.integers(0, cfg.vocab_size, n)
-               for i, n in enumerate(lens)]
+    prompts = engine_prompts(cfg)
     t0 = time.perf_counter()
     eng = Engine(cfg, coopt, EngineConfig(num_lanes=4, max_len=1024, seed=0),
                  device=DEV)
@@ -1258,6 +1289,617 @@ def full_prompt_phase(torch, rec, params, arch="qwen3-4b", S=2048,
           "flash_prefill did not launch once per layer")
     check(diff <= LOGIT_ATOL, "full-prompt and chunked logits differ")
     return launches
+
+
+# ------------------------------------------------------- async engine ----
+def _timed(fn, kind_of, steps):
+    """``fn(sb, ...)`` with its host seconds: appends (step kind, host s)
+    to ``steps``."""
+    def timed(sb, *a):
+        t0 = time.perf_counter()
+        out = fn(sb, *a)
+        steps.append((kind_of(sb), time.perf_counter() - t0))
+        return out
+    return timed
+
+
+def _step_kind(sb):
+    return "mixed" if sb.tp and sb.td else "prefill" if sb.tp else "decode"
+
+
+def _host_steps(steps):
+    """By step kind: the steps and the host's ms in the timed call (the
+    sync engine's model call, which launches the step op by op; the async
+    engine's dispatch: build the inputs, copy them, replay)."""
+    out = {}
+    for kind, host in steps:
+        r = out.setdefault(kind, dict(steps=0, host_ms=0.0))
+        r["steps"] += 1
+        r["host_ms"] += host * 1e3
+    return out
+
+
+def _fmt_steps(t):
+    return ", ".join(f"{k} {r['steps']} x {r['host_ms'] / r['steps']:.2f} ms"
+                     for k, r in sorted(t.items()))
+
+
+# kernel-name groups of a step's profile (cuBLAS names its Hopper GEMMs
+# nvjet_*, sm90_xmma_*, or cutlass_*)
+KERNEL_GROUPS = (("K1", ("kv_write",)), ("K3", ("chunk_kernel",)),
+                 ("K2/K4", ("decode_kernel",)),
+                 ("GEMM", ("gemm", "gemv", "nvjet", "xmma", "cutlass")))
+# the CUDA kernel each wrapper launches, by its name in a trace, and the
+# ``LAUNCHES`` keys that count it
+TRACE_KERNELS = (
+    ("kv_write_kernel", ("kv_cache_write",)),
+    ("chunk_kernel", ("flash_chunk_prefill",)),
+    ("decode_kernel", ("paged_pool_decode", "paged_pool_decode_visits")),
+    ("latent_chunk_kernel", ("latent_chunk_prefill",)),
+    ("latent_decode_kernel", ("paged_latent_decode",
+                              "paged_latent_decode_visits")),
+    ("prefill_kernel", ("flash_prefill",)))
+DEVICE_ACTIVITIES = ("kernel", "gpu_memcpy", "gpu_memset")
+TRACE_PAD = 64          # spin kernels on each side of a traced run,
+TRACE_PAD_S = 0.05      # then the host's wait before going on
+
+
+def _device_trace(torch, fn):
+    """Run ``fn()`` under ``torch.profiler`` (the CUDA activity) and
+    return (its wall seconds, the card's activities as (start us, end us,
+    category, name, correlation id) sorted by start): kernels, copies and
+    memsets, those of graph replays included (the kernels of one replay
+    share its launch's correlation id). A trace can leave a few of its
+    first and last activities unrecorded, so ``TRACE_PAD`` spin kernels
+    and a ``TRACE_PAD_S`` wait come before and after ``fn``, outside its
+    wall time; the spins are left out of the result. The trace passes through a file in ``OUT``, removed
+    once read."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def pad():
+        if DEV == "cuda":
+            for _ in range(TRACE_PAD):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(TRACE_PAD_S)
+    acts = [ProfilerActivity.CUDA if DEV == "cuda" else ProfilerActivity.CPU]
+    with profile(activities=acts) as prof:
+        pad()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        pad()
+    path = OUT / "trace.tmp.json"
+    prof.export_chrome_trace(str(path))
+    try:
+        events = json.loads(path.read_text())["traceEvents"]
+    finally:
+        path.unlink()
+    return wall, sorted(
+        (float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+         str(e["cat"]).lower(), e["name"],
+         e.get("args", {}).get("correlation")) for e in events
+        if e.get("ph") == "X" and "spin_kernel" not in e["name"]
+        and str(e.get("cat", "")).lower() in DEVICE_ACTIVITIES)
+
+
+def _busy_us(acts):
+    """The union of the activities' intervals, us: the card's busy time."""
+    busy, end = 0.0, float("-inf")
+    for s, e, *_ in acts:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy
+
+
+def _trace_launches(acts):
+    """The trace's kernels of each ``TRACE_KERNELS`` entry, keyed by its
+    ``LAUNCHES`` keys joined with '+'."""
+    import re
+    out = {}
+    for name, keys in TRACE_KERNELS:
+        pat = re.compile(rf"(?<![A-Za-z_]){name}(?![a-z0-9_])")
+        out["+".join(keys)] = sum(1 for _, _, c, n, _ in acts
+                                  if c == "kernel" and pat.search(n))
+    return out
+
+
+def _counted(launches):
+    """``launches`` (wrapper counts) in ``_trace_launches``'s keys."""
+    return {"+".join(keys): sum(launches.get(k, 0) for k in keys)
+            for _, keys in TRACE_KERNELS}
+
+
+def _card_share(acts, wall, launches, what):
+    """A traced served run: the card's busy ms (the union of its kernels,
+    copies and memsets) and idle share of the run's wall time. The
+    kernels the trace shows must be the launches the wrappers counted."""
+    seen = _trace_launches(acts)
+    if seen != _counted(launches):      # each launch's share, for the record
+        by_launch = {}
+        for a in acts:
+            by_launch.setdefault(a[4], []).append(a)
+        (OUT / "trace_mismatch.json").write_text(json.dumps({what: [
+            (g[0][0] - acts[0][0], len(g), _trace_launches(g))
+            for g in by_launch.values()]}))
+    check(seen == _counted(launches), f"{what}: the trace shows kernels "
+          f"{seen}, the wrappers counted {_counted(launches)}")
+    busy = _busy_us(acts) / 1e3
+    return dict(wall_s=wall, busy_ms=busy, idle_share=1 - busy / (wall * 1e3),
+                kernels=sum(a[2] == "kernel" for a in acts),
+                trace_launches=seen)
+
+
+def _step_profile(torch, eng, runner, reps=10):
+    """Where a replayed step's card time goes: ``reps`` replays of
+    ``runner``'s graph timed with CUDA events, then ``reps`` more under
+    ``_device_trace``, between two more that pad the trace. From the
+    trace, per replay: the graph's kernels by ``KERNEL_GROUPS`` ("other":
+    norms, rope, activations, gathers, copies, sampling) and their device
+    ms, the span from its first kernel's start
+    to its last one's end, and the gaps in that span that no kernel
+    covers (a replay's activities: those of its launch's correlation id).
+    Each replay must run the kernels its capture counted
+    (``runner.launches``). Run on an idle engine: it rewrites the
+    runner's last step."""
+    runner.run()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        runner.run()
+    end.record()
+    end.synchronize()
+    replay = start.elapsed_time(end) / reps
+    _, acts = _device_trace(torch, lambda: [runner.run()
+                                            for _ in range(reps + 2)])
+    by_launch = {}
+    for a in acts:
+        by_launch.setdefault(a[4], []).append(a)
+    # the first and last replays only pad the window
+    per = list(by_launch.values())[1:-1]
+    n = len(per[0]) if per else 0
+    check(len(per) == reps and all(len(p) == n > 0 for p in per),
+          f"the trace of {reps} replays holds {[len(p) for p in per]} "
+          "activities a launch")
+    for p in per:
+        check(_trace_launches(p) == _counted(runner.launches),
+              f"a replay ran kernels {_trace_launches(p)}, its capture "
+              f"counted {_counted(runner.launches)}")
+    groups = {}
+    for s, e, c, name, _ in (a for p in per for a in p):
+        name = name.lower()
+        g = "other" if c == "kernel" else "copies"
+        g = next((g for g, keys in KERNEL_GROUPS
+                  if c == "kernel" and any(k in name for k in keys)), g)
+        r = groups.setdefault(g, dict(kernels=0, ms=0.0))
+        r["kernels"] += 1
+        r["ms"] += (e - s) / 1e3
+    for r in groups.values():           # a replay's share
+        r["kernels"] //= reps
+        r["ms"] /= reps
+    span = sum(max(a[1] for a in p) - p[0][0] for p in per) / reps / 1e3
+    busy = sum(_busy_us(p) for p in per) / reps / 1e3
+    return dict(replay_ms=replay, kernels=n, span_ms=span, busy_ms=busy,
+                gaps_ms=span - busy, groups=groups)
+
+
+def _served(torch, serve, traced):
+    """Run ``serve()``: (wall seconds, None), or with ``traced`` under
+    ``_device_trace``: (wall seconds, the card's activities)."""
+    if traced:
+        return _device_trace(torch, serve)
+    t0 = time.perf_counter()
+    serve()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, None
+
+
+def _sync_recorded(torch, eng, prompts, max_new, steps=None, traced=False):
+    """``Engine.generate`` keeping every emitted token's logits row on the
+    card (no extra host sync); with ``steps``, each step's model call is
+    timed on the host (``_timed``); ``traced``: run under
+    ``_device_trace``. Returns (requests, {request index: [(token, logits
+    row)]}, wall seconds, the run's launches, the trace or None)."""
+    from repro_torch.kernels import cuda
+    sample, emit = eng._sample, eng._emit
+    if steps is not None:
+        eng._run_model = _timed(eng._run_model, _step_kind, steps)
+    rows, last, got = {}, {}, {}
+
+    def keep(logits):
+        last["logits"] = logits.float()
+        return sample(logits)
+
+    def note(req, tok, now, first):
+        rows.setdefault(req.req_id - 1000, []).append(
+            (tok, last["logits"][req.lane]))
+        return emit(req, tok, now, first=first)
+
+    def serve():
+        cuda.reset_launches()
+        got["reqs"] = eng.generate(prompts, max_new_tokens=max_new,
+                                   return_requests=True)
+        torch.cuda.synchronize()
+        got["launches"] = dict(cuda.LAUNCHES)
+    eng._sample, eng._emit = keep, note
+    wall, acts = _served(torch, serve, traced)
+    eng._sample, eng._emit = sample, emit
+    return got["reqs"], rows, wall, got["launches"], acts
+
+
+def _async_run(torch, eng, prompts, max_new, depth=None, steps=None,
+               traced=False):
+    """``AsyncEngine`` at pipeline depth ``depth`` (None: the default)
+    with its runners built, the requests submitted at once; with
+    ``steps``, each step's dispatch is timed on the host (``_timed``);
+    ``traced``: the served run under ``_device_trace``. Returns
+    (frontend, streams, warmup seconds, wall seconds, the launches of the
+    served run: every one a graph replay's, the trace or None)."""
+    from repro_torch.kernels import cuda
+    from repro_torch.serving import AsyncEngine
+    from repro_torch.serving.frontend import PIPELINE_DEPTH
+    t0 = time.perf_counter()
+    fe = AsyncEngine(eng, pipeline_depth=depth or PIPELINE_DEPTH,
+                     warmup=True)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    if steps is not None:
+        eng._dispatch_async = _timed(eng._dispatch_async, _step_kind, steps)
+    got = {}
+
+    def serve():
+        cuda.reset_launches()
+        got["streams"] = [fe.submit(p, max_new_tokens=max_new)
+                          for p in prompts]
+        fe.run_until_idle()
+        torch.cuda.synchronize()
+        got["launches"] = dict(cuda.LAUNCHES)
+    wall, acts = _served(torch, serve, traced)
+    fe.close()
+    return fe, got["streams"], warm_s, wall, got["launches"], acts
+
+
+def _partings(torch, rows, outs, what):
+    """Where each request's async tokens part from the sync run's: allowed
+    only at a near-tie of the sync logits (best two within NEAR_TIE, the
+    async token among them). Returns the partings."""
+    parted = []
+    for i, seq in sorted(rows.items()):
+        mine = outs[i]
+        check(len(mine) == len(seq), f"{what}: request {i} emitted "
+              f"{len(mine)} tokens, the sync run {len(seq)}")
+        for j, (tok, row) in enumerate(seq):
+            if mine[j] == tok:
+                continue
+            top = row.topk(2).values
+            gap = (top[0] - top[1]).item()
+            near = gap <= NEAR_TIE and \
+                row[mine[j]].item() >= top[0].item() - NEAR_TIE
+            parted.append(dict(request=i, token=j, sync=tok, async_=mine[j],
+                               gap=gap))
+            log(f"  {what}: request {i} parts at token {j} (sync {tok}, "
+                f"async {mine[j]}; sync logits' best two {gap:.4f} apart)")
+            check(near, f"{what}: request {i} parts from the sync run at "
+                  f"token {j} without a near-tie")
+            break
+    return parted
+
+
+def _engine_summary(st, wall):
+    steps = st.prefill_calls + st.decode_steps - st.mixed_steps
+    return dict(generated=st.generated_tokens, wall_s=wall,
+                tokens_per_s=st.generated_tokens / wall,
+                ttft_p50_s=st.ttft(50), ttft_p95_s=st.ttft(95),
+                tpot_p50_s=st.tpot(50), tpot_p95_s=st.tpot(95), steps=steps,
+                prefill_calls=st.prefill_calls, decode_steps=st.decode_steps,
+                mixed_steps=st.mixed_steps)
+
+
+def _fmt(r):
+    return (f"{r['tokens_per_s']:.1f} tok/s, TTFT p50/p95 "
+            f"{r['ttft_p50_s'] * 1e3:.1f}/{r['ttft_p95_s'] * 1e3:.1f} ms, "
+            f"TPOT p50/p95 {r['tpot_p50_s'] * 1e3:.2f}/"
+            f"{r['tpot_p95_s'] * 1e3:.2f} ms, {r['steps']} steps")
+
+
+def _replay_vs_eager(torch, eng, sb):
+    """Step ``sb`` eagerly (the runner's body on uploaded inputs) and by its
+    runner's replay, from the same pool and lane-feed state. Returns (max
+    |logit difference|, pool bytes that differ, lane feeds equal, the
+    replay's tokens); the engine is left after the replay's step."""
+    from repro_torch.serving.engine import _host_inputs
+    host = _host_inputs(sb)
+    before = {k: v.clone() for k, v in eng.cache.items()}
+    feed = eng.lane_tok.clone()
+    inp = {k: torch.as_tensor(v, device=eng.device) for k, v in host.items()}
+    logits, _ = eng._async_step(sb.kind, inp)
+    eager = logits.float().clone()
+    eager_pool = {k: v.clone() for k, v in eng.cache.items()}
+    eager_feed = eng.lane_tok.clone()
+    for k, v in before.items():
+        eng.cache[k].copy_(v)
+    eng.lane_tok.copy_(feed)
+    runner = eng._runners[eng._async_key(sb.kind, sb.batch)]
+    check(runner.graph is not None or DEV == "cpu",
+          "a runner without a graph on the card")
+    runner.load(host)
+    logits, toks = runner.run()
+    torch.cuda.synchronize()
+    diff = (logits.float() - eager).abs().max().item()
+    nbytes = sum(int((eng.cache[k].view(torch.uint8)
+                      != v.view(torch.uint8)).sum().item())
+                 for k, v in eager_pool.items())
+    return diff, nbytes, bool(torch.equal(eng.lane_tok, eager_feed)), toks
+
+
+def _runner(eng, kind, S):
+    """The engine's step runner of ``kind`` at ``S`` tokens a lane."""
+    tok = "token" if kind == "decode" else "tokens"
+    return next(r for r in eng._runners.values()
+                if r.kind == kind and r.inputs[tok].shape[1] == S)
+
+
+def _replay_checks(torch, eng, prompts):
+    """Serve ``prompts`` one async step at a time on the calling thread;
+    the first decode-only step and the first mixed step (prefill chunks
+    beside decode lanes) run eagerly and by replay from the same state."""
+    import numpy as np
+    from repro_torch.serving import Request
+    for i, p in enumerate(prompts):      # lanes free at different steps
+        eng.add_request(Request(req_id=i, prompt=np.asarray(p, np.int32),
+                                max_new_tokens=4 + 3 * i,
+                                arrival_time=float(i)))
+    out = {}
+    while eng.scheduler.has_work:
+        plan = eng.scheduler.schedule_step()
+        if plan.empty:
+            continue
+        sb = eng._build_step(plan, device_feed=True)
+        kind = "decode" if not plan.prefill else \
+            "mixed" if plan.decode else "prefill"
+        if kind in ("decode", "mixed") and kind not in out:
+            diff, nbytes, feed, toks = _replay_vs_eager(torch, eng, sb)
+            out[kind] = dict(max_logit_diff=diff, pool_bytes_differ=nbytes,
+                             lane_feed_equal=feed)
+        else:
+            toks = eng._dispatch_async(sb)
+        eng._note_executed(sb)
+        eng._postprocess(sb, toks.cpu().numpy(), time.perf_counter())
+    check(set(out) == {"decode", "mixed"},
+          f"replay against eager saw only {sorted(out)} steps")
+    return out
+
+
+def async_phase(torch, rec, params, arch="qwen3-4b",
+                mla_arch="deepseek-v2-lite-16b"):
+    """``AsyncEngine`` (the async pipeline, one CUDA graph a step shape)
+    against ``Engine.generate`` in the same call: qwen3-4b at full width
+    and depth on ``params`` (the engine phase's settings and requests),
+    async at the default pipeline depth and at depth 1 (the same graphs,
+    host and card taking turns), then each of the three served again
+    under a trace for the card's busy time; one decode and one mixed step
+    replayed against the eager body from the same pool state, and two
+    steps' replays traced; ``mla_arch`` at 4 layers (1 dense + 3 MoE);
+    faults (a step fault, a cancel) and temperature 0.8 at 4 layers of
+    ``arch``. Returns the launches of the two served async runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.coopt import COOPT
+    from repro_torch.serving import (Engine, EngineConfig, FaultInjector,
+                                     FaultPlan, FinishReason, SamplingParams)
+    from repro_torch.serving.faults import FaultInjected
+    from repro_torch.serving.frontend import PIPELINE_DEPTH
+    # the profiler's CUDA tracing starts up before any graph is captured
+    _device_trace(torch, lambda: torch.ones(1, device=DEV).add_(1))
+    coopt = COOPT.replace(use_kernel=True)
+    cfg = get_config(arch)
+    ecfg = EngineConfig(num_lanes=4, max_len=1024, seed=0)
+    prompts = engine_prompts(cfg)
+    L = cfg.num_layers
+    res = {}
+
+    # qwen3-4b, full width and depth: sync, then async at each depth
+    eng = Engine(cfg, coopt, ecfg, params=params, device=DEV)
+    steps = []
+    reqs, rows, wall, _, _ = _sync_recorded(torch, eng, prompts, 32, steps)
+    res["sync"] = _engine_summary(eng.stats, wall)
+    res["sync"]["host_steps"] = _host_steps(steps)
+    check(all(len(r.output) == 32 for r in reqs), "sync run unfinished")
+    log(f"sync ({arch}, {L} layers): {_fmt(res['sync'])}; host ms a step "
+        f"{_fmt_steps(res['sync']['host_steps'])}")
+    del eng, reqs
+    for depth in (PIPELINE_DEPTH, 1):
+        key = "async" if depth == PIPELINE_DEPTH else f"async_depth{depth}"
+        eng = Engine(cfg, coopt, ecfg, params=params, device=DEV)
+        steps = []
+        fe, streams, warm_s, wall, launches, _ = _async_run(
+            torch, eng, prompts, 32, depth, steps)
+        a = res[key] = _engine_summary(eng.stats, wall)
+        a.update(depth=depth, host_steps=_host_steps(steps),
+                 runners=fe.warmed_shapes, warmup_s=warm_s,
+                 graph_pool_gib=eng.graph_pool_bytes / 2**30,
+                 aot_misses=eng.aot_misses, launches=launches,
+                 runner_launches={
+                     r.kind if r.kind == "decode" else
+                     f"prefill {r.inputs['tokens'].shape[1]}": r.launches
+                     for r in eng._runners.values()})
+        outs = {i: list(h.req.output) for i, h in enumerate(streams)}
+        a["parted"] = _partings(torch, rows, outs, f"{arch} {key}")
+        log(f"{key} ({arch}, {L} layers, pipeline depth {depth}): "
+            f"{fe.warmed_shapes} runners captured in {warm_s:.2f} s, graph "
+            f"pool {a['graph_pool_gib']:.3f} GiB, {_fmt(a)}, aot_misses "
+            f"{eng.aot_misses}, launches {launches}; host ms a dispatch "
+            f"{_fmt_steps(a['host_steps'])}")
+        log(f"  greedy tokens: {len(outs) - len(a['parted'])}/{len(outs)} "
+            f"requests equal to the sync run's, {len(a['parted'])} parted "
+            "at a near-tie")
+        check(fe.warmed_shapes == 1 + len(ecfg.prefill_buckets),
+              "not one runner a lattice shape")
+        check(eng.aot_misses == 0, "the async run missed a runner")
+        check(all(h.finish_reason is FinishReason.FINISHED
+                  for h in streams), "async run unfinished")
+        check(all(0 <= t < cfg.vocab_size for o in outs.values()
+                  for t in o), "a token outside the vocabulary")
+        st = eng.stats
+        want = {"kv_cache_write": L * a["steps"],
+                "flash_chunk_prefill": L * st.prefill_calls,
+                "paged_pool_decode_visits": L * (st.decode_steps
+                                                 - st.mixed_steps)}
+        for k, n in want.items():
+            check(launches[k] == n > 0, f"{k}: {launches[k]} launches "
+                  f"through replays, {n} expected")
+        if depth != PIPELINE_DEPTH:
+            del eng, fe
+            continue
+        served = launches
+
+        # replay against eager, one decode and one mixed step
+        res["replay_vs_eager"] = r = _replay_checks(torch, eng, prompts[:6])
+        log(f"replay vs eager ({arch}): " + ", ".join(
+            f"{k} step: max |logit diff| {v['max_logit_diff']}, pool bytes "
+            f"differing {v['pool_bytes_differ']}, lane feed equal "
+            f"{v['lane_feed_equal']}" for k, v in r.items()))
+        for k, v in r.items():
+            check(v["max_logit_diff"] == 0 and v["pool_bytes_differ"] == 0
+                  and v["lane_feed_equal"],
+                  f"the {k} step's replay differs from its eager run")
+        prof = res["step_profile"] = {
+            name: _step_profile(torch, eng, runner)
+            for name, runner in (("decode", _runner(eng, "decode", 1)),
+                                 ("prefill 512",
+                                  _runner(eng, "prefill", 512)))}
+        for name, p in prof.items():
+            log(f"  {name} step: replay {p['replay_ms']:.3f} ms (events); "
+                f"traced: {p['kernels']} kernels over a {p['span_ms']:.3f}"
+                f" ms span, busy {p['busy_ms']:.3f}, gaps "
+                f"{p['gaps_ms']:.3f} ms (" + ", ".join(
+                    f"{g} {v['kernels']:.0f} x -> {v['ms']:.3f} ms"
+                    for g, v in sorted(p["groups"].items())) + ")")
+        del eng, fe
+
+    # the card's busy time in each served run, from a trace of it served
+    # again: the trace's kernels must be the launches counted
+    eng = Engine(cfg, coopt, ecfg, params=params, device=DEV)
+    _, _, wall, launches, acts = _sync_recorded(torch, eng, prompts, 32,
+                                                traced=True)
+    res["sync"]["trace"] = _card_share(acts, wall, launches, "sync")
+    del eng, acts, rows
+    for depth in (PIPELINE_DEPTH, 1):
+        key = "async" if depth == PIPELINE_DEPTH else f"async_depth{depth}"
+        eng = Engine(cfg, coopt, ecfg, params=params, device=DEV)
+        fe, _, _, wall, launches, acts = _async_run(
+            torch, eng, prompts, 32, depth, traced=True)
+        res[key]["trace"] = _card_share(acts, wall, launches, key)
+        del eng, fe, acts
+    for key in ("sync", "async", "async_depth1"):
+        # the trace slows the host, so the busy time is also set against
+        # the wall of the untraced run (derived from two runs)
+        t = res[key]["trace"]
+        t["idle_share_untraced"] = \
+            1 - t["busy_ms"] / (res[key]["wall_s"] * 1e3)
+        log(f"traced {key}: the card busy {t['busy_ms']:.1f} ms of "
+            f"{t['wall_s'] * 1e3:.1f} ms wall (idle {t['idle_share']:.1%}; "
+            f"of the untraced run's {res[key]['wall_s'] * 1e3:.1f} ms: "
+            f"{t['idle_share_untraced']:.1%}), {t['kernels']} kernels; "
+            f"trace launches {t['trace_launches']} = counted")
+    torch.cuda.empty_cache()
+
+    # MLA at 4 layers (1 dense + 3 MoE), full width: K6, K7 and the
+    # latent write replayed
+    mcfg = get_config(mla_arch).replace(num_layers=4)
+    meng = Engine(mcfg, coopt, ecfg, device=DEV)
+    mparams = meng.params
+    mprompts = engine_prompts(mcfg)
+    _, rows, wall, _, _ = _sync_recorded(torch, meng, mprompts, 32)
+    res["mla_sync"] = _engine_summary(meng.stats, wall)
+    del meng
+    meng = Engine(mcfg, coopt, ecfg, params=mparams, device=DEV)
+    fe, streams, warm_s, wall, mlaunches, _ = _async_run(
+        torch, meng, mprompts, 32)
+    m = res["mla_async"] = _engine_summary(meng.stats, wall)
+    m.update(runners=fe.warmed_shapes, warmup_s=warm_s,
+             aot_misses=meng.aot_misses, launches=mlaunches)
+    outs = {i: list(h.req.output) for i, h in enumerate(streams)}
+    m["parted"] = _partings(torch, rows, outs, mla_arch)
+    log(f"async ({mla_arch}, 4 layers): {_fmt(m)}, aot_misses "
+        f"{meng.aot_misses}, launches {mlaunches}; sync "
+        f"{_fmt(res['mla_sync'])}; {len(m['parted'])} of {len(outs)} requests parted at a near-tie")
+    check(meng.aot_misses == 0, "the MLA async run missed a runner")
+    for k in ("latent_chunk_prefill", "paged_latent_decode_visits"):
+        check(mlaunches[k] > 0, f"{k} never replayed on the MLA async run")
+    del meng, fe
+    meng = Engine(mcfg, coopt, ecfg, params=mparams, device=DEV)
+    _, _, _, wall, launches, acts = _async_run(torch, meng, mprompts, 32,
+                                               traced=True)
+    m["trace"] = _card_share(acts, wall, launches, f"{mla_arch} async")
+    log(f"traced {mla_arch} async: the card busy {m['trace']['busy_ms']:.1f}"
+        f" ms of {wall * 1e3:.1f} ms wall; trace launches "
+        f"{m['trace']['trace_launches']} = counted")
+    del meng, mparams, rows, acts
+    torch.cuda.empty_cache()
+
+    # faults and sampling at 4 layers of the dense model
+    cfg4 = cfg.replace(num_layers=4)
+    eng = Engine(cfg4, coopt, ecfg, device=DEV)
+    inj = FaultInjector(FaultPlan(raise_at_step=3)).install(eng)
+    fe, streams, *_ = _async_run(torch, eng, prompts[:4], 16)
+    eng._update_pool_stats()
+    res["fault"] = dict(
+        reasons=[h.finish_reason.value for h in streams],
+        errors=[type(h.error).__name__ for h in streams],
+        audit=eng.scheduler.manager.audit(),
+        pages_in_use=eng.stats.pages_in_use, steps=inj.steps)
+    log(f"faults ({arch}, 4 layers): raise_at_step 3 -> {res['fault']}")
+    check(all(h.finish_reason is FinishReason.ERROR
+              and isinstance(h.error, FaultInjected) for h in streams),
+          "a stream did not close with the injected ERROR")
+    check(res["fault"]["audit"] == [] and eng.stats.pages_in_use == 0,
+          "the step fault leaked pool pages")
+
+    from repro_torch.serving import AsyncEngine
+    eng = Engine(cfg4, coopt, ecfg, params=eng.params, device=DEV)
+    fe = AsyncEngine(eng, warmup=True)
+    victim = fe.submit(prompts[0], max_new_tokens=64)
+    others = [fe.submit(p, max_new_tokens=12) for p in prompts[1:3]]
+    for _ in range(200):
+        fe._loop_once()
+        if victim.req.output:
+            break
+    fe.cancel(victim)
+    fe.run_until_idle()
+    fe.close()
+    eng._update_pool_stats()
+    res["cancel"] = dict(victim=victim.finish_reason.value,
+                         victim_tokens=len(victim.req.output),
+                         others=[h.finish_reason.value for h in others],
+                         audit=eng.scheduler.manager.audit(),
+                         pages_in_use=eng.stats.pages_in_use)
+    log(f"cancel ({arch}, 4 layers): {res['cancel']}")
+    check(victim.finish_reason is FinishReason.CANCELLED
+          and 0 < len(victim.req.output) < 64, "the cancel did not land")
+    check(all(h.finish_reason is FinishReason.FINISHED for h in others),
+          "a request beside the cancelled one did not finish")
+    check(res["cancel"]["audit"] == [] and eng.stats.pages_in_use == 0,
+          "the cancel leaked pool pages")
+
+    teng = Engine(cfg4, coopt, EngineConfig(
+        num_lanes=4, max_len=1024, seed=0,
+        sampling=SamplingParams(temperature=0.8)), params=eng.params,
+        device=DEV)
+    fe, streams, *_ = _async_run(torch, teng, prompts[:4], 8)
+    toks = [t for h in streams for t in h.req.output]
+    res["temperature"] = dict(tokens=len(toks), aot_misses=teng.aot_misses,
+                              first=[list(h.req.output[:4]) for h in streams])
+    log(f"temperature 0.8 ({arch}, 4 layers): {res['temperature']}")
+    check(len(toks) == 32 and all(0 <= t < cfg.vocab_size for t in toks),
+          "sampled tokens missing or outside the vocabulary")
+    check(teng.aot_misses == 0, "the sampled run missed a runner")
+    rec["async"] = res
+    del eng, teng, fe
+    torch.cuda.empty_cache()
+    return served, mlaunches
 
 
 # ------------------------------------------------------- card vs CPU ----
@@ -1468,7 +2110,8 @@ LAUNCH_PATH = {"kv_cache_write": "qwen3-4b", "flash_chunk_prefill": "qwen3-4b",
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("kernels", "write", "decode", "latent",
-                                       "engine", "mla", "prefill", "parity"),
+                                       "engine", "mla", "prefill", "async",
+                                       "parity"),
                     help="run one phase (debugging; prints no result line)")
     ap.add_argument("--src", help="import repro_torch from this directory "
                     "instead of ./src (to time another tree's kernels)")
@@ -1565,6 +2208,15 @@ def main(argv=None) -> int:
             paths["qwen3-4b full prompt"] = full_prompt_phase(torch, rec,
                                                               params)
             done("full prompt", t0)
+        if only in (None, "async"):
+            t0 = time.perf_counter()
+            if params is None:
+                from repro_torch.configs import get_config
+                from repro_torch.models import get_model
+                params = get_model(get_config("qwen3-4b")).init(0, DEV)
+            paths["qwen3-4b async"], paths["deepseek-v2-lite-16b async"] = \
+                async_phase(torch, rec, params)
+            done("async", t0)
         params = None
         torch.cuda.empty_cache()
         if only in (None, "mla"):
@@ -1581,6 +2233,9 @@ def main(argv=None) -> int:
         if only is None:
             for k in kernels:
                 k["launches"] = paths[LAUNCH_PATH[k["name"]]][k["name"]]
+                k["async_launches"] = (
+                    paths["qwen3-4b async"][k["name"]]
+                    + paths["deepseek-v2-lite-16b async"][k["name"]])
                 check(k["launches"] > 0, f"{k['name']} never launched on "
                       f"its path ({LAUNCH_PATH[k['name']]})")
             check(sorted(k["name"] for k in kernels) == sorted(LAUNCH_PATH),
@@ -1606,6 +2261,8 @@ def main(argv=None) -> int:
         return 0
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # every kernel adds its launches through the async phase's graph
+    # replays (qwen3-4b and deepseek-v2-lite-16b at 4 layers);
     # K5, K6 and K7 add their launch's grid (K5/K7: and splits) and their
     # registers and local bytes as the loaded kernels report them; K5 and K7
     # the bound of the pages each reads (``own_bound_ms``) beside the
@@ -1613,7 +2270,7 @@ def main(argv=None) -> int:
     # its host microseconds a call and the mixed shape with L2 left clean
     extra = ("blocks", "splits", "rows_per_block", "lanes_per_block",
              "registers", "local_bytes", "own_bound_ms", "shapes",
-             "launch_floor_ms", "host_us", "clean_l2")
+             "launch_floor_ms", "host_us", "clean_l2", "async_launches")
     print(json.dumps({"kernels": [
         {k: x[k] for k in keys + extra if k in keys or k in x}
         for x in kernels]}))

@@ -9,7 +9,11 @@ of its sources, so an edited source is rebuilt and a stale one never
 loaded. Nothing is built or imported at module import time.
 
 ``LAUNCHES`` counts kernel launches per kernel: each wrapper adds one where
-it launches its kernel, and nowhere else.
+it launches its kernel, and nowhere else. Under CUDA-graph capture nothing
+runs on the card, so ``capture_launches`` takes the counts a capture adds
+back out and hands them to the graph's owner, which adds them once for
+each replay (``add_launches``): ``LAUNCHES`` stays the launches the card
+ran.
 """
 from __future__ import annotations
 
@@ -20,8 +24,9 @@ import shutil
 import subprocess
 import threading
 import time
+from contextlib import contextmanager
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterator
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _HEADERS = ("paged_attention.cuh", "mma_attention.cuh", "latent_mma.cuh")
@@ -80,6 +85,28 @@ def reset_launches() -> None:
 
 def count(name: str) -> None:
     LAUNCHES[name] += 1
+
+
+@contextmanager
+def capture_launches() -> Iterator[Dict[str, int]]:
+    """Around a CUDA-graph capture: yields a dict that, on exit, holds the
+    launches the wrappers counted inside the block (the graph's kernels),
+    which are taken back out of ``LAUNCHES``."""
+    before = dict(LAUNCHES)
+    captured: Dict[str, int] = {}
+    try:
+        yield captured
+    finally:
+        for k, n in before.items():
+            if LAUNCHES[k] != n:
+                captured[k] = LAUNCHES[k] - n
+                LAUNCHES[k] = n
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """One replay of a graph whose capture counted ``counts``."""
+    for k, n in counts.items():
+        LAUNCHES[k] += n
 
 
 def build_dir() -> Path:

@@ -105,16 +105,17 @@ def latent_pool_write(lat_cache, scale_cache, latent, slot_idx, *,
                       opt_kv: bool, lora_rank: int):
     """MLA latent write: dual-scale quantization (``opt_kv``) and a flat-slot
     scatter into the global latent pool, in place. lat_cache (P,ps,R+dr);
-    latent (B,S,R+dr); slot_idx (B,S), slots < 0 dropped (the JAX package
-    wraps them onto the pool's last line, which the BlockManager never
-    allocates). A plain scatter: the JAX package has no kernel here either.
+    latent (B,S,R+dr); slot_idx (B,S). Slots < 0 (the SkipSet) go to the
+    pool's last line, as in the JAX package, and so do slots past the pool
+    (which it drops): the BlockManager never allocates that line, and a
+    scatter of fixed shape needs no host sync, so a CUDA graph can capture
+    it. A plain scatter: the JAX package has no kernel here either.
     Returns (lat_cache, scale_cache)."""
     Pt, ps, W = lat_cache.shape
     flat = lat_cache.view(Pt * ps, W)
     slots = slot_idx.reshape(-1).long()
-    keep = (slots >= 0) & (slots < Pt * ps)
-    slots = slots[keep]
-    new = latent.reshape(-1, W)[keep]
+    slots = torch.where((slots < 0) | (slots >= Pt * ps), Pt * ps - 1, slots)
+    new = latent.reshape(-1, W)
     if opt_kv:
         q, sc = quantize_latent(new, lora_rank)
         flat[slots] = q

@@ -64,6 +64,7 @@ def _smem_bytes(ps, D, kv_bytes, lanes, G, nstage=1):
 
 _SMS: dict = {}
 _COUNTERS: dict = {}
+_RETIRED: list = []              # outgrown counters, kept allocated
 
 
 def plan_fits(lanes, Hq, Hkv, D, ps, opt_kv, opt_gqa) -> bool:
@@ -79,8 +80,10 @@ def _split_buffers(name, q, Hkv, nsel, lanes, ps, opt_kv, opt_gqa):
     the splits' partials or None, the device's int32 arrival counters: one
     a (lane, head) for K2, one a head for K4). The counters start at 0 and
     the kernel's merging block resets each one, so they are kept per device
-    across calls; calls that could run at once on two streams would share
-    them, so the decode runs on one stream, as the engine's does."""
+    across calls (and never freed: a CUDA graph captured over them keeps
+    their address); calls that could run at once on two streams would
+    share them, so the decode runs on one stream, as the engine's does (its
+    graphs replay on one stream too)."""
     B, Hq, D = q.shape
     heads, G = (Hkv, Hq // Hkv) if opt_gqa else (Hq, 1)
     if not plan_fits(lanes, Hq, Hkv, D, ps, opt_kv, opt_gqa):
@@ -92,6 +95,8 @@ def _split_buffers(name, q, Hkv, nsel, lanes, ps, opt_kv, opt_gqa):
     slots, splits = decode_splits(nsel, B * heads, _SMS[dev])
     ctr = _COUNTERS.get(dev)
     if ctr is None or ctr.numel() < B * heads:
+        if ctr is not None:
+            _RETIRED.append(ctr)     # a captured graph may still use it
         ctr = _COUNTERS[dev] = torch.zeros(B * heads, dtype=torch.int32,
                                            device=dev)
     partial = None

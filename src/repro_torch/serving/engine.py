@@ -22,14 +22,23 @@ length 1); a step with only decode lanes takes the one-token decode path.
 Pool exhaustion preempts the youngest running request (greedy-exact resume);
 impossible requests are REJECTED and surfaced.
 
+The async pipeline (``serving/frontend.py``) drives the same step
+construction through ``_dispatch_async``: one step runner per step shape
+of the bucket lattice (``warmup``), holding static input buffers and, on
+CUDA, a CUDA graph captured from ``_async_step``, so that a step is one
+host-to-device copy and one graph replay instead of a launch per op.
+Sampling runs on the device and each sampled token is scattered into the
+persistent per-lane ``lane_tok`` feed, so step N+1 is planned and
+dispatched before step N's tokens reach the host.
+
 Not ported yet (the engine raises ``NotImplementedError``): the host-DRAM
 tier (``CacheConfig.host_pages > 0``), concat-prefill packing
-(``pack_prefill``), a device mesh, recurrent families and the async
-frontend; ``CacheConfig`` itself refuses page-range shards
-(``num_shards != 1``).
+(``pack_prefill``), a device mesh and recurrent families; ``CacheConfig``
+itself refuses page-range shards (``num_shards != 1``).
 """
 from __future__ import annotations
 
+import gc
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -94,8 +103,14 @@ class EngineStats:
     prefix_cache_hits: int = 0      # pages reused, not recomputed
     preemptions: int = 0
     rejected: int = 0
+    # resilience
+    shed: int = 0                   # fast-rejected at submit (overload
+                                    # watermark; AsyncEngine only)
+    deadline_shed: int = 0          # queued requests shed TIMED_OUT
     preemption_limit_rejects: int = 0
-    errors: int = 0                 # requests terminated by a step fault
+    errors: int = 0                 # requests terminated by a pipeline
+                                    # fault (step exception, worker death,
+                                    # stall watchdog)
 
     @property
     def total_time(self) -> float:
@@ -122,6 +137,23 @@ class EngineStats:
     def queue_wait(self, q: float = 50.0) -> float:
         return self._pct(self.queue_wait_s, q)
 
+    def latency_summary(self) -> Dict[str, float]:
+        return {"ttft_p50_s": round(self.ttft(50), 4),
+                "ttft_p95_s": round(self.ttft(95), 4),
+                "tpot_p50_s": round(self.tpot(50), 4),
+                "tpot_p95_s": round(self.tpot(95), 4),
+                "queue_wait_p50_s": round(self.queue_wait(50), 4),
+                "queue_wait_p95_s": round(self.queue_wait(95), 4),
+                "shared_page_visits": float(self.shared_page_visits),
+                "dup_page_streams_saved": float(self.dup_page_streams_saved),
+                "shed": float(self.shed),
+                "deadline_shed": float(self.deadline_shed),
+                "preemption_limit_rejects":
+                    float(self.preemption_limit_rejects),
+                "errors": float(self.errors),
+                "prefix_misses": float(self.prefix_cache_queries
+                                       - self.prefix_cache_hits)}
+
     def prefix_hit_rate(self) -> float:
         return self.prefix_cache_hits / self.prefix_cache_queries \
             if self.prefix_cache_queries else 0.0
@@ -132,16 +164,108 @@ class EngineStats:
 
 @dataclass
 class StepBatch:
-    """One built step: the index tensors plus the host metadata that routes
+    """One built step: the index arrays plus the host metadata that routes
     sampled tokens back to requests (``samples``: request, is-first-token,
-    lane)."""
+    lane). ``batch`` holds tensors on the engine's device for the sync loop
+    and numpy arrays for the async pipeline, which copies them into a step
+    runner's static inputs.
+
+    ``feed``/``scatter_lane`` carry the async token plumbing: column 0 of
+    lane ``i``'s row takes its input token from the device-resident feed
+    ``lane_tok[i]`` (-1) instead of the host value (-2 = keep it), and
+    each sampled token is scattered back into ``lane_tok`` at
+    ``scatter_lane`` (``num_lanes`` = drop)."""
     kind: str                      # "prefill" | "decode"
-    batch: Dict[str, torch.Tensor]
+    batch: Dict[str, object]
     lane_mask: np.ndarray          # (num_lanes,) bool
     plan: StepPlan
     samples: List[Tuple[Request, bool, int]]
     tp: int                        # planned prefill tokens
     td: int                        # planned decode tokens
+    feed: np.ndarray               # (B,) int32 column-0 token source
+    scatter_lane: np.ndarray       # (B,) int32 lane of each sampled token
+
+
+# the per-row planes of an async step beside its batch (``_host_inputs``)
+_PLANES = ("lane_mask", "feed", "scatter_lane")
+
+
+def _host_inputs(sb: StepBatch) -> Dict[str, np.ndarray]:
+    return dict(sb.batch, lane_mask=sb.lane_mask, feed=sb.feed,
+                scatter_lane=sb.scatter_lane)
+
+
+class _StepRunner:
+    """One step shape of the async pipeline (a key of the bucket lattice).
+
+    Its static inputs are int32 views into one device buffer (each view
+    starting on 64 bytes), allocated before any capture, so a step's host
+    arrays reach the device in ONE copy: without blocking from a pinned
+    staging buffer of the ring slot the frontend names (a slot is reused
+    only after the step that last used it was emitted, so a copy from it
+    is never still queued), else a blocking copy. On CUDA the runner holds
+    a ``torch.cuda.CUDAGraph`` captured from ``Engine._async_step`` over
+    those inputs, the persistent pool and ``lane_tok``; ``run`` replays
+    it and adds the kernel launches counted during its capture to
+    ``cuda.LAUNCHES``. On the CPU the same body runs eagerly on the same
+    buffers. ``logits`` and ``toks`` are the step's
+    outputs (on CUDA, the graph's static outputs, rewritten by each
+    replay)."""
+
+    def __init__(self, eng: "Engine", kind: str,
+                 host: Dict[str, np.ndarray]):
+        self.eng, self.kind = eng, kind
+        self._offs: Dict[str, Tuple[int, Tuple[int, ...]]] = {}
+        n = 0
+        for k in sorted(host):
+            self._offs[k] = (n, host[k].shape)
+            n += -(-host[k].size // 16) * 16
+        self._flat = torch.zeros(n, dtype=torch.int32, device=eng.device)
+        self.inputs = {k: self._flat[o:o + int(np.prod(sh))].view(sh)
+                       for k, (o, sh) in self._offs.items()}
+        self._staging: Dict[int, torch.Tensor] = {}
+        self.graph = None
+        self.launches: Dict[str, int] = {}
+        self.logits = self.toks = None
+
+    def load(self, host: Dict[str, np.ndarray],
+             slot: Optional[int] = None) -> None:
+        """Copy a step's host arrays into the static inputs: through ring
+        slot ``slot``'s pinned staging buffer on CUDA, else directly."""
+        if slot is None or self._flat.device.type != "cuda":
+            buf = torch.zeros(self._flat.shape, dtype=torch.int32)
+        else:
+            buf = self._staging.get(slot)
+            if buf is None:
+                buf = self._staging[slot] = torch.zeros(
+                    self._flat.shape, dtype=torch.int32, pin_memory=True)
+        a = buf.numpy()
+        for k, (o, sh) in self._offs.items():
+            a[o:o + int(np.prod(sh))] = host[k].reshape(-1)
+        self._flat.copy_(buf, non_blocking=slot is not None)
+
+    def body(self):
+        return self.eng._async_step(self.kind, self.inputs)
+
+    def capture(self, pool, stream) -> None:
+        """Capture the body into a CUDA graph on ``stream`` (the one its
+        eager warm-up ran on), with the shared memory ``pool``. A capture
+        that fails raises: nothing runs eagerly in place of a replay."""
+        from repro_torch.kernels import cuda
+        g = torch.cuda.CUDAGraph()
+        with cuda.capture_launches() as launches:
+            with torch.cuda.graph(g, pool=pool, stream=stream):
+                self.logits, self.toks = self.body()
+        self.graph, self.launches = g, launches
+
+    def run(self):
+        if self.graph is None:
+            self.logits, self.toks = self.body()
+        else:
+            from repro_torch.kernels import cuda
+            self.graph.replay()
+            cuda.add_launches(self.launches)
+        return self.logits, self.toks
 
 
 class Engine:
@@ -177,31 +301,55 @@ class Engine:
             B, M, coopt.page_size, list(engine_cfg.prefill_buckets),
             token_budget=engine_cfg.token_budget or None,
             max_preemptions=engine_cfg.max_preemptions, cache_cfg=ccfg)
+        # deterministic fault-injection hooks (serving.faults); None in
+        # production, a seeded FaultInjector in the chaos tests
+        self.faults = None
         self.stats = EngineStats()
         self.stats.pool_pages = self.scheduler.manager.num_pages
 
+        # async pipeline state: the device-resident per-lane token feed
+        # (its last entry takes the dropped samples), the step runners by
+        # lattice key and the graphs' shared memory pool
+        self.lane_tok = torch.zeros(B + 1, dtype=torch.int32,
+                                    device=self.device)
+        self._runners: Dict[tuple, _StepRunner] = {}
+        self._graph_pool = None
+        self.graph_pool_bytes = 0             # memory the captures reserved
+        self.aot_misses = 0                   # async steps with no runner
+        self.trace_counts: Dict[str, int] = {}  # runners built per kind
+
     # ---------------------------------------------------------- step bodies --
-    def _run_model(self, sb: StepBatch):
-        """One model call for the whole step; only the batch-major
-        ``length`` leaf is lane-masked (pool writes are slot-disjoint)."""
-        old_len = self.cache["length"].clone()
-        fn = (self.model.prefill if sb.kind == "prefill"
-              else self.model.decode_step)
-        logits, self.cache = fn(self.params, sb.batch, self.cache, self.coopt,
-                                long_window=self.ecfg.long_window)
-        mask = torch.as_tensor(sb.lane_mask, device=self.device)
-        self.cache["length"] = torch.where(mask, self.cache["length"],
-                                           old_len)
+    def _forward(self, kind: str, batch, lane_mask: torch.Tensor):
+        """One model call for the whole step. The pool is updated in place;
+        the batch-major ``length`` leaf is lane-masked and written into the
+        persistent leaf (pool writes are slot-disjoint)."""
+        cache = dict(self.cache)
+        fn = self.model.prefill if kind == "prefill" else \
+            self.model.decode_step
+        logits, cache = fn(self.params, batch, cache, self.coopt,
+                           long_window=self.ecfg.long_window)
+        length = self.cache["length"]
+        length.copy_(torch.where(lane_mask, cache["length"], length))
         return logits
 
-    def _sample(self, logits) -> np.ndarray:
+    def _run_model(self, sb: StepBatch):
+        return self._forward(sb.kind, sb.batch, torch.as_tensor(
+            sb.lane_mask, device=self.device))
+
+    def _sample_device(self, logits) -> torch.Tensor:
         sp = self.ecfg.sampling
         return sample(logits, self.gen, temperature=sp.temperature,
-                      top_k=sp.top_k, top_p=sp.top_p).cpu().numpy()
+                      top_k=sp.top_k, top_p=sp.top_p)
+
+    def _sample(self, logits) -> np.ndarray:
+        return self._sample_device(logits).cpu().numpy()
 
     def _emit(self, req: Request, tok: int, now: float, first: bool) -> bool:
         """Deliver one sampled token; False when it is dropped because the
-        request already terminated or is done."""
+        request already terminated (cancelled, rejected, shed, errored) or
+        is done (the async pipeline's <= 1-step EOS overrun)."""
+        if req.inflight > 0:
+            req.inflight -= 1
         if req.is_terminal or req.done():
             return False
         req.output.append(tok)
@@ -217,9 +365,20 @@ class Engine:
     def _finish_done(self, reqs: List[Request]) -> None:
         now = time.perf_counter()
         for r in reqs:
-            if not r.done() or r.state is not RequestState.RUNNING:
+            if not r.done():
                 continue
-            self.scheduler.finish(r)
+            if r.state is RequestState.PREEMPTED:
+                # async pipeline edge: preempted while its LAST tokens were
+                # still in flight; their emission just completed it, so it
+                # must never re-admit. Its pages were already freed.
+                if r in self.scheduler.waiting:
+                    self.scheduler.waiting.remove(r)
+                r.state = RequestState.FINISHED
+                r.finish(FinishReason.FINISHED)
+            elif r.state is RequestState.RUNNING:
+                self.scheduler.finish(r)
+            else:
+                continue
             r.finish_time = now
             t0 = self._anchor(r)
             if r.prefill_time >= 0 and t0 >= 0:
@@ -242,6 +401,7 @@ class Engine:
         s.prefix_cache_hits = mgr.prefix_hits
         s.preemptions = self.scheduler.preemptions
         s.rejected = len(self.scheduler.rejected)
+        s.deadline_shed = self.scheduler.deadline_shed
         s.preemption_limit_rejects = self.scheduler.preemption_limit_rejects
 
     def _note_sharing(self, rows: np.ndarray) -> None:
@@ -255,8 +415,17 @@ class Engine:
             hist[k] = hist.get(k, 0) + n
 
     # --------------------------------------------------- the ONE step path --
-    def _build_step(self, plan: StepPlan) -> StepBatch:
-        """The whole step's static-shape index tensors from the plan."""
+    def _build_step(self, plan: StepPlan,
+                    device_feed: bool = False) -> StepBatch:
+        """The whole step's static-shape index arrays from the plan: ONE
+        construction path for the sync loop and the async pipeline. The
+        sync loop gets them as tensors on the engine's device. With
+        ``device_feed`` (the async pipeline) they stay numpy arrays, and
+        decode rows take their input token from the device-resident lane
+        feed (-1) instead of a host value, so the plan can be built before
+        the previous step's tokens reach the host; a decode-only step then
+        carries its per-lane metadata as ONE (3, B) ``dmeta`` array
+        (positions, slots, cache lengths)."""
         B = self.ecfg.num_lanes
         NP = self.scheduler.pages_per_lane
         mgr = self.scheduler.manager
@@ -271,6 +440,8 @@ class Engine:
         positions = np.zeros((B, S), np.int32)
         slot_idx = np.full((B, S), -1, np.int32)      # Eq. 5 SkipSet: pads
         last_pos = np.zeros(B, np.int32)
+        feed = np.full(B, -2, np.int32)
+        scatter_lane = np.full(B, B, np.int32)        # B = drop
         samples: List[Tuple[Request, bool, int]] = []
 
         for c in plan.prefill:
@@ -286,6 +457,7 @@ class Engine:
             lane_mask[lane] = True
             if c.final:
                 samples.append((c.req, True, lane))
+                scatter_lane[lane] = lane
         for d in plan.decode:                          # a chunk of length 1
             lane = d.req.lane
             tokens[lane, 0] = d.req.output[-1] if d.req.output else 0
@@ -296,34 +468,47 @@ class Engine:
             last_pos[lane] = 0
             lane_mask[lane] = True
             samples.append((d.req, False, lane))
+            scatter_lane[lane] = lane
+            if device_feed:
+                feed[lane] = -1        # device lane feed, never host-sync
         if len(plan.decode) > 1:
             self._note_sharing(page_table[[d.req.lane for d in plan.decode]])
 
-        dev = self.device
-        batch = {"positions": torch.as_tensor(positions, device=dev),
-                 "slot_idx": torch.as_tensor(slot_idx, device=dev),
-                 "page_table": torch.as_tensor(page_table, device=dev),
-                 "cache_len": torch.as_tensor(cache_len, device=dev)}
-        if plan.prefill:
-            batch.update(tokens=torch.as_tensor(tokens, device=dev),
-                         last_pos=torch.as_tensor(last_pos, device=dev))
-            kind = "prefill"
+        kind = "prefill" if plan.prefill else "decode"
+        if device_feed and kind == "decode":
+            batch = {"dmeta": np.stack([positions[:, 0], slot_idx[:, 0],
+                                        cache_len]),
+                     "page_table": page_table,
+                     "token": np.zeros_like(tokens)}
         else:
-            batch["token"] = torch.as_tensor(tokens, device=dev)
-            kind = "decode"
+            batch = {"positions": positions, "slot_idx": slot_idx,
+                     "page_table": page_table, "cache_len": cache_len}
+            if kind == "prefill":
+                batch.update(tokens=tokens, last_pos=last_pos)
+            else:
+                batch["token"] = tokens
+            if not device_feed:
+                batch = {k: torch.as_tensor(v, device=self.device)
+                         for k, v in batch.items()}
         return StepBatch(kind=kind, batch=batch, lane_mask=lane_mask,
                          plan=plan, samples=samples,
                          tp=sum(c.n for c in plan.prefill),
-                         td=len(plan.decode))
+                         td=len(plan.decode), feed=feed,
+                         scatter_lane=scatter_lane)
 
     def _execute(self, sb: StepBatch):
         """Run the step and wait for it; book its wall time by planned token
         share (a prefill-heavy mixed step must not count as decode time)."""
+        if self.faults is not None:
+            self.faults.before_execute(sb)
         t0 = time.perf_counter()
         logits = self._run_model(sb)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        dt = time.perf_counter() - t0
+        self._book_time(sb, time.perf_counter() - t0)
+        return logits
+
+    def _book_time(self, sb: StepBatch, dt: float) -> None:
         share = dt / max(sb.tp + sb.td, 1)
         if sb.tp:
             self.stats.prefill_time += share * sb.tp
@@ -333,7 +518,21 @@ class Engine:
             self.stats.decode_steps += 1
         if sb.tp and sb.td:
             self.stats.mixed_steps += 1
-        return logits
+
+    def _note_executed(self, sb: StepBatch) -> None:
+        """Host metadata updates that must land before the NEXT plan is
+        built and do not depend on sampled token values: advance prefill
+        progress and register prefix pages."""
+        for c in sb.plan.prefill:
+            self.scheduler.note_prefilled(c.req, c.n)
+
+    def _postprocess(self, sb: StepBatch, toks: np.ndarray,
+                     now: float) -> None:
+        """Route host-visible sampled tokens back to their requests and
+        retire the finished ones."""
+        for req, first, lane in sb.samples:
+            self._emit(req, int(toks[lane]), now, first=first)
+        self._finish_done([req for req, _, _ in sb.samples])
 
     def _run_mixed(self, plan: StepPlan) -> None:
         """One model call for the whole step: prefill chunks + decode tokens
@@ -342,12 +541,160 @@ class Engine:
         sb = self._build_step(plan)
         logits = self._execute(sb)
         toks = self._sample(logits)
-        for c in sb.plan.prefill:
-            self.scheduler.note_prefilled(c.req, c.n)
-        now = time.perf_counter()
-        for req, first, lane in sb.samples:
-            self._emit(req, int(toks[lane]), now, first=first)
-        self._finish_done([req for req, _, _ in sb.samples])
+        self._note_executed(sb)
+        self._postprocess(sb, toks, time.perf_counter())
+
+    # ------------------------------------------------- async step dispatch --
+    def _async_step(self, kind: str, inp: Dict[str, torch.Tensor]):
+        """One async-pipeline step over device tensors ``inp`` (the batch
+        and ``_PLANES``): substitute column 0 from ``lane_tok`` where the
+        feed says so, run the model, lane-mask ``length``, and for greedy
+        sampling take the argmax and scatter it into ``lane_tok``. Row i
+        is lane i (no packed rows), so its feed is ``lane_tok[i]``. Returns
+        (logits, tokens); tokens is None at temperature > 0, where
+        ``_dispatch_async`` samples after the step with the engine's
+        generator, on the same stream. Captured into the step runners'
+        graphs, so everything here stays on the device."""
+        batch = {k: v for k, v in inp.items() if k not in _PLANES}
+        if "dmeta" in batch:
+            dm = batch.pop("dmeta")
+            batch["positions"] = dm[0][:, None]
+            batch["slot_idx"] = dm[1][:, None]
+            batch["cache_len"] = dm[2]
+        tok_key = "token" if kind == "decode" else "tokens"
+        toks_in, feed = batch[tok_key], inp["feed"]
+        t0 = torch.where(feed == -1, self.lane_tok[:-1], toks_in[:, 0])
+        batch[tok_key] = torch.cat([t0[:, None], toks_in[:, 1:]], dim=1)
+        logits = self._forward(kind, batch, inp["lane_mask"] != 0)
+        if not self.ecfg.sampling.greedy:
+            return logits, None
+        toks = sample(logits)
+        self.lane_tok.index_copy_(0, inp["scatter_lane"].long(), toks)
+        return logits, toks
+
+    @staticmethod
+    def _async_key(kind: str, batch: Dict[str, np.ndarray]) -> tuple:
+        """Step-runner key: the kind and every batch array's (name, shape,
+        dtype); params and cache shapes are fixed per engine."""
+        return (kind,) + tuple(sorted(
+            (k, tuple(v.shape), v.dtype.str) for k, v in batch.items()))
+
+    def _dispatch_async(self, sb: StepBatch,
+                        slot: Optional[int] = None) -> torch.Tensor:
+        """Dispatch one pipeline step WITHOUT waiting for it: the runner
+        built for its key (a graph replay on CUDA); a key with no runner
+        runs the body eagerly and counts an ``aot_misses``. ``slot`` names
+        the ring slot whose pinned staging buffer the runner's inputs are
+        copied from without blocking; only a caller that tracks the slot's
+        event may pass it (the frontend). With None the copy blocks.
+        Returns the sampled tokens (B,) int32 on the device."""
+        if self.faults is not None:
+            self.faults.before_execute(sb)
+        host = _host_inputs(sb)
+        runner = self._runners.get(self._async_key(sb.kind, sb.batch))
+        if runner is not None:
+            runner.load(host, slot)
+            logits, toks = runner.run()
+            inp = runner.inputs
+        else:
+            self.aot_misses += 1
+            inp = {k: torch.as_tensor(v, device=self.device)
+                   for k, v in host.items()}
+            logits, toks = self._async_step(sb.kind, inp)
+        if toks is None:
+            toks = self._sample_device(logits)
+            self.lane_tok.index_copy_(0, inp["scatter_lane"].long(), toks)
+        self._book_time(sb, 0.0)      # step counters; async wall time is
+        return toks                   # booked end to end by the caller
+
+    # ------------------------------------------------ step-runner warmup --
+    def _dummy_batch(self, kind: str, R: int, S: int) -> Dict[str, np.ndarray]:
+        """A shape-exact stand-in for one async step's batch that touches
+        no live state: every slot and page is -1, so the write kernel
+        stores nothing and no page is read."""
+        NP = self.scheduler.pages_per_lane
+        table = np.full((R, NP), -1, np.int32)
+        if kind == "decode":                 # the fused-dmeta schema
+            dmeta = np.zeros((3, R), np.int32)
+            dmeta[1] = -1
+            return {"dmeta": dmeta, "page_table": table,
+                    "token": np.zeros((R, S), np.int32)}
+        return {"positions": np.zeros((R, S), np.int32),
+                "slot_idx": np.full((R, S), -1, np.int32),
+                "page_table": table, "cache_len": np.zeros(R, np.int32),
+                "tokens": np.zeros((R, S), np.int32),
+                "last_pos": np.zeros(R, np.int32)}
+
+    def _warmup_lattice(self) -> List[Tuple[str, Dict[str, np.ndarray]]]:
+        """Every step shape the async pipeline can dispatch: one decode
+        shape and one prefill shape per bucket."""
+        B = self.ecfg.num_lanes
+        lattice = [("decode", self._dummy_batch("decode", B, 1))]
+        for S in self.scheduler.prefill_buckets:
+            lattice.append(("prefill", self._dummy_batch("prefill", B, S)))
+        return lattice
+
+    def warmup(self) -> int:
+        """Build one step runner for every shape of the bucket lattice, so
+        steady-state serving never misses. Each shape first runs eagerly
+        once (on CUDA on a side stream), which sets up every lazy state
+        outside a capture: the kernel libraries, CUDA's lazily loaded
+        modules, cuBLAS handles and workspaces, the decode kernels'
+        counters. On CUDA each runner then captures its graph; all share
+        one memory pool, since replays are serialized on one stream.
+        Returns the number of runners built. The eager runs write the
+        lanes' ``length`` leaf, so the engine must have no work."""
+        if self.scheduler.has_work:
+            raise RuntimeError("warmup() needs an engine with no work: its "
+                               "dummy steps write the lanes' lengths")
+        B = self.ecfg.num_lanes
+        new = []
+        for kind, batch in self._warmup_lattice():
+            key = self._async_key(kind, batch)
+            if key in self._runners:
+                continue
+            host = dict(batch, lane_mask=np.ones(B, bool),
+                        feed=np.full(B, -2, np.int32),
+                        scatter_lane=np.full(B, B, np.int32))
+            runner = _StepRunner(self, kind, host)
+            runner.load(host)
+            new.append((key, runner))
+        if self.device.type != "cuda":
+            for _, runner in new:
+                runner.run()
+        else:
+            main = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                for _, runner in new:
+                    runner.body()
+            main.wait_stream(side)
+            torch.cuda.synchronize(self.device)
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            # a graph or event that dies during a capture (an unreachable
+            # engine's, freed by the cycle collector) invalidates it: free
+            # them first and keep the collector off while capturing
+            gc.collect()
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(self.device)
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                for _, runner in new:
+                    runner.capture(self._graph_pool, side)
+            finally:
+                if collecting:
+                    gc.enable()
+            self.graph_pool_bytes += \
+                torch.cuda.memory_reserved(self.device) - reserved
+        # only runners whose graphs were all captured serve steps
+        for key, runner in new:
+            self._runners[key] = runner
+            self.trace_counts[runner.kind] = \
+                self.trace_counts.get(runner.kind, 0) + 1
+        return len(new)
 
     # ---------------------------------------------------------------- API --
     def add_request(self, req: Request) -> None:

@@ -713,3 +713,221 @@ def test_flash_prefill_kernel(dev, S, T, Hq, Hkv, D, window, q_offset):
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16
     _assert_close(got, plain)
+
+
+# ------------------------------------------- step runners (CUDA graphs) --
+def _graph_engine(dev, temperature=0.0, arch="qwen3-4b-reduced"):
+    from repro_torch.configs import get_config
+    from repro_torch.core.coopt import COOPT
+    from repro_torch.serving import Engine, EngineConfig, SamplingParams
+    return Engine(get_config(arch), COOPT.replace(use_kernel=True),
+                  EngineConfig(num_lanes=4, max_len=256,
+                               prefill_buckets=(32, 64, 128),
+                               sampling=SamplingParams(
+                                   temperature=temperature)),
+                  device=dev)
+
+
+def _graph_prompts(n, seed=0, lo=40, hi=200):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 512, int(rng.integers(lo, hi)), dtype=np.int32)
+            for _ in range(n)]
+
+
+def _replay_against_eager(eng, sb):
+    """Run step ``sb`` eagerly (the body on uploaded inputs) and through
+    its runner, from the same pool and feed state. Returns (logits, pool
+    and feed after the step) of both; the engine is left after the
+    runner's step."""
+    from repro_torch.serving.engine import _host_inputs
+    host = _host_inputs(sb)
+    before = {k: v.clone() for k, v in eng.cache.items()}
+    feed = eng.lane_tok.clone()
+    inp = {k: torch.as_tensor(v, device=eng.device) for k, v in host.items()}
+    logits, _ = eng._async_step(sb.kind, inp)
+    eager = (logits.clone(), {k: v.clone() for k, v in eng.cache.items()},
+             eng.lane_tok.clone())
+    for k, v in before.items():
+        eng.cache[k].copy_(v)
+    eng.lane_tok.copy_(feed)
+    runner = eng._runners[eng._async_key(sb.kind, sb.batch)]
+    assert runner.graph is not None
+    runner.load(host)
+    logits, _ = runner.run()
+    torch.cuda.synchronize()
+    return eager, (logits.clone(), eng.cache, eng.lane_tok)
+
+
+@pytest.mark.parametrize("kind", ["decode", "mixed"])
+def test_replay_matches_eager_step(dev, kind):
+    """A captured decode runner and a captured prefill runner (a mixed step
+    of prefill chunks and decode lanes) replayed against the eager body
+    from the same pool state: logits, pool bytes and the lane feed
+    bit-equal."""
+    import time
+    from repro_torch.serving import Request
+    eng = _graph_engine(dev)
+    assert eng.warmup() == 4
+    for i, p in enumerate(_graph_prompts(6)):
+        eng.add_request(Request(req_id=i, prompt=p, max_new_tokens=8,
+                                arrival_time=float(i)))
+    for _ in range(200):
+        plan = eng.scheduler.schedule_step()
+        assert not plan.empty, f"no {kind} step before the run ended"
+        sb = eng._build_step(plan, device_feed=True)
+        this = "decode" if not plan.prefill else \
+            "mixed" if plan.decode else "prefill"
+        if this == kind:
+            (le, pe, fe), (lr, pr, fr) = _replay_against_eager(eng, sb)
+            assert torch.equal(le, lr)
+            for k in pe:
+                assert torch.equal(pe[k].view(torch.uint8),
+                                   pr[k].view(torch.uint8)), k
+            assert torch.equal(fe, fr)
+            return
+        toks = eng._dispatch_async(sb)
+        eng._note_executed(sb)
+        eng._postprocess(sb, toks.cpu().numpy(), time.perf_counter())
+    raise AssertionError(f"no {kind} step in 200")
+
+
+def test_async_engine_counts_launches_through_replays(dev):
+    """Every step replays a graph, and each replay adds the launches its
+    capture counted: K1 once per layer a step, K3 once per layer a
+    prefill or mixed step, K4 once per layer a decode step; the greedy
+    tokens equal the sync engine's."""
+    from repro_torch.serving import AsyncEngine
+    prompts = _graph_prompts(6, seed=1)
+    want = _graph_engine(dev).generate(prompts, max_new_tokens=8)
+    eng = _graph_engine(dev)
+    fe = AsyncEngine(eng, warmup=True)
+    assert fe.warmed_shapes == 4
+    for r in eng._runners.values():
+        L = eng.cfg.num_layers
+        assert r.launches == ({"kv_cache_write": L,
+                               "paged_pool_decode_visits": L}
+                              if r.kind == "decode" else
+                              {"kv_cache_write": L,
+                               "flash_chunk_prefill": L})
+    cuda.reset_launches()
+    hs = [fe.submit(p, max_new_tokens=8) for p in prompts]
+    fe.run_until_idle()
+    fe.close()
+    torch.cuda.synchronize()
+    st, L = eng.stats, eng.cfg.num_layers
+    steps = st.prefill_calls + st.decode_steps - st.mixed_steps
+    assert eng.aot_misses == 0
+    assert cuda.LAUNCHES["kv_cache_write"] == L * steps
+    assert cuda.LAUNCHES["flash_chunk_prefill"] == L * st.prefill_calls
+    assert cuda.LAUNCHES["paged_pool_decode_visits"] == \
+        L * (st.decode_steps - st.mixed_steps)
+    assert [list(h.req.output) for h in hs] == [list(w) for w in want]
+
+
+def test_async_engine_samples_at_temperature(dev):
+    """Temperature 0.8: the graph ends at the logits, sampling runs after
+    the replay on the same stream; tokens inside the vocabulary."""
+    from repro_torch.serving import AsyncEngine
+    eng = _graph_engine(dev, temperature=0.8)
+    fe = AsyncEngine(eng, warmup=True)
+    hs = [fe.submit(p, max_new_tokens=6) for p in _graph_prompts(3)]
+    fe.run_until_idle()
+    fe.close()
+    assert eng.aot_misses == 0
+    for h in hs:
+        assert len(h.req.output) == 6
+        assert all(0 <= t < eng.cfg.vocab_size for t in h.req.output)
+
+
+@pytest.mark.parametrize("opt_kv", [True, False])
+def test_latent_pool_write_under_capture(dev, opt_kv):
+    """The latent write captured in a graph and replayed equals it run
+    eagerly, bytes and scales, apart from the sentinel line."""
+    R, dr, P, ps, B, S = 512, 64, 8, 16, 2, 40
+    g = torch.Generator(device=dev).manual_seed(3)
+    lat = torch.randn((B, S, R + dr), generator=g, device=dev).bfloat16()
+    slots = torch.randperm(P * ps - 1, generator=g, device=dev)[:B * S]
+    slots = slots.reshape(B, S).to(torch.int32)
+    slots[:, ::5] = -1
+    dt = torch.float8_e4m3fn if opt_kv else torch.bfloat16
+
+    def pools():
+        return (torch.zeros((P, ps, R + dr), dtype=dt, device=dev),
+                torch.zeros((P, ps, 2), device=dev) if opt_kv else None)
+
+    eager, esc = pools()
+    ops.latent_pool_write(eager, esc, lat, slots, opt_kv=opt_kv, lora_rank=R)
+    pool, sc = pools()
+    s_lat, s_slots = lat.clone(), slots.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # warm up outside the capture
+        ops.latent_pool_write(pool, sc, s_lat, s_slots, opt_kv=opt_kv,
+                              lora_rank=R)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ops.latent_pool_write(pool, sc, s_lat, s_slots, opt_kv=opt_kv,
+                              lora_rank=R)
+    pool.zero_()
+    if opt_kv:
+        sc.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    n = P * ps - 1
+    assert torch.equal(pool.view(torch.uint8).reshape(P * ps, -1)[:n],
+                       eager.view(torch.uint8).reshape(P * ps, -1)[:n])
+    if opt_kv:
+        assert torch.equal(sc.reshape(-1, 2)[:n], esc.reshape(-1, 2)[:n])
+
+
+def test_warmup_outlives_the_graphs_of_dead_engines(dev):
+    """A graph destroyed during a capture invalidates it, and an engine's
+    graphs die with the engine <-> runner cycle, when the cycle collector
+    runs. An engine that becomes garbage in the middle of another
+    engine's capture, with the collector set to run at once, must not be
+    collected there: the capture succeeds and the engine serves."""
+    import gc
+    from repro_torch.serving import AsyncEngine
+    first = _graph_engine(dev)
+    AsyncEngine(first, warmup=True).close()
+    holder = [first]
+    del first
+    eng = _graph_engine(dev)
+    forward = eng._forward
+
+    def dropping(kind, batch, lane_mask):
+        if holder and torch.cuda.is_current_stream_capturing():
+            holder.clear()               # garbage now, inside the capture
+            gc.set_threshold(1, 1, 1)
+        return forward(kind, batch, lane_mask)
+    eng._forward = dropping
+    thresholds = gc.get_threshold()
+    try:
+        fe = AsyncEngine(eng, warmup=True)
+    finally:
+        gc.set_threshold(*thresholds)
+    assert not holder
+    h = fe.submit(_graph_prompts(1)[0], max_new_tokens=4)
+    fe.run_until_idle()
+    fe.close()
+    assert fe.warmed_shapes == 4 and len(h.req.output) == 4
+
+
+def test_failed_capture_raises_and_registers_no_runner(dev, monkeypatch):
+    """A step body that syncs the host cannot be captured: ``warmup``
+    raises, registers no runner, and a later step is a counted miss, never
+    a quiet eager run in a runner's place."""
+    eng = _graph_engine(dev)
+    forward = eng._forward
+
+    def syncing(kind, batch, lane_mask):
+        logits = forward(kind, batch, lane_mask)
+        float(logits.float().sum().item())          # a host sync
+        return logits
+    monkeypatch.setattr(eng, "_forward", syncing)
+    with pytest.raises(RuntimeError):
+        eng.warmup()
+    assert eng._runners == {} and eng.trace_counts == {}
+    torch.cuda.synchronize()
