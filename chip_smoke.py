@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --only kernels   # or write|decode|latent|engine|
-                                           # prefill|async|mla|parity
+                                           # prefill|async|mla|packed|parity
     python3 chip_smoke.py --only decode --src OTHER/src
                                      # K2/K4 of another tree's package
                                      # (--only write: K1; --only latent:
@@ -70,13 +70,35 @@ Phases:
      and the gaps between kernels, each replay's kernels equal to its
      capture's counts.
      deepseek-v2-lite-16b at 4 layers (1 dense + 3 MoE) the same way (K6,
-     K7 and the latent write replayed). At 4 layers of qwen3-4b: a step
+     K7 and the latent write replayed; its tokens held like for like, as
+     in 5b). At 4 layers of qwen3-4b: a step
      fault closes every stream with ERROR and leaves no page in use, a
      cancel mid-stream frees its pages, and temperature 0.8 gives tokens
      inside the vocabulary.
   5. ``Engine.generate`` on deepseek-v2-lite-16b (MLA + MoE) at full width
      and depth, the same requests: K6 and K7 must launch. Then a one-lane
      engine (4 layers: 1 dense-FFN, 3 MoE) on which K5 must launch.
+  5b. Concat-prefill packing (``EngineConfig.pack_prefill``): qwen2.5-14b
+     at full width and depth (48 layers, G 5, qkv bias) on one set of
+     weights: ``Engine.generate`` unpacked and packed, and
+     ``AsyncEngine(warmup=True)`` packed (17 runners: decode, 4 prefill
+     buckets, 3 row buckets x 4 buckets packed), 12 requests of 40-240
+     prompt tokens (``packed_prompts``), 32 new tokens each; packed steps
+     and rows saved > 0, K3 launched once a layer in every packed step
+     (and through replays), packed tokens equal the unpacked run's and
+     async the sync packed run's, or parted at a near-tie; one packed step
+     whose row holds several prompts replayed against its eager body (0
+     logit difference, 0 pool bytes). llama13b-gptq (the paper's model,
+     MHA) at full width and depth, sync unpacked and packed, 16 tokens;
+     yi-34b (G 7) and deepseek-67b (G 8) at full width and 4 layers, sync
+     packed (K3 on packed rows, K4 on decode steps). For each of the four,
+     K3 and K4 are held to their plain versions on the inputs of one of
+     its packed and decode steps (G 5, 1, 7, 8), beside controls that must
+     fail. deepseek-v2-lite-16b at 4 layers, sync and async packed: K6 on
+     packed rows, by replays. A MoE model's async tokens are held to the
+     async run's own steps replayed eagerly (its chunk and row layout:
+     expert capacity is per row), and where a request's layout equals the
+     sync run's, to the sync run too, each at a near-tie at most.
   6. qwen3-4b-reduced and deepseek-v2-lite-16b-reduced with the same
      weights on the card (kernels) and on the CPU (plain versions): the
      first step's logits, and each request's logits until its stream
@@ -89,7 +111,8 @@ Each kernel's launch count is read from the path that runs it, the counts
 set to 0 just before that path and read just after; a kernel that never
 launched fails the run. Launches through a CUDA graph count once a replay
 (the counts its capture made, ``kernels/cuda.py:capture_launches``); the
-``kernels`` line gives them as ``async_launches``. K1's are also split by the shape that runs them
+``kernels`` line gives them as ``async_launches``, and the packed phase's
+packed runs' as ``packed_launches``. K1's are also split by the shape that runs them
 (the 4-lane engine's mixed and decode steps, the full-prompt path). The
 line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
@@ -1432,6 +1455,21 @@ def _card_share(acts, wall, launches, what):
                 trace_launches=seen)
 
 
+def _replay_ms(torch, runner, reps=10):
+    """A graph replay's card time: ``reps`` replays of ``runner`` back to
+    back between two CUDA events, after one more. Run on an idle engine:
+    it rewrites the runner's last step."""
+    runner.run()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        runner.run()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def _step_profile(torch, eng, runner, reps=10):
     """Where a replayed step's card time goes: ``reps`` replays of
     ``runner``'s graph timed with CUDA events, then ``reps`` more under
@@ -1444,15 +1482,7 @@ def _step_profile(torch, eng, runner, reps=10):
     Each replay must run the kernels its capture counted
     (``runner.launches``). Run on an idle engine: it rewrites the
     runner's last step."""
-    runner.run()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        runner.run()
-    end.record()
-    end.synchronize()
-    replay = start.elapsed_time(end) / reps
+    replay = _replay_ms(torch, runner, reps)
     _, acts = _device_trace(torch, lambda: [runner.run()
                                             for _ in range(reps + 2)])
     by_launch = {}
@@ -1504,7 +1534,7 @@ def _sync_recorded(torch, eng, prompts, max_new, steps=None, traced=False):
     ``_device_trace``. Returns (requests, {request index: [(token, logits
     row)]}, wall seconds, the run's launches, the trace or None)."""
     from repro_torch.kernels import cuda
-    sample, emit = eng._sample, eng._emit
+    sample, post = eng._sample, eng._postprocess
     if steps is not None:
         eng._run_model = _timed(eng._run_model, _step_kind, steps)
     rows, last, got = {}, {}, {}
@@ -1513,10 +1543,12 @@ def _sync_recorded(torch, eng, prompts, max_new, steps=None, traced=False):
         last["logits"] = logits.float()
         return sample(logits)
 
-    def note(req, tok, now, first):
-        rows.setdefault(req.req_id - 1000, []).append(
-            (tok, last["logits"][req.lane]))
-        return emit(req, tok, now, first=first)
+    def note(sb, toks, now):
+        # a sample's index: (lane,), or (row, slot) in a packed step
+        for req, _, idx in sb.samples:
+            rows.setdefault(req.req_id - 1000, []).append(
+                (int(toks[idx]), last["logits"][idx]))
+        return post(sb, toks, now)
 
     def serve():
         cuda.reset_launches()
@@ -1524,17 +1556,18 @@ def _sync_recorded(torch, eng, prompts, max_new, steps=None, traced=False):
                                    return_requests=True)
         torch.cuda.synchronize()
         got["launches"] = dict(cuda.LAUNCHES)
-    eng._sample, eng._emit = keep, note
+    eng._sample, eng._postprocess = keep, note
     wall, acts = _served(torch, serve, traced)
-    eng._sample, eng._emit = sample, emit
+    eng._sample, eng._postprocess = sample, post
     return got["reqs"], rows, wall, got["launches"], acts
 
 
 def _async_run(torch, eng, prompts, max_new, depth=None, steps=None,
-               traced=False):
+               traced=False, kind_of=None):
     """``AsyncEngine`` at pipeline depth ``depth`` (None: the default)
     with its runners built, the requests submitted at once; with
-    ``steps``, each step's dispatch is timed on the host (``_timed``);
+    ``steps``, each step's dispatch is timed on the host (``_timed``,
+    by ``kind_of(step)``, ``_step_kind`` by default);
     ``traced``: the served run under ``_device_trace``. Returns
     (frontend, streams, warmup seconds, wall seconds, the launches of the
     served run: every one a graph replay's, the trace or None)."""
@@ -1547,7 +1580,8 @@ def _async_run(torch, eng, prompts, max_new, depth=None, steps=None,
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     if steps is not None:
-        eng._dispatch_async = _timed(eng._dispatch_async, _step_kind, steps)
+        eng._dispatch_async = _timed(eng._dispatch_async,
+                                     kind_of or _step_kind, steps)
     got = {}
 
     def serve():
@@ -1562,15 +1596,48 @@ def _async_run(torch, eng, prompts, max_new, depth=None, steps=None,
     return fe, got["streams"], warm_s, wall, got["launches"], acts
 
 
+def _request_index(req):
+    """A request's index in its prompt list: ``Engine.generate`` numbers
+    its requests 1000 + i, ``AsyncEngine.submit`` i."""
+    return req.req_id % 1000
+
+
+def _record_layouts(eng):
+    """Record, for each request (``_request_index``), the layout of each of
+    its prefill chunks as the engine builds its steps: (start, tokens, the
+    step's columns) and, in a packed step, every chunk of the step (rows
+    are packed from them). A MoE layer's expert capacity is per row
+    (``models/moe.py``), so which of a row's tokens it drops depends on
+    exactly this; the async schedule frees a lane a step later than the
+    sync loop, so a prompt can be split into other chunks. Returns the
+    dict it fills."""
+    build, lay = eng._build_step, {}
+
+    def recorded(plan, device_feed=False):
+        sb = build(plan, device_feed)
+        if plan.prefill:
+            S = sb.batch["tokens"].shape[1]
+            step = tuple(sorted((_request_index(c.req), c.start, c.n)
+                                for c in plan.prefill)) \
+                if sb.kind == "packed" else ()
+            for c in plan.prefill:
+                lay.setdefault(_request_index(c.req), []).append(
+                    (c.start, c.n, S, step))
+        return sb
+    eng._build_step = recorded
+    return lay
+
+
 def _partings(torch, rows, outs, what):
-    """Where each request's async tokens part from the sync run's: allowed
-    only at a near-tie of the sync logits (best two within NEAR_TIE, the
-    async token among them). Returns the partings."""
+    """Where each request's async tokens part from the reference run's
+    (``rows``): allowed only at a near-tie of the reference logits (best
+    two within NEAR_TIE, the async token among them). Returns the
+    partings."""
     parted = []
     for i, seq in sorted(rows.items()):
         mine = outs[i]
         check(len(mine) == len(seq), f"{what}: request {i} emitted "
-              f"{len(mine)} tokens, the sync run {len(seq)}")
+              f"{len(mine)} tokens, the reference run {len(seq)}")
         for j, (tok, row) in enumerate(seq):
             if mine[j] == tok:
                 continue
@@ -1578,14 +1645,91 @@ def _partings(torch, rows, outs, what):
             gap = (top[0] - top[1]).item()
             near = gap <= NEAR_TIE and \
                 row[mine[j]].item() >= top[0].item() - NEAR_TIE
-            parted.append(dict(request=i, token=j, sync=tok, async_=mine[j],
-                               gap=gap))
-            log(f"  {what}: request {i} parts at token {j} (sync {tok}, "
-                f"async {mine[j]}; sync logits' best two {gap:.4f} apart)")
-            check(near, f"{what}: request {i} parts from the sync run at "
-                  f"token {j} without a near-tie")
+            parted.append(dict(request=i, token=j, reference=tok,
+                               async_=mine[j], gap=gap, near_tie=near))
+            log(f"  {what}: request {i} parts at token {j} (reference "
+                f"{tok}, async {mine[j]}; reference logits' best two "
+                f"{gap:.4f} apart)")
+            check(near, f"{what}: request {i} parts from the reference run "
+                  f"at token {j} without a near-tie")
             break
     return parted
+
+
+def _record_steps(eng):
+    """Record every step the async pipeline dispatches, in order: (kind,
+    its host inputs, each sample's request index and index into the
+    step's tokens); at the first dispatch, also the engine's pool, length
+    leaf and lane feed. ``_eager_rows`` replays them. Returns (the steps,
+    the starting state), the lists it fills."""
+    import numpy as np
+    from repro_torch.serving.engine import _host_inputs
+    dispatch, steps, state = eng._dispatch_async, [], {}
+
+    def recorded(sb, slot=None):
+        if not steps:
+            state.update(cache={k: v.clone() for k, v in eng.cache.items()},
+                         lane_tok=eng.lane_tok.clone())
+        steps.append((sb.kind, {k: np.array(v, copy=True)
+                                for k, v in _host_inputs(sb).items()},
+                      [(_request_index(r), idx) for r, _, idx in sb.samples]))
+        return dispatch(sb, slot)
+    eng._dispatch_async = recorded
+    return steps, state
+
+
+def _eager_rows(torch, eng, recorded, max_new):
+    """The async run's own steps (``_record_steps``) replayed eagerly
+    (``Engine._async_step``, no graph) from its starting state, in
+    dispatch order: the reference with the async run's chunk and row
+    layout. Returns {request index: [(token, logits row)]}, each request's
+    first ``max_new`` samples (the pipeline's overrun samples dropped, as
+    at emission)."""
+    steps, state = recorded
+    for k, v in state["cache"].items():
+        eng.cache[k].copy_(v)
+    eng.lane_tok.copy_(state["lane_tok"])
+    rows = {}
+    for kind, host, samples in steps:
+        inp = {k: torch.as_tensor(v, device=eng.device)
+               for k, v in host.items()}
+        logits, toks = eng._async_step(kind, inp)
+        check(toks is not None, "the eager replay needs greedy sampling")
+        logits, toks = logits.float(), toks.cpu().numpy()
+        for i, idx in samples:
+            rows.setdefault(i, []).append((int(toks[idx]), logits[idx]))
+    return {i: seq[:max_new] for i, seq in rows.items()}
+
+
+def _moe_partings(torch, eng, recorded, rows, layouts, outs, max_new, what):
+    """A MoE model's async tokens, held like for like. A layer's expert
+    capacity is per row (``models/moe.py``), so which tokens it drops
+    depends on how the prompts were cut into chunks and rows, and the
+    async schedule (it frees a lane a step later than the sync loop) can
+    cut a prompt otherwise. So every request is held to the async run's
+    own steps replayed eagerly (``_eager_rows``: the same layout, no
+    graph), and each request whose layout (``_record_layouts``: the sync
+    run's, then the async run's) did not move is also held to the sync
+    run (``rows``); both under the near-tie rule, no request excused.
+    Returns a summary."""
+    moved = sorted(i for i in outs if layouts[0].get(i) != layouts[1].get(i))
+    eager = _eager_rows(torch, eng, recorded, max_new)
+    check(sorted(eager) == sorted(outs), f"{what}: the eager replay served "
+          f"requests {sorted(eager)}, the async run {sorted(outs)}")
+    res = dict(
+        parted_vs_replay=_partings(torch, eager, outs,
+                                   f"{what} vs its steps replayed eagerly"),
+        parted_vs_sync=_partings(
+            torch, {i: s for i, s in rows.items() if i not in moved}, outs,
+            f"{what} vs sync"),
+        layout_moved=moved, excused=0)
+    log(f"{what}: {len(outs)} requests held to the eager replay of the "
+        f"async steps, {len(res['parted_vs_replay'])} parted at a near-tie;"
+        f" {len(outs) - len(moved)} (layout unmoved) held to the sync run, "
+        f"{len(res['parted_vs_sync'])} parted at a near-tie; {len(moved)} "
+        f"prefilled in another layout than the sync run's {moved}; 0 "
+        "excused")
+    return res
 
 
 def _engine_summary(st, wall):
@@ -1595,7 +1739,8 @@ def _engine_summary(st, wall):
                 ttft_p50_s=st.ttft(50), ttft_p95_s=st.ttft(95),
                 tpot_p50_s=st.tpot(50), tpot_p95_s=st.tpot(95), steps=steps,
                 prefill_calls=st.prefill_calls, decode_steps=st.decode_steps,
-                mixed_steps=st.mixed_steps)
+                mixed_steps=st.mixed_steps, packed_steps=st.packed_steps,
+                packed_rows_saved=st.packed_rows_saved)
 
 
 def _fmt(r):
@@ -1642,10 +1787,12 @@ def _runner(eng, kind, S):
                 if r.kind == kind and r.inputs[tok].shape[1] == S)
 
 
-def _replay_checks(torch, eng, prompts):
+def _replay_checks(torch, eng, prompts, want=("decode", "mixed")):
     """Serve ``prompts`` one async step at a time on the calling thread;
-    the first decode-only step and the first mixed step (prefill chunks
-    beside decode lanes) run eagerly and by replay from the same state."""
+    the first step of each kind in ``want`` runs eagerly and by replay
+    from the same state. Kinds: "decode" (decode-only), "mixed" (prefill
+    chunks beside decode lanes), "prefill", and "packed" (packed rows, one
+    row holding several prompts)."""
     import numpy as np
     from repro_torch.serving import Request
     for i, p in enumerate(prompts):      # lanes free at different steps
@@ -1660,7 +1807,10 @@ def _replay_checks(torch, eng, prompts):
         sb = eng._build_step(plan, device_feed=True)
         kind = "decode" if not plan.prefill else \
             "mixed" if plan.decode else "prefill"
-        if kind in ("decode", "mixed") and kind not in out:
+        if sb.kind == "packed":
+            kind = ("packed" if sb.batch["seg_q"].max() > 0
+                    else "packed, a prompt a row")
+        if kind in want and kind not in out:
             diff, nbytes, feed, toks = _replay_vs_eager(torch, eng, sb)
             out[kind] = dict(max_logit_diff=diff, pool_bytes_differ=nbytes,
                              lane_feed_equal=feed)
@@ -1668,7 +1818,7 @@ def _replay_checks(torch, eng, prompts):
             toks = eng._dispatch_async(sb)
         eng._note_executed(sb)
         eng._postprocess(sb, toks.cpu().numpy(), time.perf_counter())
-    check(set(out) == {"decode", "mixed"},
+    check(set(out) == set(want),
           f"replay against eager saw only {sorted(out)} steps")
     return out
 
@@ -1812,24 +1962,28 @@ def async_phase(torch, rec, params, arch="qwen3-4b",
     meng = Engine(mcfg, coopt, ecfg, device=DEV)
     mparams = meng.params
     mprompts = engine_prompts(mcfg)
+    slay = _record_layouts(meng)
     _, rows, wall, _, _ = _sync_recorded(torch, meng, mprompts, 32)
     res["mla_sync"] = _engine_summary(meng.stats, wall)
     del meng
     meng = Engine(mcfg, coopt, ecfg, params=mparams, device=DEV)
+    alay = _record_layouts(meng)
+    recorded = _record_steps(meng)
     fe, streams, warm_s, wall, mlaunches, _ = _async_run(
         torch, meng, mprompts, 32)
     m = res["mla_async"] = _engine_summary(meng.stats, wall)
     m.update(runners=fe.warmed_shapes, warmup_s=warm_s,
              aot_misses=meng.aot_misses, launches=mlaunches)
-    outs = {i: list(h.req.output) for i, h in enumerate(streams)}
-    m["parted"] = _partings(torch, rows, outs, mla_arch)
     log(f"async ({mla_arch}, 4 layers): {_fmt(m)}, aot_misses "
         f"{meng.aot_misses}, launches {mlaunches}; sync "
-        f"{_fmt(res['mla_sync'])}; {len(m['parted'])} of {len(outs)} requests parted at a near-tie")
+        f"{_fmt(res['mla_sync'])}")
+    outs = {i: list(h.req.output) for i, h in enumerate(streams)}
+    m.update(_moe_partings(torch, meng, recorded, rows, (slay, alay), outs,
+                           32, mla_arch))
     check(meng.aot_misses == 0, "the MLA async run missed a runner")
     for k in ("latent_chunk_prefill", "paged_latent_decode_visits"):
         check(mlaunches[k] > 0, f"{k} never replayed on the MLA async run")
-    del meng, fe
+    del meng, fe, recorded
     meng = Engine(mcfg, coopt, ecfg, params=mparams, device=DEV)
     _, _, _, wall, launches, acts = _async_run(torch, meng, mprompts, 32,
                                                traced=True)
@@ -1900,6 +2054,446 @@ def async_phase(torch, rec, params, arch="qwen3-4b",
     del eng, teng, fe
     torch.cuda.empty_cache()
     return served, mlaunches
+
+
+# ------------------------------------------------------------ packing ----
+# The packed phase's models: (arch, layers or None for full depth, new
+# tokens, requests). yi-34b and deepseek-67b at full depth would need ~64
+# and ~126 GiB of bf16 weights, so they run at 4 layers.
+PACKED_DENSE = (("llama13b-gptq", None, 16, 12), ("yi-34b", 4, 8, 4),
+                ("deepseek-67b", 4, 8, 4))
+
+
+def packed_prompts(cfg, n=12):
+    """The packed phase's requests, from a seed, in waves of 4 (a wave
+    prefills in one step of the 512-token budget and finishes together,
+    so the next wave is admitted together): a long prompt of 150-240
+    tokens and three short ones of 40-72, which share a row of the
+    256-token bucket beside it. The long prompts and the second wave's
+    first short one (72 tokens) share a 64-token prefix (one page)."""
+    import numpy as np
+    rng = np.random.default_rng(2)
+    prefix = rng.integers(0, cfg.vocab_size, 64)
+    out = []
+    for i in range(n):
+        if i % 4 == 0 or i == 5:
+            m = 72 if i == 5 else int(rng.integers(150, 241))
+            out.append(np.concatenate(
+                [prefix, rng.integers(0, cfg.vocab_size, m - 64)]))
+        else:
+            out.append(rng.integers(0, cfg.vocab_size,
+                                    int(rng.integers(40, 73))))
+    return out
+
+
+def _launches_in_packed_steps(eng, kernel="flash_chunk_prefill"):
+    """Count ``kernel``'s launches made inside the engine's packed steps
+    (sync path); returns the dict the count lands in."""
+    from repro_torch.kernels import cuda
+    run_model, got = eng._run_model, {"launches": 0}
+
+    def counted(sb):
+        n0 = cuda.LAUNCHES[kernel]
+        logits = run_model(sb)
+        if sb.kind == "packed":
+            got["launches"] += cuda.LAUNCHES[kernel] - n0
+        return logits
+    eng._run_model = counted
+    return got
+
+
+def _capture_kernel_inputs(torch):
+    """Keep the inputs of the first K3 call in a packed step with a row of
+    several prompts and of the first K4 call (a decode-only step through
+    the visit list), every tensor cloned (the layer's pool too: later
+    steps write it), for ``_hold_to_plain``. Patches
+    ``ops.paged_chunk_prefill`` and ``ops.paged_pool_decode``, which the
+    models call, until ``restore()``. Returns (the calls by kernel,
+    restore)."""
+    from repro_torch.kernels import ops
+    got, saved = {}, (ops.paged_chunk_prefill, ops.paged_pool_decode)
+
+    def keep(name, args, kw):
+        def clone(a):
+            return a.clone() if isinstance(a, torch.Tensor) else a
+        got[name] = (tuple(map(clone, args)),
+                     {k: clone(v) for k, v in kw.items()})
+
+    def chunk(*args, **kw):
+        if "flash_chunk_prefill" not in got and \
+                kw.get("seg_q") is not None and int(kw["seg_q"].max()) > 0:
+            keep("flash_chunk_prefill", args, kw)
+        return saved[0](*args, **kw)
+
+    def decode(*args, **kw):
+        q, kv = args[0], args[1]
+        B, Hq, D = q.shape
+        if "paged_pool_decode_visits" not in got and ops._gqa_use_visits(
+                kw.get("share_visits", False), B, Hq, kv.shape[3], D,
+                kv.shape[2], kw["opt_kv"], kw["opt_gqa"]):
+            keep("paged_pool_decode_visits", args, kw)
+        return saved[1](*args, **kw)
+
+    def restore():
+        ops.paged_chunk_prefill, ops.paged_pool_decode = saved
+    ops.paged_chunk_prefill, ops.paged_pool_decode = chunk, decode
+    return got, restore
+
+
+def _hold_to_plain(torch, got, what):
+    """K3 and K4 on the engine-built inputs ``got``
+    (``_capture_kernel_inputs``), each launched once through its wrapper
+    and held to its plain version on the same inputs: K3 within one bf16
+    ulp beside a control (its packing planes dropped, so each segment
+    also sees its row-mates' keys) that must fail; K4 bit-identical to K2
+    on the same step and K2 within the ulp of its plain version beside a
+    control (each lane's newest key masked off) that must fail. Returns
+    {kernel: summary}."""
+    from repro_torch.kernels import cuda, ops
+    from repro_torch.kernels import flash_chunk_prefill as fc
+    from repro_torch.kernels import paged_gqa_decode as pd
+    check(set(got) == {"flash_chunk_prefill", "paged_pool_decode_visits"},
+          f"{what}: the engine gave K3/K4 inputs only for {sorted(got)}")
+    out = {}
+    (q, pos, kv, sc, table), kw = got["flash_chunk_prefill"]
+    ks, vs = (sc[0], sc[1]) if sc is not None else (None, None)
+    base = {k: kw[k] for k in ("opt_kv", "opt_gqa", "window", "sink_pages")}
+    planes = {k: kw[k].int() for k in ("seg_q", "page_seg", "page_base")}
+    n0 = cuda.LAUNCHES["flash_chunk_prefill"]
+    k3 = ops.paged_chunk_prefill(q, pos, kv, sc, table, **kw)
+    n3 = cuda.LAUNCHES["flash_chunk_prefill"] - n0
+    ref = (q, pos.int(), kv[0], kv[1], ks, vs, table.int())
+    p3 = fc.flash_chunk_prefill_ref(*ref, **base, **planes)
+    c3 = fc.flash_chunk_prefill_ref(*ref, **base)
+    torch.cuda.synchronize()
+    r3, err3 = tol_ratio(k3, p3)
+    rc3, errc3 = tol_ratio(k3, c3)
+    R, S, Hq, _ = q.shape
+    out["flash_chunk_prefill"] = dict(
+        G=Hq // kv.shape[3], rows=R, S=S,
+        segments=int(planes["seg_q"].max()) + 1, ratio=r3,
+        max_abs_err=err3, control_ratio=rc3, control_err=errc3)
+    (q, kv, sc, cl, phys, logt), kw = got["paged_pool_decode_visits"]
+    ks, vs = (sc[0], sc[1]) if sc is not None else (None, None)
+    base = {k: kw[k] for k in ("opt_kv", "opt_gqa", "window", "sink_pages")}
+    n0 = cuda.LAUNCHES["paged_pool_decode_visits"]
+    k4 = ops.paged_pool_decode(q, kv, sc, cl, phys, logt, **kw)
+    n4 = cuda.LAUNCHES["paged_pool_decode_visits"] - n0
+    k2 = ops.paged_pool_decode(q, kv, sc, cl, phys, logt,
+                               **dict(kw, share_visits=False))
+    ref = (q, kv[0], kv[1], ks, vs)
+    p2 = pd.paged_pool_decode_ref(*ref, cl.int(), phys.int(), logt.int(),
+                                  **base)
+    c2 = pd.paged_pool_decode_ref(*ref, (cl.int() - 1).clamp(min=0),
+                                  phys.int(), logt.int(), **base)
+    torch.cuda.synchronize()
+    r2, err2 = tol_ratio(k2, p2)
+    rc2, errc2 = tol_ratio(k2, c2)
+    r4, err4 = tol_ratio(k4, p2)
+    bitwise = torch.equal(k4, k2)
+    out["paged_pool_decode_visits"] = dict(
+        G=q.shape[1] // kv.shape[3], lanes=q.shape[0],
+        cache_len=cl.tolist(), ratio=r4, max_abs_err=err4,
+        bit_identical_to_k2=bitwise, k2_ratio=r2, k2_err=err2,
+        control_ratio=rc2, control_err=errc2)
+    log(f"{what}: K3 on an engine-built packed step (G {Hq // kv.shape[3]},"
+        f" {R} rows x {S}, up to {out['flash_chunk_prefill']['segments']} "
+        f"prompts a row): max |kernel - plain| {err3:.3e} = {r3:.3f} of the "
+        f"tolerance; control, planes dropped: {errc3:.3e} = {rc3:.2f}. K4 "
+        f"on an engine-built decode step (cache_len {cl.tolist()}): "
+        f"bit-identical to K2 {bitwise}, max |kernel - plain| {err4:.3e} = "
+        f"{r4:.3f} of the tolerance; control, newest key masked off: "
+        f"{errc2:.3e} = {rc2:.2f}")
+    check(n3 == 1 and n4 == 1, f"{what}: the held calls launched K3 {n3} "
+          f"and K4 {n4} times, not once each")
+    check(r3 <= 1, f"{what}: K3 differs from its plain version")
+    check(rc3 > 1, f"{what}: the tolerance passes a segment mask error in "
+          "K3")
+    check(bitwise, f"{what}: K4 is not bit-identical to K2")
+    check(r2 <= 1 and r4 <= 1, f"{what}: K2/K4 differ from their plain "
+          "version")
+    check(rc2 > 1, f"{what}: the tolerance passes a one-key mask error in "
+          "K2/K4")
+    return out
+
+
+def _packed_sync(torch, cfg, coopt, ecfg, params, prompts, max_new, what,
+                 kernel="flash_chunk_prefill", hold=False):
+    """``Engine.generate`` with ``ecfg`` on ``params``: (summary, logits
+    rows, launches). Every request must finish with finite logits;
+    with packing the engine must pack and save rows, and ``kernel`` must
+    launch once a layer in every packed step. ``hold``: K3 and K4 are
+    held to their plain versions on the inputs of one of this run's
+    packed and decode steps (``_hold_to_plain``, into the summary's
+    ``vs_plain``)."""
+    from repro_torch.serving import Engine
+    eng = Engine(cfg, coopt, ecfg, params=params, device=DEV)
+    in_packed = _launches_in_packed_steps(eng, kernel)
+    layouts = _record_layouts(eng)
+    got, restore = _capture_kernel_inputs(torch) if hold else ({}, None)
+    try:
+        reqs, rows, wall, launches, _ = _sync_recorded(torch, eng, prompts,
+                                                       max_new)
+    finally:
+        if restore is not None:
+            restore()
+    r = _engine_summary(eng.stats, wall)
+    if hold:
+        r["vs_plain"] = _hold_to_plain(torch, got, what)
+        del got
+    r.update(launches=launches, packed_step_launches={kernel: in_packed["launches"]},
+             layouts=layouts)
+    log(f"{what}: {_fmt(r)}, packed steps {r['packed_steps']}, rows saved "
+        f"{r['packed_rows_saved']}, launches {launches}")
+    check(all(len(q.output) == max_new for q in reqs), f"{what}: unfinished")
+    check(all(bool(torch.isfinite(row).all()) for seq in rows.values()
+              for _, row in seq), f"{what}: non-finite logits")
+    if ecfg.pack_prefill:
+        st = eng.stats
+        check(st.packed_steps > 0 and st.packed_rows_saved > 0,
+              f"{what}: nothing was packed")
+        check(st.packed_steps == st.prefill_calls,
+              f"{what}: a prefill step ran unpacked")
+        check(in_packed["launches"] == cfg.num_layers * st.packed_steps,
+              f"{what}: {kernel} launched {in_packed['launches']} times in "
+              f"{st.packed_steps} packed steps")
+    return r, rows, launches
+
+
+def _packed_async(torch, cfg, coopt, ecfg, params, prompts, max_new, rows,
+                  sync_layouts, what, chunk_kernel="flash_chunk_prefill",
+                  decode_kernel="paged_pool_decode_visits"):
+    """``AsyncEngine(warmup=True)`` with ``ecfg`` on ``params``: one runner
+    a lattice shape (decode, each prefill bucket and, packing, each row
+    bucket x prefill bucket packed), no miss, every prefill step packed
+    when packing, the launches of the replays following the steps, and
+    greedy tokens equal to the sync run's of the same ``ecfg`` (``rows``)
+    or parted at a near-tie (a MoE model: ``_moe_partings``, with the sync
+    run's ``sync_layouts``). The summary adds, by step shape ("kind R x
+    S"), the host's ms a dispatch and, after the run, the card's ms a
+    replay of that shape's graph (``_replay_ms``). Returns (engine,
+    frontend, summary)."""
+    from repro_torch.serving import Engine, FinishReason
+    eng = Engine(cfg, coopt, ecfg, params=params, device=DEV)
+    layouts = _record_layouts(eng)
+    recorded = _record_steps(eng) if cfg.num_experts else None
+    keys, steps = {}, []
+
+    def shape_of(sb):
+        R, S = sb.batch["page_table"].shape[0], \
+            sb.batch["tokens"].shape[1] if "tokens" in sb.batch else 1
+        label = f"{sb.kind} {R} x {S}"
+        keys[label] = eng._async_key(sb.kind, sb.batch)
+        return label
+    fe, streams, warm_s, wall, launches, _ = _async_run(
+        torch, eng, prompts, max_new, steps=steps, kind_of=shape_of)
+    a = _engine_summary(eng.stats, wall)
+    a["host_steps"] = _host_steps(steps)
+    for label, key in sorted(keys.items()):
+        a["host_steps"][label]["replay_ms"] = _replay_ms(
+            torch, eng._runners[key])
+    B, nb = ecfg.num_lanes, len(ecfg.prefill_buckets)
+    # packed shapes: 1, 2, 4, ... rows, and B
+    row_buckets = (B - 1).bit_length() + 1 if ecfg.pack_prefill else 0
+    a.update(runners=fe.warmed_shapes, warmup_s=warm_s,
+             graph_pool_gib=eng.graph_pool_bytes / 2**30,
+             aot_misses=eng.aot_misses, launches=launches,
+             trace_counts=dict(eng.trace_counts))
+    outs = {i: list(h.req.output) for i, h in enumerate(streams)}
+    a["layouts"] = layouts
+    if recorded is not None:
+        a.update(_moe_partings(torch, eng, recorded, rows,
+                               (sync_layouts, layouts), outs, max_new, what))
+        a["parted"] = a["parted_vs_replay"] + a["parted_vs_sync"]
+    else:
+        a["parted"] = _partings(torch, rows, outs, what)
+    log(f"{what}: {fe.warmed_shapes} runners captured in {warm_s:.2f} s, "
+        f"graph pool {a['graph_pool_gib']:.3f} GiB, {_fmt(a)}, packed steps "
+        f"{a['packed_steps']}, rows saved {a['packed_rows_saved']}, "
+        f"aot_misses {eng.aot_misses}, launches {launches}; "
+        f"{len(a['parted'])} partings at a near-tie; by step shape: "
+        + ", ".join(
+            f"{k} {v['steps']} x (host {v['host_ms'] / v['steps']:.2f} ms, "
+            f"replay {v['replay_ms']:.3f} ms)"
+            for k, v in sorted(a["host_steps"].items())))
+    check(fe.warmed_shapes == 1 + nb + row_buckets * nb,
+          f"{what}: {fe.warmed_shapes} runners, not one a lattice shape")
+    check(eng.aot_misses == 0, f"{what}: the async run missed a runner")
+    check(all(h.finish_reason is FinishReason.FINISHED for h in streams),
+          f"{what}: unfinished")
+    st, L = eng.stats, cfg.num_layers
+    if ecfg.pack_prefill:
+        check(st.packed_steps == st.prefill_calls > 0
+              and st.packed_rows_saved > 0, f"{what}: nothing was packed")
+    want = {chunk_kernel: L * st.prefill_calls,
+            decode_kernel: L * (st.decode_steps - st.mixed_steps)}
+    if cfg.family != "mla":         # the latent write is a plain scatter
+        want["kv_cache_write"] = L * a["steps"]
+    for k, n in want.items():
+        check(launches[k] == n > 0, f"{what}: {k}: {launches[k]} launches "
+              f"through replays, {n} expected")
+    return eng, fe, a
+
+
+def packed_phase(torch, rec, arch="qwen2.5-14b",
+                 mla_arch="deepseek-v2-lite-16b", dense=PACKED_DENSE):
+    """Concat-prefill packing end to end. ``arch`` at full width and depth
+    served on the same weights by ``Engine.generate`` unpacked, packed,
+    packed, unpacked, then by ``AsyncEngine(warmup=True)`` packed (17
+    runners, a CUDA graph each), unpacked (5), unpacked, packed (the
+    repeats in reverse order show the spread of the pace); packed tokens
+    equal the unpacked run's and async the sync run's of its setting, or
+    part at a near-tie; one packed step (a row holding several prompts)
+    replayed against its eager body. ``dense``: each
+    (arch, layers, new tokens, requests) served sync unpacked, packed,
+    packed, unpacked (only packed at cut depth). Each model's last sync
+    packed run holds K3 and K4 to their plain versions on its own packed
+    and decode steps' inputs (``_hold_to_plain``: G 5, 1, 7 and 8).
+    ``mla_arch`` at 4 layers, sync and async packed: K6 on packed rows
+    through replays, the async tokens held like for like
+    (``_moe_partings``). Returns the launches of the packed runs."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.coopt import COOPT
+    from repro_torch.models import get_model
+    from repro_torch.serving import EngineConfig
+    coopt = COOPT.replace(use_kernel=True)
+    ecfg = EngineConfig(num_lanes=4, max_len=1024, seed=0)
+    pcfg = dataclasses.replace(ecfg, pack_prefill=True)
+    res, packed_launches = {}, {}
+
+    def add(launches):
+        for k, n in launches.items():
+            packed_launches[k] = packed_launches.get(k, 0) + n
+
+    def params_of(cfg):
+        t0 = time.perf_counter()
+        params = get_model(cfg).init(0, DEV)
+        torch.cuda.synchronize()
+        n = get_model(cfg).param_count()
+        log(f"{cfg.name}: {cfg.num_layers} layers, {n / 1e9:.3f} B params "
+            f"initialised in {time.perf_counter() - t0:.1f} s, "
+            f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+        return params, n
+
+    def free():
+        gc.collect()                 # the recorders close cycles
+        torch.cuda.empty_cache()
+
+    # the slice's path: full width and depth, sync then async, each
+    # unpacked and packed in turns
+    cfg = get_config(arch)
+    prompts = packed_prompts(cfg)
+    params, n = params_of(cfg)
+    r = res[arch] = {"params": n}
+    rows = {}
+    for key, e in (("sync", ecfg), ("sync_packed", pcfg),
+                   ("sync_packed_2", pcfg), ("sync_2", ecfg)):
+        r[key], got, launches = _packed_sync(
+            torch, cfg, coopt, e, params, prompts, 32, f"{arch} {key}",
+            hold=key == "sync_packed_2")
+        rows.setdefault(e.pack_prefill, got)
+        if e.pack_prefill:
+            add(launches)
+        del got
+    outs = {i: [t for t, _ in seq] for i, seq in rows[True].items()}
+    r["sync_packed"]["parted"] = _partings(torch, rows[False], outs,
+                                           f"{arch} packed vs unpacked")
+    for key, e in (("async_packed", pcfg), ("async", ecfg),
+                   ("async_2", ecfg), ("async_packed_2", pcfg)):
+        sync_key = "sync_packed" if e.pack_prefill else "sync"
+        eng, fe, r[key] = _packed_async(
+            torch, cfg, coopt, e, params, prompts, 32, rows[e.pack_prefill],
+            r[sync_key]["layouts"], f"{arch} {key}")
+        if e.pack_prefill:
+            add(r[key]["launches"])
+        if key == "async_packed":
+            # a packed step whose row holds several prompts, replayed
+            # against its eager body from the same pool state; a packed
+            # runner's counts are K1 and K3 once a layer
+            r["replay_vs_eager"] = rv = _replay_checks(
+                torch, eng, prompts[:6], want=("packed",))
+            log(f"packed replay vs eager ({arch}): {rv}")
+            check(rv["packed"]["max_logit_diff"] == 0
+                  and rv["packed"]["pool_bytes_differ"] == 0
+                  and rv["packed"]["lane_feed_equal"],
+                  "the packed step's replay differs from its eager run")
+            L = cfg.num_layers
+            counted = [x.launches for x in eng._runners.values()
+                       if x.kind == "packed"]
+            check(len(counted) == 12 and all(
+                c == {"kv_cache_write": L, "flash_chunk_prefill": L}
+                for c in counted), f"the packed runners counted {counted}")
+        del eng, fe
+    del rows, params
+    free()
+
+    # the paper's model at full depth (unpacked and packed in turns), and
+    # G 7 / G 8 at 4 layers (packed)
+    for name, layers, new, nreq in dense:
+        cfg = get_config(name)
+        if layers:
+            cfg = cfg.replace(num_layers=layers)
+        prompts = packed_prompts(cfg, nreq)
+        params, n = params_of(cfg)
+        r = res[name] = {"params": n, "layers": cfg.num_layers}
+        runs = ((("sync", ecfg), ("sync_packed", pcfg),
+                 ("sync_packed_2", pcfg), ("sync_2", ecfg))
+                if layers is None else (("sync_packed", pcfg),))
+        rows = {}
+        for key, e in runs:
+            r[key], got, launches = _packed_sync(
+                torch, cfg, coopt, e, params, prompts, new,
+                f"{name} ({cfg.num_layers} layers) {key}",
+                hold=key == ("sync_packed" if layers else "sync_packed_2"))
+            rows.setdefault(e.pack_prefill, got)
+            check(launches["paged_pool_decode_visits"] > 0,
+                  f"{name}: K4 never launched")
+            if e.pack_prefill:
+                add(launches)
+            del got
+        if layers is None:
+            outs = {i: [t for t, _ in seq] for i, seq in rows[True].items()}
+            r["sync_packed"]["parted"] = _partings(
+                torch, rows[False], outs, f"{name} packed vs unpacked")
+        del params, rows
+        free()
+
+    # MLA at 4 layers (1 dense + 3 MoE): K6 on packed rows, sync and by
+    # replays
+    mcfg = get_config(mla_arch).replace(num_layers=4)
+    prompts = packed_prompts(mcfg)
+    params, n = params_of(mcfg)
+    r = res[mla_arch] = {"params": n, "layers": 4}
+    r["sync_packed"], prows, launches = _packed_sync(
+        torch, mcfg, coopt, pcfg, params, prompts, 32,
+        f"{mla_arch} (4 layers) sync packed", kernel="latent_chunk_prefill")
+    add(launches)
+    eng, fe, r["async_packed"] = _packed_async(
+        torch, mcfg, coopt, pcfg, params, prompts, 32, prows,
+        r["sync_packed"]["layouts"], f"{mla_arch} (4 layers) async packed",
+        chunk_kernel="latent_chunk_prefill",
+        decode_kernel="paged_latent_decode_visits")
+    add(r["async_packed"]["launches"])
+    del eng, fe, params, prows
+    free()
+    # the largest error of each kernel held on the engines' inputs
+    held = [run["vs_plain"] for m in res.values() for run in m.values()
+            if isinstance(run, dict) and "vs_plain" in run]
+    check(len(held) == 1 + len(dense), f"K3/K4 held on {len(held)} models' "
+          f"engine inputs, not {1 + len(dense)}")
+    res["vs_plain_max_abs_err"] = {
+        "flash_chunk_prefill": max(h["flash_chunk_prefill"]["max_abs_err"]
+                                   for h in held),
+        "paged_pool_decode_visits": max(
+            h["paged_pool_decode_visits"]["max_abs_err"] for h in held),
+        "paged_pool_decode": max(h["paged_pool_decode_visits"]["k2_err"]
+                                 for h in held)}
+    log("packed: K3/K4 held to their plain versions at G " + ", ".join(
+        str(h["flash_chunk_prefill"]["G"]) for h in held) + "; largest "
+        f"errors {res['vs_plain_max_abs_err']}")
+    rec["packed"] = res
+    return packed_launches
 
 
 # ------------------------------------------------------- card vs CPU ----
@@ -2111,7 +2705,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("kernels", "write", "decode", "latent",
                                        "engine", "mla", "prefill", "async",
-                                       "parity"),
+                                       "packed", "parity"),
                     help="run one phase (debugging; prints no result line)")
     ap.add_argument("--src", help="import repro_torch from this directory "
                     "instead of ./src (to time another tree's kernels)")
@@ -2225,6 +2819,11 @@ def main(argv=None) -> int:
             paths[arch], paths[arch + " one lane"], _ = \
                 engine_phase(torch, rec, arch)
             done("engine " + arch, t0)
+        packed = {}
+        if only in (None, "packed"):
+            t0 = time.perf_counter()
+            packed = packed_phase(torch, rec)
+            done("packed", t0)
         if only in (None, "parity"):
             t0 = time.perf_counter()
             parity_phase(torch, rec, "qwen3-4b-reduced")
@@ -2236,10 +2835,17 @@ def main(argv=None) -> int:
                 k["async_launches"] = (
                     paths["qwen3-4b async"][k["name"]]
                     + paths["deepseek-v2-lite-16b async"][k["name"]])
+                k["packed_launches"] = packed.get(k["name"], 0)
+                # the packed phase's engine-built inputs held too
+                k["max_abs_err"] = max(k["max_abs_err"], rec["packed"][
+                    "vs_plain_max_abs_err"].get(k["name"], 0))
                 check(k["launches"] > 0, f"{k['name']} never launched on "
                       f"its path ({LAUNCH_PATH[k['name']]})")
             check(sorted(k["name"] for k in kernels) == sorted(LAUNCH_PATH),
                   "the kernels line does not list every kernel")
+            for name in ("flash_chunk_prefill", "latent_chunk_prefill"):
+                check(packed.get(name, 0) > 0,
+                      f"{name} never launched on packed rows")
             by_step = rec["engine"]["k1_launches_by_step"]
             runs = {"qwen3-4b prefill": by_step["prefill"],
                     "qwen3-4b decode": by_step["decode"],
@@ -2262,7 +2868,8 @@ def main(argv=None) -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # every kernel adds its launches through the async phase's graph
-    # replays (qwen3-4b and deepseek-v2-lite-16b at 4 layers);
+    # replays (qwen3-4b and deepseek-v2-lite-16b at 4 layers) and in the
+    # packed phase's packed runs (sync and async, every model);
     # K5, K6 and K7 add their launch's grid (K5/K7: and splits) and their
     # registers and local bytes as the loaded kernels report them; K5 and K7
     # the bound of the pages each reads (``own_bound_ms``) beside the
@@ -2270,7 +2877,8 @@ def main(argv=None) -> int:
     # its host microseconds a call and the mixed shape with L2 left clean
     extra = ("blocks", "splits", "rows_per_block", "lanes_per_block",
              "registers", "local_bytes", "own_bound_ms", "shapes",
-             "launch_floor_ms", "host_us", "clean_l2", "async_launches")
+             "launch_floor_ms", "host_us", "clean_l2", "async_launches",
+             "packed_launches")
     print(json.dumps({"kernels": [
         {k: x[k] for k in keys + extra if k in keys or k in x}
         for x in kernels]}))

@@ -1,23 +1,31 @@
-"""Config registry: ``get_config(arch_id)`` for the architectures ported so far.
+"""Config registry: ``get_config(arch_id)`` for the architectures ported so far,
+and the assigned input shapes.
 
-The port serves the dense family and the MLA family (deepseek-v2-lite); the
-other arch files arrive with their families (see ROADMAP.md), and asking
-for one raises ``KeyError``.
+The port serves the dense family (qwen3-4b, qwen2.5-14b, yi-34b,
+deepseek-67b, the paper's llama13b-gptq) and the MLA family
+(deepseek-v2-lite); the other arch files arrive with their families (see
+ROADMAP.md), and asking for one raises ``KeyError``.
 """
 from __future__ import annotations
 
 import importlib
 
 from repro_torch.configs.base import CacheConfig, ModelConfig, reduced
+from repro_torch.configs.shapes import SHAPES, InputShape, get_shape
 
 # arch-id -> module name
 _ARCH_MODULES = {
-    "qwen3-4b": "qwen3_4b",
+    "yi-34b": "yi_34b",
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "qwen3-4b": "qwen3_4b",
+    "qwen2.5-14b": "qwen2_5_14b",
+    "deepseek-67b": "deepseek_67b",
     # the paper's own evaluation model
     "llama13b-gptq": "llama13b_gptq",
 }
 
+# the assigned architectures ported so far (the paper's model apart)
+ARCH_IDS = [k for k in _ARCH_MODULES if k != "llama13b-gptq"]
 ALL_IDS = list(_ARCH_MODULES)
 
 
@@ -33,4 +41,5 @@ def get_config(arch_id: str) -> ModelConfig:
     return mod.CONFIG
 
 
-__all__ = ["ALL_IDS", "CacheConfig", "ModelConfig", "get_config", "reduced"]
+__all__ = ["ALL_IDS", "ARCH_IDS", "CacheConfig", "InputShape", "ModelConfig",
+           "SHAPES", "get_config", "get_shape", "reduced"]

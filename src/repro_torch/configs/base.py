@@ -87,6 +87,12 @@ class ModelConfig:
         from repro_torch.models.registry import get_model
         return get_model(self).param_count()
 
+    def active_param_count(self) -> int:
+        """Parameters one token reads: a MoE layer counts its ``top_k``
+        routed experts only."""
+        from repro_torch.models.registry import get_model
+        return get_model(self).active_param_count()
+
 
 @dataclass(frozen=True)
 class CacheConfig:

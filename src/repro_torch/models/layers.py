@@ -19,7 +19,9 @@ def init_param(shape, init: str, gen: torch.Generator, device,
                dtype=torch.bfloat16) -> torch.Tensor:
     """One parameter leaf: "zeros" | "ones" | "embed" (N(0, 0.02)) | "normal"
     (fan-in scaled: std = 1/sqrt(shape[-2]) for matrices, the JAX package's
-    rule). Draws in f32 from ``gen`` on ``device``, then casts."""
+    rule). Draws in f32 from ``gen`` on ``device``, then casts: a stacked
+    (L, ...) leaf one layer at a time, so a full-size model never holds a
+    leaf-sized f32 temporary."""
     if init == "zeros":
         return torch.zeros(shape, dtype=dtype, device=device)
     if init == "ones":
@@ -29,8 +31,12 @@ def init_param(shape, init: str, gen: torch.Generator, device,
     else:
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         std = 1.0 / math.sqrt(max(fan_in, 1))
-    x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-    return x.mul_(std).to(dtype)      # in place: one f32 copy at a time
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for part in (out if len(shape) >= 3 else [out]):
+        x = torch.randn(part.shape, generator=gen, device=device,
+                        dtype=torch.float32)
+        part.copy_(x.mul_(std))
+    return out
 
 
 # ----------------------------------------------------------------------------

@@ -161,6 +161,17 @@ class TransformerModel:
         leaves += [v for seg in spec["segments"] for v in seg.values()]
         return sum(math.prod(shape) for shape, _, _ in leaves)
 
+    def active_param_count(self) -> int:
+        """``param_count`` less the routed experts a token does not visit
+        (each MoE layer reads ``top_k`` of ``num_experts``)."""
+        cfg = self.cfg
+        total = self.param_count()
+        if not cfg.num_experts:
+            return total
+        per_layer = 3 * cfg.d_model * cfg.moe_d_ff
+        moe_layers = cfg.num_layers - cfg.first_dense_layers
+        return total - per_layer * (cfg.num_experts - cfg.top_k) * moe_layers
+
     # ------------------------------------------------------------ caching --
     def cache_shape(self, batch: int, max_len: int, coopt: CoOptConfig,
                     cache_cfg=None):

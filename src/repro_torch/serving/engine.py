@@ -22,6 +22,15 @@ length 1); a step with only decode lanes takes the one-token decode path.
 Pool exhaustion preempts the youngest running request (greedy-exact resume);
 impossible requests are REJECTED and surfaced.
 
+Concat-prefill packing (``EngineConfig.pack_prefill``): a step with prefill
+chunks runs as ROWS instead of lanes. Several prompts' chunks share one row
+as segments (``seg_q``/``page_seg``/``page_base``, which the chunk kernels
+K3 and K6 read so attention never crosses a segment), each decode lane
+keeps a row of its own, and the row count is padded to a power of two, so
+a step of short prompts runs on fewer rows than lanes. Rows are decoupled
+from lanes, so the lane-major ``length`` leaf keeps its value through a
+packed step (every step passes explicit ``cache_len``).
+
 The async pipeline (``serving/frontend.py``) drives the same step
 construction through ``_dispatch_async``: one step runner per step shape
 of the bucket lattice (``warmup``), holding static input buffers and, on
@@ -32,9 +41,9 @@ persistent per-lane ``lane_tok`` feed, so step N+1 is planned and
 dispatched before step N's tokens reach the host.
 
 Not ported yet (the engine raises ``NotImplementedError``): the host-DRAM
-tier (``CacheConfig.host_pages > 0``), concat-prefill packing
-(``pack_prefill``), a device mesh and recurrent families; ``CacheConfig``
-itself refuses page-range shards (``num_shards != 1``).
+tier (``CacheConfig.host_pages > 0``), a device mesh and recurrent
+families; ``CacheConfig`` itself refuses page-range shards
+(``num_shards != 1``).
 """
 from __future__ import annotations
 
@@ -53,7 +62,8 @@ from repro_torch.models import get_model
 from repro_torch.models.transformer import check_device
 from repro_torch.serving.request import FinishReason, Request, RequestState
 from repro_torch.serving.sampler import SamplingParams, sample
-from repro_torch.serving.scheduler import Scheduler, StepPlan, bucket_len
+from repro_torch.serving.scheduler import (Scheduler, StepPlan, bucket_len,
+                                           chunk_pages, pack_rows)
 
 
 @dataclass(frozen=True)
@@ -65,7 +75,11 @@ class EngineConfig:
     sampling: SamplingParams = SamplingParams()
     seed: int = 0
     token_budget: int = 0           # 0 => max(prefill_buckets)
-    pack_prefill: bool = False      # concat-prefill packing (not ported)
+    pack_prefill: bool = False      # concat-prefill packing: several
+                                    # prompts' chunks share one row through
+                                    # the segment-aware chunk kernels
+    pack_slots: int = 4             # sampled-logit slots per packed row
+                                    # (max final chunks packed together)
     max_preemptions: int = 32       # past it a request is rejected
                                     # (PREEMPTION_LIMIT)
     cache: CacheConfig = CacheConfig()   # pool geometry and cache policy
@@ -86,6 +100,8 @@ class EngineStats:
     generated_tokens: int = 0
     prefill_time: float = 0.0       # mixed-step wall time is split by
     decode_time: float = 0.0        # planned token share (Eq. 12 fairness)
+    packed_steps: int = 0           # steps run through the packed row path
+    packed_rows_saved: int = 0      # lane-rows eliminated by packing
     # cross-lane prefix sharing, per decode step, from the step's page table
     shared_page_visits: int = 0
     dup_page_streams_saved: int = 0
@@ -166,33 +182,35 @@ class EngineStats:
 class StepBatch:
     """One built step: the index arrays plus the host metadata that routes
     sampled tokens back to requests (``samples``: request, is-first-token,
-    lane). ``batch`` holds tensors on the engine's device for the sync loop
-    and numpy arrays for the async pipeline, which copies them into a step
-    runner's static inputs.
+    index into the sampled tokens: ``(lane,)`` for the per-lane kinds,
+    ``(row, slot)`` for the packed kind). ``batch`` holds tensors on the
+    engine's device for the sync loop and numpy arrays for the async
+    pipeline, which copies them into a step runner's static inputs.
 
-    ``feed``/``scatter_lane`` carry the async token plumbing: column 0 of
-    lane ``i``'s row takes its input token from the device-resident feed
-    ``lane_tok[i]`` (-1) instead of the host value (-2 = keep it), and
-    each sampled token is scattered back into ``lane_tok`` at
-    ``scatter_lane`` (``num_lanes`` = drop)."""
-    kind: str                      # "prefill" | "decode"
+    ``feed``/``row_lane``/``scatter_lane`` carry the async token plumbing:
+    column 0 of row ``i`` takes its input token from the device-resident
+    feed ``lane_tok[row_lane[i]]`` (-1), a host token (>= 0) or keeps the
+    batch's value (-2), and each sampled token is scattered back into
+    ``lane_tok`` at ``scatter_lane`` (``num_lanes`` = drop)."""
+    kind: str                      # "prefill" | "decode" | "packed"
     batch: Dict[str, object]
-    lane_mask: np.ndarray          # (num_lanes,) bool
+    lane_mask: np.ndarray          # (num_lanes,) bool; unused for packed
     plan: StepPlan
-    samples: List[Tuple[Request, bool, int]]
+    samples: List[Tuple[Request, bool, Tuple[int, ...]]]
     tp: int                        # planned prefill tokens
     td: int                        # planned decode tokens
-    feed: np.ndarray               # (B,) int32 column-0 token source
-    scatter_lane: np.ndarray       # (B,) int32 lane of each sampled token
+    feed: np.ndarray               # (R,) int32 column-0 token source
+    row_lane: np.ndarray           # (R,) int32 lane backing each row
+    scatter_lane: np.ndarray       # (n_slots,) int32 lane per sample slot
 
 
 # the per-row planes of an async step beside its batch (``_host_inputs``)
-_PLANES = ("lane_mask", "feed", "scatter_lane")
+_PLANES = ("lane_mask", "feed", "row_lane", "scatter_lane")
 
 
 def _host_inputs(sb: StepBatch) -> Dict[str, np.ndarray]:
     return dict(sb.batch, lane_mask=sb.lane_mask, feed=sb.feed,
-                scatter_lane=sb.scatter_lane)
+                row_lane=sb.row_lane, scatter_lane=sb.scatter_lane)
 
 
 class _StepRunner:
@@ -277,8 +295,6 @@ class Engine:
         random init from ``engine_cfg.seed``)."""
         if mesh is not None:
             raise NotImplementedError("device mesh: not ported yet")
-        if engine_cfg.pack_prefill:
-            raise NotImplementedError("pack_prefill: not ported yet")
         self.device = check_device(device)
         self.cfg = model_cfg
         self.coopt = coopt
@@ -287,7 +303,10 @@ class Engine:
             raise NotImplementedError("host-DRAM KV tier: not ported yet")
         self.ccfg = ccfg
         self.ecfg = engine_cfg
-        self.model = get_model(model_cfg)        # raises for other families
+        # raises for the families not ported; every ported one (dense,
+        # mla) keeps only the ``length`` leaf batch-major, so packing
+        # applies to all of them
+        self.model = get_model(model_cfg)
         if params is None:
             params = self.model.init(engine_cfg.seed, self.device)
         self.params = params
@@ -322,14 +341,17 @@ class Engine:
     def _forward(self, kind: str, batch, lane_mask: torch.Tensor):
         """One model call for the whole step. The pool is updated in place;
         the batch-major ``length`` leaf is lane-masked and written into the
-        persistent leaf (pool writes are slot-disjoint)."""
+        persistent leaf (pool writes are slot-disjoint). A packed step's
+        rows are not lanes: ``length`` keeps its value (the JAX package's
+        ``_prefill_packed_impl``), and its logits are (R, G, V)."""
         cache = dict(self.cache)
-        fn = self.model.prefill if kind == "prefill" else \
-            self.model.decode_step
+        fn = self.model.decode_step if kind == "decode" else \
+            self.model.prefill
         logits, cache = fn(self.params, batch, cache, self.coopt,
                            long_window=self.ecfg.long_window)
-        length = self.cache["length"]
-        length.copy_(torch.where(lane_mask, cache["length"], length))
+        if kind != "packed":
+            length = self.cache["length"]
+            length.copy_(torch.where(lane_mask, cache["length"], length))
         return logits
 
     def _run_model(self, sb: StepBatch):
@@ -404,6 +426,9 @@ class Engine:
         s.deadline_shed = self.scheduler.deadline_shed
         s.preemption_limit_rejects = self.scheduler.preemption_limit_rejects
 
+    def _should_pack(self, plan: StepPlan) -> bool:
+        return self.ecfg.pack_prefill and bool(plan.prefill)
+
     def _note_sharing(self, rows: np.ndarray) -> None:
         """Cross-lane prefix-sharing counts for one decode step (the dedup
         the visit-list kernel performs on the device)."""
@@ -425,7 +450,10 @@ class Engine:
         feed (-1) instead of a host value, so the plan can be built before
         the previous step's tokens reach the host; a decode-only step then
         carries its per-lane metadata as ONE (3, B) ``dmeta`` array
-        (positions, slots, cache lengths)."""
+        (positions, slots, cache lengths). With ``pack_prefill`` a step
+        with prefill chunks is built as packed rows (``_build_packed``)."""
+        if self._should_pack(plan):
+            return self._build_packed(plan, device_feed)
         B = self.ecfg.num_lanes
         NP = self.scheduler.pages_per_lane
         mgr = self.scheduler.manager
@@ -442,7 +470,7 @@ class Engine:
         last_pos = np.zeros(B, np.int32)
         feed = np.full(B, -2, np.int32)
         scatter_lane = np.full(B, B, np.int32)        # B = drop
-        samples: List[Tuple[Request, bool, int]] = []
+        samples: List[Tuple[Request, bool, Tuple[int, ...]]] = []
 
         for c in plan.prefill:
             lane, n = c.req.lane, c.n
@@ -456,7 +484,7 @@ class Engine:
             last_pos[lane] = n - 1
             lane_mask[lane] = True
             if c.final:
-                samples.append((c.req, True, lane))
+                samples.append((c.req, True, (lane,)))
                 scatter_lane[lane] = lane
         for d in plan.decode:                          # a chunk of length 1
             lane = d.req.lane
@@ -467,7 +495,7 @@ class Engine:
             cache_len[lane] = d.pos + 1
             last_pos[lane] = 0
             lane_mask[lane] = True
-            samples.append((d.req, False, lane))
+            samples.append((d.req, False, (lane,)))
             scatter_lane[lane] = lane
             if device_feed:
                 feed[lane] = -1        # device lane feed, never host-sync
@@ -494,6 +522,110 @@ class Engine:
                          plan=plan, samples=samples,
                          tp=sum(c.n for c in plan.prefill),
                          td=len(plan.decode), feed=feed,
+                         row_lane=np.arange(B, dtype=np.int32),
+                         scatter_lane=scatter_lane)
+
+    def _build_packed(self, plan: StepPlan,
+                      device_feed: bool = False) -> StepBatch:
+        """Concat-prefill packing: several prompts' chunks share one row as
+        SEGMENTS, with per-row segment ids (``seg_q``/``page_seg``) and
+        per-segment logical page indices (``page_base``) for the
+        segment-aware chunk kernels, so attention cannot leak across packed
+        prompts. Decode items keep one row each (their token feeds the
+        async lane plumbing); rows are padded to a power-of-two bucket, so
+        short-prompt steps run with FEWER rows than lanes. A row's
+        ``cache_len`` is its occupied query columns. Numpy arrays with
+        ``device_feed``, tensors on the engine's device without."""
+        ps = self.coopt.page_size
+        NP = self.scheduler.pages_per_lane
+        G = self.ecfg.pack_slots
+        mgr = self.scheduler.manager
+
+        S = (bucket_len(max(c.n for c in plan.prefill),
+                        self.scheduler.prefill_buckets) or
+             max(c.n for c in plan.prefill))
+        rows = pack_rows(plan.prefill, S, G, NP, ps)
+        n_rows = len(plan.decode) + len(rows)
+        R = 1
+        while R < n_rows:
+            R *= 2
+        R = min(R, max(self.ecfg.num_lanes, n_rows))
+        B = self.ecfg.num_lanes
+
+        tokens = np.zeros((R, S), np.int32)
+        positions = np.zeros((R, S), np.int32)
+        seg_q = np.full((R, S), -1, np.int32)        # -1 matches no page
+        slot_idx = np.full((R, S), -1, np.int32)
+        page_table = np.full((R, NP), -1, np.int32)
+        page_seg = np.zeros((R, NP), np.int32)
+        page_base = np.zeros((R, NP), np.int32)
+        cache_len = np.zeros(R, np.int32)
+        last_pos = np.zeros((R, G), np.int32)
+        feed = np.full(R, -2, np.int32)
+        row_lane = np.zeros(R, np.int32)
+        scatter_lane = np.full(R * G, B, np.int32)   # num_lanes = drop
+        samples: List[Tuple[Request, bool, Tuple[int, ...]]] = []
+
+        for i, d in enumerate(plan.decode):          # one row per decode
+            tokens[i, 0] = d.req.output[-1] if d.req.output else 0
+            positions[i] = d.pos
+            seg_q[i, 0] = 0
+            slot_idx[i, 0] = d.slot
+            page_table[i] = self.scheduler.page_table(d.req)
+            page_base[i] = np.arange(NP)
+            cache_len[i] = d.pos + 1
+            row_lane[i] = d.req.lane
+            scatter_lane[i * G] = d.req.lane
+            samples.append((d.req, False, (i, 0)))
+            if device_feed:
+                feed[i] = -1
+        if len(plan.decode) > 1:
+            self._note_sharing(page_table[:len(plan.decode)])
+
+        for j, row in enumerate(rows):
+            r = len(plan.decode) + j
+            t = pcur = g = 0
+            for k, c in enumerate(row.chunks):
+                n, npg = c.n, chunk_pages(c, ps)
+                tokens[r, t:t + n] = c.tokens
+                positions[r, t:t + n] = c.start + np.arange(n)
+                seg_q[r, t:t + n] = k
+                slot_idx[r, t:t + n] = mgr.slot_indices(
+                    c.req.pool_id, np.arange(c.start, c.start + n))
+                page_table[r, pcur:pcur + npg] = \
+                    self.scheduler.page_table(c.req)[:npg]
+                page_seg[r, pcur:pcur + npg] = k
+                page_base[r, pcur:pcur + npg] = np.arange(npg)
+                if c.final:
+                    last_pos[r, g] = t + n - 1
+                    scatter_lane[r * G + g] = c.req.lane
+                    samples.insert(g + sum(x.finals for x in rows[:j]),
+                                   (c.req, True, (r, g)))
+                    g += 1
+                t += n
+                pcur += npg
+            cache_len[r] = t
+            row_lane[r] = row.chunks[0].req.lane
+
+        # prefill finals emit BEFORE decode tokens (the unpacked emission
+        # order)
+        samples.sort(key=lambda s: not s[1])
+
+        batch = {"positions": positions, "slot_idx": slot_idx,
+                 "page_table": page_table, "cache_len": cache_len,
+                 "tokens": tokens, "last_pos": last_pos, "seg_q": seg_q,
+                 "page_seg": page_seg, "page_base": page_base}
+        if not device_feed:
+            batch = {k: torch.as_tensor(v, device=self.device)
+                     for k, v in batch.items()}
+        self.stats.packed_steps += 1
+        self.stats.packed_rows_saved += max(
+            len(plan.decode) + len(plan.prefill) - R, 0)
+        return StepBatch(kind="packed", batch=batch,
+                         lane_mask=np.ones(B, bool), plan=plan,
+                         samples=samples,
+                         tp=sum(c.n for c in plan.prefill),
+                         td=len(plan.decode), feed=feed, row_lane=row_lane,
                          scatter_lane=scatter_lane)
 
     def _execute(self, sb: StepBatch):
@@ -530,14 +662,15 @@ class Engine:
                      now: float) -> None:
         """Route host-visible sampled tokens back to their requests and
         retire the finished ones."""
-        for req, first, lane in sb.samples:
-            self._emit(req, int(toks[lane]), now, first=first)
+        for req, first, idx in sb.samples:
+            self._emit(req, int(toks[idx]), now, first=first)
         self._finish_done([req for req, _, _ in sb.samples])
 
     def _run_mixed(self, plan: StepPlan) -> None:
         """One model call for the whole step: prefill chunks + decode tokens
         through the chunked-continuation path; a decode-only step takes the
-        one-token decode path."""
+        one-token decode path. With ``pack_prefill`` the prefill chunks run
+        through the packed concat-prefill layout instead."""
         sb = self._build_step(plan)
         logits = self._execute(sb)
         toks = self._sample(logits)
@@ -547,11 +680,11 @@ class Engine:
     # ------------------------------------------------- async step dispatch --
     def _async_step(self, kind: str, inp: Dict[str, torch.Tensor]):
         """One async-pipeline step over device tensors ``inp`` (the batch
-        and ``_PLANES``): substitute column 0 from ``lane_tok`` where the
-        feed says so, run the model, lane-mask ``length``, and for greedy
-        sampling take the argmax and scatter it into ``lane_tok``. Row i
-        is lane i (no packed rows), so its feed is ``lane_tok[i]``. Returns
-        (logits, tokens); tokens is None at temperature > 0, where
+        and ``_PLANES``): substitute column 0 of row i from
+        ``lane_tok[row_lane[i]]`` (feed -1) or the host token (feed >= 0),
+        run the model, lane-mask ``length`` (not in a packed step), and for
+        greedy sampling take the argmax and scatter it into ``lane_tok``.
+        Returns (logits, tokens); tokens is None at temperature > 0, where
         ``_dispatch_async`` samples after the step with the engine's
         generator, on the same stream. Captured into the step runners'
         graphs, so everything here stays on the device."""
@@ -563,13 +696,15 @@ class Engine:
             batch["cache_len"] = dm[2]
         tok_key = "token" if kind == "decode" else "tokens"
         toks_in, feed = batch[tok_key], inp["feed"]
-        t0 = torch.where(feed == -1, self.lane_tok[:-1], toks_in[:, 0])
+        t0 = torch.where(feed == -1, self.lane_tok[inp["row_lane"].long()],
+                         torch.where(feed >= 0, feed, toks_in[:, 0]))
         batch[tok_key] = torch.cat([t0[:, None], toks_in[:, 1:]], dim=1)
         logits = self._forward(kind, batch, inp["lane_mask"] != 0)
         if not self.ecfg.sampling.greedy:
             return logits, None
         toks = sample(logits)
-        self.lane_tok.index_copy_(0, inp["scatter_lane"].long(), toks)
+        self.lane_tok.index_copy_(0, inp["scatter_lane"].long(),
+                                  toks.reshape(-1))
         return logits, toks
 
     @staticmethod
@@ -587,7 +722,8 @@ class Engine:
         the ring slot whose pinned staging buffer the runner's inputs are
         copied from without blocking; only a caller that tracks the slot's
         event may pass it (the frontend). With None the copy blocks.
-        Returns the sampled tokens (B,) int32 on the device."""
+        Returns the sampled tokens on the device, int32: (B,) per lane, a
+        packed step's (R, pack_slots)."""
         if self.faults is not None:
             self.faults.before_execute(sb)
         host = _host_inputs(sb)
@@ -603,7 +739,8 @@ class Engine:
             logits, toks = self._async_step(sb.kind, inp)
         if toks is None:
             toks = self._sample_device(logits)
-            self.lane_tok.index_copy_(0, inp["scatter_lane"].long(), toks)
+            self.lane_tok.index_copy_(0, inp["scatter_lane"].long(),
+                                      toks.reshape(-1))
         self._book_time(sb, 0.0)      # step counters; async wall time is
         return toks                   # booked end to end by the caller
 
@@ -619,19 +756,40 @@ class Engine:
             dmeta[1] = -1
             return {"dmeta": dmeta, "page_table": table,
                     "token": np.zeros((R, S), np.int32)}
-        return {"positions": np.zeros((R, S), np.int32),
-                "slot_idx": np.full((R, S), -1, np.int32),
-                "page_table": table, "cache_len": np.zeros(R, np.int32),
-                "tokens": np.zeros((R, S), np.int32),
-                "last_pos": np.zeros(R, np.int32)}
+        batch = {"positions": np.zeros((R, S), np.int32),
+                 "slot_idx": np.full((R, S), -1, np.int32),
+                 "page_table": table, "cache_len": np.zeros(R, np.int32),
+                 "tokens": np.zeros((R, S), np.int32)}
+        if kind == "packed":
+            batch.update(last_pos=np.zeros((R, self.ecfg.pack_slots),
+                                            np.int32),
+                         seg_q=np.full((R, S), -1, np.int32),
+                         page_seg=np.zeros((R, NP), np.int32),
+                         page_base=np.zeros((R, NP), np.int32))
+        else:
+            batch["last_pos"] = np.zeros(R, np.int32)
+        return batch
 
     def _warmup_lattice(self) -> List[Tuple[str, Dict[str, np.ndarray]]]:
         """Every step shape the async pipeline can dispatch: one decode
-        shape and one prefill shape per bucket."""
+        shape, one prefill shape per bucket and, when packing, every
+        (row bucket x prefill bucket) packed shape."""
         B = self.ecfg.num_lanes
+        buckets = self.scheduler.prefill_buckets
         lattice = [("decode", self._dummy_batch("decode", B, 1))]
-        for S in self.scheduler.prefill_buckets:
+        for S in buckets:
             lattice.append(("prefill", self._dummy_batch("prefill", B, S)))
+        if self.ecfg.pack_prefill:
+            row_buckets = []
+            r = 1
+            while r < B:
+                row_buckets.append(r)
+                r *= 2
+            row_buckets.append(B)
+            for R in row_buckets:
+                for S in buckets:
+                    lattice.append(("packed",
+                                    self._dummy_batch("packed", R, S)))
         return lattice
 
     def warmup(self) -> int:
@@ -653,9 +811,12 @@ class Engine:
             key = self._async_key(kind, batch)
             if key in self._runners:
                 continue
+            R = batch["page_table"].shape[0]
+            n_slots = batch["last_pos"].size if kind == "packed" else R
             host = dict(batch, lane_mask=np.ones(B, bool),
-                        feed=np.full(B, -2, np.int32),
-                        scatter_lane=np.full(B, B, np.int32))
+                        feed=np.full(R, -2, np.int32),
+                        row_lane=np.zeros(R, np.int32),
+                        scatter_lane=np.full(n_slots, B, np.int32))
             runner = _StepRunner(self, kind, host)
             runner.load(host)
             new.append((key, runner))

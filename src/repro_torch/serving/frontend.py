@@ -171,8 +171,9 @@ class AsyncEngine:
         self.watchdog_s = float(watchdog_s)
         self._submit_q: "queue.Queue[Tuple[Request, TokenStream]]" = \
             queue.Queue()
-        self._emit_q: "queue.Queue[Optional[Tuple[StepBatch, int]]]" = \
-            queue.Queue()
+        # (step, ring slot, shape of its sampled tokens); None stops
+        self._emit_q: "queue.Queue[Optional[Tuple[StepBatch, int, tuple]]]" \
+            = queue.Queue()
         self._done_q: "queue.Queue[Tuple[StepBatch, object]]" = \
             queue.Queue()
         self._streams: Dict[int, TokenStream] = {}
@@ -190,10 +191,15 @@ class AsyncEngine:
         # moment they happen; the callback runs on the loop thread
         engine.scheduler.on_terminal = self._close_stream
         # the host ring of sampled tokens: depth + 1 slots, each with the
-        # event recorded after its device-to-host copy (CUDA)
+        # event recorded after its device-to-host copy (CUDA); a slot holds
+        # a step's tokens flat: num_lanes, or a packed step's R x pack_slots
+        # (R <= num_lanes)
         cuda = engine.device.type == "cuda"
-        self._ring = torch.zeros((self.depth + 1, engine.ecfg.num_lanes),
-                                 dtype=torch.int32, pin_memory=cuda)
+        ecfg = engine.ecfg
+        width = ecfg.num_lanes * (ecfg.pack_slots if ecfg.pack_prefill
+                                  else 1)
+        self._ring = torch.zeros((self.depth + 1, width), dtype=torch.int32,
+                                 pin_memory=cuda)
         self._events = ([torch.cuda.Event() for _ in range(self.depth + 1)]
                         if cuda else None)
         self._next_slot = 0
@@ -281,14 +287,16 @@ class AsyncEngine:
             item = self._emit_q.get()
             if item is None:
                 return
-            sb, slot = item
+            sb, slot, shape = item
             try:
                 faults = self.engine.faults
                 if faults is not None:
                     faults.on_emit()
                 if self._events is not None:
                     self._events[slot].synchronize()
-                self._done_q.put((sb, self._ring[slot].numpy().copy()))
+                n = int(np.prod(shape))
+                self._done_q.put((sb, self._ring[slot, :n].numpy()
+                                  .reshape(shape).copy()))
             except WorkerKilled:
                 return                  # silent death: the watchdog fires
             except Exception as exc:
@@ -332,11 +340,11 @@ class AsyncEngine:
         eng = self.engine
         now = time.perf_counter()
         finished: List[Request] = []
-        for req, first, lane in sb.samples:
-            emitted = eng._emit(req, int(toks[lane]), now, first=first)
+        for req, first, idx in sb.samples:
+            emitted = eng._emit(req, int(toks[idx]), now, first=first)
             stream = self._streams.get(req.req_id)
             if emitted and stream is not None:
-                stream.put(int(toks[lane]))
+                stream.put(int(toks[idx]))
             finished.append(req)
         eng._finish_done(finished)
         for req in finished:
@@ -382,7 +390,8 @@ class AsyncEngine:
                                "copy completed")
         sb = eng._build_step(plan, device_feed=True)
         toks = eng._dispatch_async(sb, slot)
-        self._ring[slot].copy_(toks, non_blocking=True)
+        self._ring[slot, :toks.numel()].copy_(toks.reshape(-1),
+                                              non_blocking=True)
         if self._events is not None:
             self._events[slot].record()
         self._next_slot = (slot + 1) % len(self._ring)
@@ -392,7 +401,7 @@ class AsyncEngine:
         for req, _, _ in sb.samples:
             req.inflight += 1
         self._inflight_steps += 1
-        self._emit_q.put((sb, slot))
+        self._emit_q.put((sb, slot, tuple(toks.shape)))
         return True
 
     # ------------------------------------------------------- fault drain --

@@ -47,13 +47,15 @@ def top_p_mask(lf: torch.Tensor, top_p: float) -> torch.Tensor:
 def sample(logits: torch.Tensor, gen: Optional[torch.Generator] = None, *,
            temperature: float = 0.0, top_k: int = 0,
            top_p: float = 1.0) -> torch.Tensor:
-    """logits (B, V) -> tokens (B,) int32."""
+    """logits (..., V) -> tokens (...) int32: (B, V) per lane, or a packed
+    step's (R, G, V) per row and logits slot."""
     if temperature == 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
-    lf = logits.float() / temperature
+    lf = logits.float().reshape(-1, logits.shape[-1]) / temperature
     if top_k:
         lf = torch.where(top_k_mask(lf, top_k), lf, float("-inf"))
     if top_p < 1.0:
         lf = torch.where(top_p_mask(lf, top_p), lf, float("-inf"))
     probs = torch.softmax(lf, dim=-1)
-    return torch.multinomial(probs, 1, generator=gen)[:, 0].to(torch.int32)
+    toks = torch.multinomial(probs, 1, generator=gen)[:, 0]
+    return toks.to(torch.int32).reshape(logits.shape[:-1])

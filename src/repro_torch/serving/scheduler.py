@@ -1,9 +1,9 @@
 """Token-budget continuous-batching scheduler over ONE shared paged-KV pool —
 ONE step-composition path for every model family. A port of the JAX
 package's ``serving/scheduler.py``, kept close to verbatim so both
-schedulers compose the same steps from the same requests. The JAX
-package's page-range shards and concat-prefill row packing come with later
-slices of the port.
+schedulers compose the same steps from the same requests, with its
+concat-prefill row packing (``pack_rows``). The JAX package's page-range
+shards come with a later slice of the port (ROADMAP module item 14).
 
 The engine exposes ``num_lanes`` batch lanes, but — unlike the old
 JetStream-style static partition — lanes do NOT own private page pools: all
@@ -464,3 +464,51 @@ class Scheduler:
 
 def _younger(a: Request, b: Request) -> bool:
     return (a.arrival_time, a.req_id) > (b.arrival_time, b.req_id)
+
+
+# ----------------------------------------------- concat-prefill packing ----
+@dataclass
+class PackedRow:
+    """One engine-step row holding SEVERAL requests' prefill chunks as
+    segments — the concat-prefill layout the segment-aware chunk kernels
+    execute (per-row segment ids keep attention from leaking across
+    prompts)."""
+    chunks: List[PrefillChunk] = field(default_factory=list)
+    tokens: int = 0                # occupied query columns
+    pages: int = 0                 # page-table slots used
+    finals: int = 0                # chunks sampling a first token
+
+
+def chunk_pages(c: PrefillChunk, page_size: int) -> int:
+    """Page-table slots chunk ``c`` needs: its request's WHOLE cached
+    history through the end of the chunk (the chunk attends everything)."""
+    return -(-(c.start + c.n) // page_size)
+
+
+def pack_rows(chunks: List[PrefillChunk], width: int, pack_slots: int,
+              pages_per_lane: int, page_size: int) -> List[PackedRow]:
+    """First-fit-decreasing packing of prefill chunks into rows of
+    ``width`` query columns. A chunk is NEVER split: it lands whole in one
+    row. Row constraints: total tokens <= width, page-table slots <=
+    ``pages_per_lane`` (the step's page-table width) and sampled chunks
+    (final=True) <= ``pack_slots`` (the packed step's per-row logits
+    slots). The JAX package also keeps a row on one KV shard; the port's
+    pool is one page range (``CacheConfig.num_shards`` is 1), so that
+    constraint always holds until page-range shards are ported (ROADMAP
+    module item 14)."""
+    rows: List[PackedRow] = []
+    for c in sorted(chunks, key=lambda c: -c.n):
+        np_c = chunk_pages(c, page_size)
+        for row in rows:
+            if (row.tokens + c.n <= width
+                    and row.pages + np_c <= pages_per_lane
+                    and row.finals + int(c.final) <= pack_slots):
+                break
+        else:
+            row = PackedRow()
+            rows.append(row)
+        row.chunks.append(c)
+        row.tokens += c.n
+        row.pages += np_c
+        row.finals += int(c.final)
+    return rows

@@ -1,5 +1,7 @@
-"""The port's configs, CoOpt modes, FP8 quantizer, Opt-GQA helpers and
-sampler masks against the JAX package."""
+"""The port's configs (arch files, the paper's models, the assigned input
+shapes), CoOpt modes, FP8 quantizer, Opt-GQA helpers and sampler masks
+against the JAX package; qwen2.5-14b-reduced's logits (qkv bias) against
+the JAX model."""
 import dataclasses
 
 import numpy as np
@@ -7,17 +9,25 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro import configs as jconfigs  # noqa: E402
 from repro.cache import quant as jquant  # noqa: E402
 from repro.configs import get_config as jget_config  # noqa: E402
+from repro.configs import paper_models as jpaper  # noqa: E402
 from repro.core import coopt as jcoopt  # noqa: E402
 from repro.core import opt_gqa as jgqa  # noqa: E402
+from repro.models import get_model as jget_model  # noqa: E402
 from repro.serving import sampler as jsampler  # noqa: E402
 
 from repro_torch.cache import quant  # noqa: E402
+from repro_torch import configs  # noqa: E402
 from repro_torch.configs import ALL_IDS, CacheConfig, get_config  # noqa: E402
+from repro_torch.configs import paper_models  # noqa: E402
 from repro_torch.core import coopt, opt_gqa  # noqa: E402
+from repro_torch.models import get_model  # noqa: E402
+from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.serving import sampler  # noqa: E402
 
 
@@ -30,9 +40,100 @@ def test_configs_agree_field_for_field(arch):
     assert mine.param_count() == ref.param_count()
 
 
+@pytest.mark.parametrize("arch", [a + s for a in ALL_IDS
+                                  for s in ("", "-reduced")])
+def test_active_param_count_agrees(arch):
+    """Parameters a token reads (MoE: its top-k routed experts) equal the
+    JAX package's count."""
+    mine, ref = get_config(arch), jget_config(arch)
+    assert mine.active_param_count() == ref.active_param_count()
+    assert mine.active_param_count() <= mine.param_count()
+    assert (mine.active_param_count() < mine.param_count()) == \
+        bool(mine.num_experts)
+
+
 def test_unported_arch_raises():
     with pytest.raises(KeyError, match="not ported"):
         get_config("mixtral-8x22b")
+
+
+def test_registry_exports_agree():
+    """``ARCH_IDS`` is the JAX list less the families not ported yet, each
+    of which still raises; ``ALL_IDS`` adds the paper's model."""
+    ported = [a for a in jconfigs.ARCH_IDS if a in ALL_IDS]
+    assert configs.ARCH_IDS == ported
+    assert set(ported) == {"yi-34b", "deepseek-v2-lite-16b", "qwen3-4b",
+                           "qwen2.5-14b", "deepseek-67b"}
+    assert ALL_IDS == [a for a in jconfigs.ALL_IDS if a in ALL_IDS]
+    for arch in set(jconfigs.ALL_IDS) - set(ALL_IDS):
+        with pytest.raises(KeyError, match="not ported"):
+            get_config(arch)
+
+
+@pytest.mark.parametrize("name", sorted(jpaper.PAPER_MODELS))
+def test_paper_models_agree_field_for_field(name):
+    """The paper's five evaluation models and their ``bench_reduced``
+    variants equal the JAX package's, field for field, with equal
+    parameter counts."""
+    mine, ref = paper_models.PAPER_MODELS[name], jpaper.PAPER_MODELS[name]
+    assert list(paper_models.PAPER_MODELS) == list(jpaper.PAPER_MODELS)
+    assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+    for kw in ({}, dict(layer_div=4, width_div=8, vocab=1024)):
+        b, jb = paper_models.bench_reduced(mine, **kw), \
+            jpaper.bench_reduced(ref, **kw)
+        assert dataclasses.asdict(b) == dataclasses.asdict(jb)
+        assert b.param_count() == jb.param_count()
+    assert mine.active_param_count() == ref.active_param_count()
+
+
+def test_input_shapes_agree():
+    assert list(configs.SHAPES) == list(jconfigs.SHAPES)
+    for name, shape in configs.SHAPES.items():
+        assert dataclasses.asdict(shape) == \
+            dataclasses.asdict(jconfigs.get_shape(name))
+        assert configs.get_shape(name) is shape
+    with pytest.raises(KeyError):
+        configs.get_shape("no-such-shape")
+
+
+def test_qkv_bias_model_logits_match_jax():
+    """qwen2.5-14b-reduced (qkv bias, G 2): a full-prompt prefill and a
+    decode step on the same weights, with the biases set to seeded random
+    values in both (the init makes them zero), give the JAX model's logits
+    within tests/test_torch_model.py's LOGIT_ATOL (0.1: bf16 activations
+    through 2 layers round differently in the two frameworks)."""
+    arch = "qwen2.5-14b-reduced"
+    cfg, jcfg = get_config(arch), jget_config(arch)
+    assert cfg.qkv_bias
+    tree = jax.tree.map(np.asarray,
+                        jget_model(jcfg).init(jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(5)
+    seg = tree["segments"][0]
+    for k in ("bq", "bk", "bv"):
+        seg[k] = (rng.standard_normal(seg[k].shape) * 0.5).astype(
+            seg[k].dtype)
+    jparams = jax.tree.map(jnp.asarray, tree)
+    params = params_from_numpy(cfg, tree, "cpu")
+    assert params["segments"][0]["bq"].abs().sum() > 0
+    mode = coopt.MODES["coopt"].replace(page_size=16)
+    jmode = jcoopt.MODES["coopt"].replace(page_size=16)
+    model, jmodel = get_model(cfg), jget_model(jcfg)
+    cache = model.init_cache(2, 64, mode, device="cpu")
+    jcache = jmodel.init_cache(2, 64, jmode)
+    toks = rng.integers(0, cfg.vocab_size, (2, 20)).astype(np.int32)
+    nxt = rng.integers(0, cfg.vocab_size, (2, 1)).astype(np.int32)
+    for step, batch in (("prefill", {"tokens": toks}),
+                        ("decode_step", {"token": nxt})):
+        jl, jcache = getattr(jmodel, step)(
+            jparams, {k: jnp.asarray(v) for k, v in batch.items()}, jcache,
+            jmode)
+        tl, cache = getattr(model, step)(
+            params, {k: torch.from_numpy(v) for k, v in batch.items()},
+            cache, mode)
+        np.testing.assert_allclose(tl.float().numpy(),
+                                   np.asarray(jl, np.float32), atol=0.1)
+        np.testing.assert_array_equal(cache["length"].numpy(),
+                                      np.asarray(jcache["length"]))
 
 
 def test_cache_config_and_modes_agree():

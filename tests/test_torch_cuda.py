@@ -176,7 +176,13 @@ _DECODE_CASES = {
     "b1": (1, 6, 32, None), "b2": (2, 6, 32, 3),
     "b32": (32, 3, 32, None),          # page 0 shared by all 32: bit 31
     "all_share": (4, 6, 32, 6),        # a 3-page prefix of every lane
+    # the served models' head groups on the engine's 64-token pages:
+    # qwen2.5-14b (G 5), yi-34b (G 7), deepseek-67b (G 8), llama13b (G 1)
+    "g5": (4, 16, 64, None), "g7": (4, 16, 64, None),
+    "g8": (4, 16, 64, None), "g1": (4, 16, 64, None),
 }
+# (Hkv, G) of a case; G 4 over 2 KV heads otherwise
+_DECODE_HEADS = {"g5": (8, 5), "g7": (8, 7), "g8": (8, 8), "g1": (40, 1)}
 
 
 def _decode_tables(case, dev):
@@ -217,7 +223,10 @@ def _decode_tables(case, dev):
        (False, True, 0, 0, 128, "ps16"), (True, True, 0, 0, 128, "ps128"),
        (False, True, 0, 0, 128, "ps128"), (True, True, 0, 0, 128, "b1"),
        (True, True, 0, 0, 128, "b2"), (True, True, 0, 0, 128, "b32"),
-       (False, False, 0, 0, 64, "b32"), (True, True, 0, 0, 128, "all_share")])
+       (False, False, 0, 0, 64, "b32"), (True, True, 0, 0, 128, "all_share")]
+    # K4 at the served models' G, fp8 and bf16 pools
+    + [(kv, True, 0, 0, 128, g) for g in ("g5", "g7", "g8", "g1")
+       for kv in (True, False)])
 def test_decode_kernels(dev, monkeypatch, opt_kv, opt_gqa, window, sink, D,
                         case):
     """K2 vs its plain version within one bf16 ulp; K4 bit-identical to
@@ -226,7 +235,7 @@ def test_decode_kernels(dev, monkeypatch, opt_kv, opt_gqa, window, sink, D,
     if sms is not None:       # the wrapper keys its SM count by q.device
         monkeypatch.setitem(pd._SMS, torch.device(
             "cuda", torch.cuda.current_device()), sms)
-    Hkv, G = 2, 4
+    Hkv, G = _DECODE_HEADS.get(case, (2, 4))
     table, cl = _decode_tables(case, dev)
     B = table.shape[0]
     kv, sc = _pool(dev, B * NP + 1, ps, Hkv, D, opt_kv)
@@ -931,3 +940,202 @@ def test_failed_capture_raises_and_registers_no_runner(dev, monkeypatch):
         eng.warmup()
     assert eng._runners == {} and eng.trace_counts == {}
     torch.cuda.synchronize()
+
+
+# ------------------------------------------------ packed steps (packing) --
+# Two waves of requests, the second admitted after the first step: the
+# first step packs two prompts into ONE row (R 1); the second puts two
+# decode rows beside a row of two new prompts (R 4).
+PACK_WAVES = ((10, 15), (100, 120, 90, 30))
+PACK_RUNNERS = 1 + 3 + 3 * 3     # decode, 3 prefill buckets, 3 x 3 packed
+
+
+def _packed_engine(dev, arch="qwen3-4b-reduced"):
+    from repro_torch.configs import get_config
+    from repro_torch.core.coopt import COOPT
+    from repro_torch.serving import Engine, EngineConfig
+    return Engine(get_config(arch), COOPT.replace(use_kernel=True),
+                  EngineConfig(num_lanes=4, max_len=256,
+                               prefill_buckets=(32, 64, 128),
+                               pack_prefill=True),
+                  device=dev)
+
+
+def _serve_waves(eng, run, max_new_tokens=8):
+    """Serve PACK_WAVES one step at a time; ``run(sb)`` runs each built
+    async step and returns its tokens, or None to stop."""
+    import time
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(0)
+    n = 0
+    for step in range(200):
+        for length in (PACK_WAVES[step] if step < len(PACK_WAVES) else ()):
+            eng.add_request(Request(
+                req_id=n, prompt=rng.integers(0, 512, length, dtype=np.int32),
+                max_new_tokens=max_new_tokens, arrival_time=float(n)))
+            n += 1
+        if not eng.scheduler.has_work:
+            return
+        plan = eng.scheduler.schedule_step()
+        if plan.empty:
+            continue
+        sb = eng._build_step(plan, device_feed=True)
+        toks = run(sb)
+        if toks is None:
+            return
+        eng._note_executed(sb)
+        eng._postprocess(sb, np.asarray(toks.cpu()), time.perf_counter())
+
+
+@pytest.mark.parametrize("rows", [1, 4])
+def test_packed_replay_matches_eager_step(dev, rows):
+    """A captured packed runner replayed against the eager body from the
+    same pool state, at R 1 (two prompts in one row) and R 4 (decode rows
+    beside a row of two prompts): logits, pool bytes and the lane feed
+    bit-equal, and the pool's length leaf untouched."""
+    eng = _packed_engine(dev)
+    assert eng.warmup() == PACK_RUNNERS
+    seen = []
+
+    def run(sb):
+        if sb.kind != "packed" or len(sb.row_lane) != rows:
+            return eng._dispatch_async(sb)
+        length = eng.cache["length"].clone()
+        (le, pe, fe), (lr, pr, fr) = _replay_against_eager(eng, sb)
+        assert torch.equal(le, lr)
+        for k in pe:
+            assert torch.equal(pe[k].view(torch.uint8),
+                               pr[k].view(torch.uint8)), k
+        assert torch.equal(fe, fr)
+        assert torch.equal(eng.cache["length"], length)
+        assert int(sb.batch["seg_q"].max()) >= 1       # a shared row
+        seen.append(rows)
+        return None
+    _serve_waves(eng, run)
+    assert seen == [rows]
+
+
+def test_packed_async_engine_counts_launches_through_replays(dev):
+    """With packing, every prefill step is a packed runner's replay: each
+    packed runner's capture counted K1 and K3 once per layer, a replay
+    adds exactly that, and the served run's K1/K3/K4 launches follow its
+    steps; no miss, and the tokens equal the sync packed engine's."""
+    import numpy as np
+    from repro_torch.serving import AsyncEngine
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 512, n, dtype=np.int32)
+               for n in (10, 15, 40, 100, 120, 90, 30, 8)]
+    want = _packed_engine(dev).generate(prompts, max_new_tokens=8)
+    eng = _packed_engine(dev)
+    fe = AsyncEngine(eng, warmup=True)
+    assert fe.warmed_shapes == PACK_RUNNERS
+    L = eng.cfg.num_layers
+    for r in eng._runners.values():
+        assert r.launches == ({"kv_cache_write": L,
+                               "paged_pool_decode_visits": L}
+                              if r.kind == "decode" else
+                              {"kv_cache_write": L,
+                               "flash_chunk_prefill": L})
+    packed = next(r for r in eng._runners.values() if r.kind == "packed")
+    cuda.reset_launches()
+    packed.run()
+    torch.cuda.synchronize()
+    assert {k: v for k, v in cuda.LAUNCHES.items() if v} == packed.launches
+    cuda.reset_launches()
+    hs = [fe.submit(p, max_new_tokens=8) for p in prompts]
+    fe.run_until_idle()
+    fe.close()
+    torch.cuda.synchronize()
+    st = eng.stats
+    steps = st.prefill_calls + st.decode_steps - st.mixed_steps
+    assert eng.aot_misses == 0
+    assert st.packed_steps == st.prefill_calls > 0
+    assert st.packed_rows_saved > 0
+    assert cuda.LAUNCHES["kv_cache_write"] == L * steps
+    assert cuda.LAUNCHES["flash_chunk_prefill"] == L * st.packed_steps
+    assert cuda.LAUNCHES["paged_pool_decode_visits"] == \
+        L * (st.decode_steps - st.mixed_steps)
+    assert [list(h.req.output) for h in hs] == [list(w) for w in want]
+
+
+def _engine_packed_batches(arch):
+    """The packed steps' batches of a CPU engine serving PACK_WAVES
+    (emissions faked, no model run), with its pool's page count."""
+    import numpy as np
+    eng = _packed_engine("cpu", arch)
+    out = []
+
+    def run(sb):
+        if sb.kind == "packed":
+            out.append(sb.batch)
+        shape = ((len(sb.row_lane), eng.ecfg.pack_slots)
+                 if sb.kind == "packed" else eng.ecfg.num_lanes)
+        return torch.ones(shape, dtype=torch.int32)
+    _serve_waves(eng, run)
+    assert len(out) >= 2 and {b["page_table"].shape[0] for b in out} >= {1, 4}
+    pages = eng.cache["kv"].shape[1 if eng.cfg.family == "mla" else 2]
+    return [{k: torch.as_tensor(np.asarray(v)) for k, v in b.items()}
+            for b in out], pages, eng.coopt.page_size
+
+
+@pytest.mark.parametrize("Hq,Hkv,opt_kv", [(40, 8, True), (40, 8, False),
+                                           (40, 40, True), (56, 8, True),
+                                           (64, 8, True)],
+                         ids=["qwen2.5-14b-fp8", "qwen2.5-14b-bf16",
+                              "llama13b-fp8", "yi-34b-fp8",
+                              "deepseek-67b-fp8"])
+def test_chunk_kernel_on_engine_packed_batches(dev, Hq, Hkv, opt_kv):
+    """K3 on the planes of engine-built packed steps (rows of several
+    segments, ``page_base`` restarting per segment, decode rows, pad rows
+    of segment -1) at qwen2.5-14b's (G 5), llama13b-gptq's (G 1), yi-34b's
+    (G 7) and deepseek-67b's (G 8) heads:
+    within one bf16 ulp of its plain version; pad rows exactly 0."""
+    D = 128
+    batches, P, ps = _engine_packed_batches("qwen3-4b-reduced")
+    kv, sc = _pool(dev, P, ps, Hkv, D, opt_kv)
+    ks, vs = (sc[0], sc[1]) if opt_kv else (None, None)
+    for b in batches:
+        b = {k: v.to(dev) for k, v in b.items()}
+        R, S = b["positions"].shape
+        q = torch.randn((R, S, Hq, D), device=dev).bfloat16()
+        planes = dict(seg_q=b["seg_q"], page_seg=b["page_seg"],
+                      page_base=b["page_base"])
+        cuda.reset_launches()
+        got = ops.paged_chunk_prefill(q, b["positions"], kv, sc,
+                                      b["page_table"], opt_kv=opt_kv,
+                                      opt_gqa=True, sink_pages=1, **planes)
+        plain = fc.flash_chunk_prefill_ref(
+            q, b["positions"], kv[0], kv[1], ks, vs, b["page_table"],
+            opt_kv=opt_kv, opt_gqa=True, sink_pages=1, **planes)
+        torch.cuda.synchronize()
+        assert cuda.LAUNCHES["flash_chunk_prefill"] == 1
+        _assert_close(got, plain)
+        assert torch.all(got[b["seg_q"] < 0] == 0)
+
+
+@pytest.mark.parametrize("opt_kv", [True, False])
+def test_latent_chunk_kernel_on_engine_packed_batches(dev, opt_kv):
+    """K6 on the planes of engine-built packed steps of the MLA family at
+    deepseek-v2-lite's widths (H 16, R 512, dr 64): within LAT_RTOL /
+    LAT_ATOL of its plain version; pad rows exactly 0."""
+    from repro_torch.kernels import latent_chunk_prefill as lc
+    R, dr, H = 512, 64, 16
+    batches, P, ps = _engine_packed_batches("deepseek-v2-lite-16b-reduced")
+    lat, sc = _latent_pool(dev, P, ps, R, dr, opt_kv)
+    for b in batches:
+        b = {k: v.to(dev) for k, v in b.items()}
+        rows, S = b["positions"].shape
+        ql, qr = _latent_q(dev, (rows, S, H, R), dr)
+        kw = dict(sm_scale=0.07, opt_kv=opt_kv, sink_pages=1,
+                  seg_q=b["seg_q"], page_seg=b["page_seg"],
+                  page_base=b["page_base"])
+        cuda.reset_launches()
+        got = ops.latent_chunk_prefill(ql, qr, b["positions"], lat, sc,
+                                       b["page_table"], **kw)
+        plain = lc.latent_chunk_prefill_ref(ql, qr, b["positions"], lat, sc,
+                                            b["page_table"], **kw)
+        torch.cuda.synchronize()
+        assert cuda.LAUNCHES["latent_chunk_prefill"] == 1
+        torch.testing.assert_close(got, plain, rtol=LAT_RTOL, atol=LAT_ATOL)
+        assert torch.all(got[b["seg_q"] < 0] == 0)

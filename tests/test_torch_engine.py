@@ -127,11 +127,15 @@ def test_generate_matches_jax_engine(weights, jax_run, use_kernel):
 
 
 def test_unported_options_raise(weights):
+    """The options the port does not serve yet raise; ``pack_prefill``,
+    ported since, builds an engine that packs."""
     _, params = weights
     cfg = get_config(ARCH)
-    with pytest.raises(NotImplementedError, match="pack_prefill"):
-        Engine(cfg, MODES["coopt"], EngineConfig(pack_prefill=True),
-               params=params, device="cpu")
+    eng = Engine(cfg, MODES["coopt"], EngineConfig(pack_prefill=True),
+                 params=params, device="cpu")
+    outs = eng.generate([np.arange(5), np.arange(9)], max_new_tokens=2)
+    assert [len(o) for o in outs] == [2, 2]
+    assert eng.stats.packed_steps > 0 and eng.stats.packed_rows_saved > 0
     with pytest.raises(NotImplementedError, match="host-DRAM"):
         Engine(cfg, MODES["coopt"],
                EngineConfig(cache=CacheConfig(host_pages=4)), params=params,

@@ -1,8 +1,8 @@
 """The port's ``AsyncEngine`` on the CPU: greedy token identity with its own
 sync ``Engine`` under interleaved submissions, cancel releasing pool pages
 mid-stream, zero misses after warmup, TTFT anchored at submission (the
-cases of ``tests/test_async_frontend.py``, without the packed lattice,
-which is not ported); the same tokens as the JAX package's ``AsyncEngine``
+cases of ``tests/test_async_frontend.py``; the packed lattice is in
+``tests/test_torch_packing.py``); the same tokens as the JAX package's ``AsyncEngine``
 on the same weights; ``_build_step(device_feed=True)``'s token plumbing and
 fused decode metadata equal to the JAX package's for the same plans; and
 the step runners' buffers, the launch counting through graph replays and
@@ -385,10 +385,10 @@ def _fake_emit(eng, sb):
 
 def test_build_step_device_feed_matches_jax():
     """For the same plans, ``_build_step(plan, device_feed=True)`` gives
-    the JAX package's kind, samples, ``feed`` and ``scatter_lane``, the
-    decode step's fused ``dmeta`` and page table, and the prefill step's
-    index arrays; the JAX ``row_lane`` is the identity the port's
-    ``_async_step`` assumes (row i takes lane i's feed). Both engines
+    the JAX package's kind, samples, ``feed``, ``row_lane`` and
+    ``scatter_lane``, the decode step's fused ``dmeta`` and page table, and
+    the prefill step's index arrays (row i is lane i: ``row_lane`` is the
+    identity without packing). Both engines
     schedule the same requests; emissions are faked, so no model runs."""
     rng = np.random.default_rng(8)
     prompts = _prompts(6, rng, lo=20, hi=100)
@@ -410,12 +410,11 @@ def test_build_step_device_feed_matches_jax():
         kinds.add(sb.kind if not plan.prefill or not plan.decode
                   else "mixed")
         assert sb.kind == jsb.kind
-        assert [(r.req_id, f, (lane,)) for r, f, lane in sb.samples] == \
+        assert [(r.req_id, f, idx) for r, f, idx in sb.samples] == \
             [(r.req_id, f, idx) for r, f, idx in jsb.samples]
-        for k in ("feed", "scatter_lane", "lane_mask"):
+        for k in ("feed", "row_lane", "scatter_lane", "lane_mask"):
             np.testing.assert_array_equal(getattr(sb, k), getattr(jsb, k))
-        np.testing.assert_array_equal(jsb.row_lane,
-                                      np.arange(len(sb.feed)))
+        np.testing.assert_array_equal(sb.row_lane, np.arange(len(sb.feed)))
         assert sorted(sb.batch) == sorted(
             k for k in jsb.batch if k != "pad_mask")
         for k, v in sb.batch.items():
