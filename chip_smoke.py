@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --only kernels   # or write|decode|latent|engine|
-                                           # prefill|async|mla|packed|parity
+                                           # prefill|async|serve|mla|packed|
+                                           # parity
     python3 chip_smoke.py --only decode --src OTHER/src
                                      # K2/K4 of another tree's package
                                      # (--only write: K1; --only latent:
@@ -75,6 +76,26 @@ Phases:
      fault closes every stream with ERROR and leaves no page in use, a
      cancel mid-stream frees its pages, and temperature 0.8 gives tokens
      inside the vocabulary.
+  4c. The serving launcher (``repro_torch.launch.serve.ServeRunner``) on
+     qwen3-4b at full width and depth (``SERVE``): 16 ShareGPT requests
+     (``RequestStream``, scale 1.0: prompts up to 2048 tokens), 32 new
+     tokens, Poisson arrivals at 2 requests/s, 4 lanes; sync, async and
+     async + packing built up front on one parameter dict and warmed with
+     a pass each, then measured round-robin, 2 passes each: tokens/s,
+     TTFT/TPOT/queue-wait p50/p95, steps, packed steps; every request
+     finished, the async runners with no step missing a runner and no
+     runner built after the warmup (``assert_aot``), their tokens equal to
+     the sync pass's or parted at a near-tie. mixtral-8x22b (MoE, window
+     4096 + a sink page, G 6) at full width and 4 of its 56 layers
+     (``SERVE_MOE``: a 5000-token prompt and 3 ShareGPT ones, 16 tokens)
+     and internvl2-2b (vlm, a 1024-position patch stub, G 2) at full width
+     and depth (``SERVE_VLM``: 8 ShareGPT requests), each through
+     ``Engine.generate`` and ``AsyncEngine`` (tokens held as in 4b/5b):
+     K3 and K4 held to their plain versions on steps of the sync run, a
+     windowed chunk and decode past the window (controls: the window
+     dropped, the newest key masked off) and a chunk past the stub; K4
+     bit-identical to K2; the launches in windowed steps counted; a vlm
+     engine with ``pack_prefill`` must raise.
   5. ``Engine.generate`` on deepseek-v2-lite-16b (MLA + MoE) at full width
      and depth, the same requests: K6 and K7 must launch. Then a one-lane
      engine (4 layers: 1 dense-FFN, 3 MoE) on which K5 must launch.
@@ -99,7 +120,8 @@ Phases:
      async run's own steps replayed eagerly (its chunk and row layout:
      expert capacity is per row), and where a request's layout equals the
      sync run's, to the sync run too, each at a near-tie at most.
-  6. qwen3-4b-reduced and deepseek-v2-lite-16b-reduced with the same
+  6. qwen3-4b-reduced, deepseek-v2-lite-16b-reduced, mixtral-8x22b-reduced
+     and internvl2-2b-reduced (``PARITY``) with the same
      weights on the card (kernels) and on the CPU (plain versions): the
      first step's logits, and each request's logits until its stream
      parts, within ``LOGIT_ATOL``; first greedy tokens equal, a later one
@@ -111,8 +133,9 @@ Each kernel's launch count is read from the path that runs it, the counts
 set to 0 just before that path and read just after; a kernel that never
 launched fails the run. Launches through a CUDA graph count once a replay
 (the counts its capture made, ``kernels/cuda.py:capture_launches``); the
-``kernels`` line gives them as ``async_launches``, and the packed phase's
-packed runs' as ``packed_launches``. K1's are also split by the shape that runs them
+``kernels`` line gives them as ``async_launches``, the packed phase's
+packed runs' as ``packed_launches`` and the serve phase's runs' as
+``serve_launches``. K1's are also split by the shape that runs them
 (the 4-lane engine's mixed and decode steps, the full-prompt path). The
 line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
@@ -2086,30 +2109,48 @@ def packed_prompts(cfg, n=12):
     return out
 
 
-def _launches_in_packed_steps(eng, kernel="flash_chunk_prefill"):
-    """Count ``kernel``'s launches made inside the engine's packed steps
-    (sync path); returns the dict the count lands in."""
+def _launches_in_steps(eng, when):
+    """Count every kernel's launches made inside the engine's steps for
+    which ``when(step)`` holds, through the sync path's model calls and
+    the async path's dispatches (graph replays); returns the dict the
+    counts land in."""
     from repro_torch.kernels import cuda
-    run_model, got = eng._run_model, {"launches": 0}
+    run_model, dispatch, got = eng._run_model, eng._dispatch_async, {}
 
-    def counted(sb):
-        n0 = cuda.LAUNCHES[kernel]
-        logits = run_model(sb)
-        if sb.kind == "packed":
-            got["launches"] += cuda.LAUNCHES[kernel] - n0
-        return logits
-    eng._run_model = counted
+    def counting(fn):
+        def counted(sb, *a):
+            n0 = dict(cuda.LAUNCHES)
+            out = fn(sb, *a)
+            if when(sb):
+                for k, n in cuda.LAUNCHES.items():
+                    if n != n0.get(k, 0):
+                        got[k] = got.get(k, 0) + n - n0.get(k, 0)
+            return out
+        return counted
+    eng._run_model, eng._dispatch_async = counting(run_model), \
+        counting(dispatch)
     return got
 
 
-def _capture_kernel_inputs(torch):
-    """Keep the inputs of the first K3 call in a packed step with a row of
-    several prompts and of the first K4 call (a decode-only step through
-    the visit list), every tensor cloned (the layer's pool too: later
-    steps write it), for ``_hold_to_plain``. Patches
-    ``ops.paged_chunk_prefill`` and ``ops.paged_pool_decode``, which the
-    models call, until ``restore()``. Returns (the calls by kernel,
-    restore)."""
+def _packed(sb):
+    return sb.kind == "packed"
+
+
+def _several_prompts_a_row(args, kw):
+    """A K3 call of a packed step with a row of several prompts."""
+    return kw.get("seg_q") is not None and int(kw["seg_q"].max()) > 0
+
+
+def _capture_kernel_inputs(torch, chunk_when=_several_prompts_a_row,
+                           decode_when=None):
+    """Keep the inputs of the first K3 call for which ``chunk_when(args,
+    kw)`` holds (default: a packed step with a row of several prompts) and
+    of the first K4 call (a decode-only step through the visit list) for
+    which ``decode_when`` holds (default: any), every tensor cloned (the
+    layer's pool too: later steps write it), for ``_hold_to_plain``.
+    Patches ``ops.paged_chunk_prefill`` and ``ops.paged_pool_decode``,
+    which the models call, until ``restore()``. Returns (the calls by
+    kernel, restore)."""
     from repro_torch.kernels import ops
     got, saved = {}, (ops.paged_chunk_prefill, ops.paged_pool_decode)
 
@@ -2120,8 +2161,7 @@ def _capture_kernel_inputs(torch):
                      {k: clone(v) for k, v in kw.items()})
 
     def chunk(*args, **kw):
-        if "flash_chunk_prefill" not in got and \
-                kw.get("seg_q") is not None and int(kw["seg_q"].max()) > 0:
+        if "flash_chunk_prefill" not in got and chunk_when(args, kw):
             keep("flash_chunk_prefill", args, kw)
         return saved[0](*args, **kw)
 
@@ -2130,7 +2170,8 @@ def _capture_kernel_inputs(torch):
         B, Hq, D = q.shape
         if "paged_pool_decode_visits" not in got and ops._gqa_use_visits(
                 kw.get("share_visits", False), B, Hq, kv.shape[3], D,
-                kv.shape[2], kw["opt_kv"], kw["opt_gqa"]):
+                kv.shape[2], kw["opt_kv"], kw["opt_gqa"]) and (
+                decode_when is None or decode_when(args, kw)):
             keep("paged_pool_decode_visits", args, kw)
         return saved[1](*args, **kw)
 
@@ -2144,11 +2185,13 @@ def _hold_to_plain(torch, got, what):
     """K3 and K4 on the engine-built inputs ``got``
     (``_capture_kernel_inputs``), each launched once through its wrapper
     and held to its plain version on the same inputs: K3 within one bf16
-    ulp beside a control (its packing planes dropped, so each segment
-    also sees its row-mates' keys) that must fail; K4 bit-identical to K2
-    on the same step and K2 within the ulp of its plain version beside a
-    control (each lane's newest key masked off) that must fail. Returns
-    {kernel: summary}."""
+    ulp beside a control that must fail (a packed step: its planes
+    dropped, so each segment also sees its row-mates' keys; else a
+    windowed step: the window dropped; else each row's newest key masked
+    off); K4 bit-identical to K2 on the same step and K2 within the ulp of
+    its plain version beside a control (each lane's newest key masked
+    off) that must fail, and on a windowed step a second one (the window
+    dropped). Returns {kernel: summary}."""
     from repro_torch.kernels import cuda, ops
     from repro_torch.kernels import flash_chunk_prefill as fc
     from repro_torch.kernels import paged_gqa_decode as pd
@@ -2158,21 +2201,33 @@ def _hold_to_plain(torch, got, what):
     (q, pos, kv, sc, table), kw = got["flash_chunk_prefill"]
     ks, vs = (sc[0], sc[1]) if sc is not None else (None, None)
     base = {k: kw[k] for k in ("opt_kv", "opt_gqa", "window", "sink_pages")}
-    planes = {k: kw[k].int() for k in ("seg_q", "page_seg", "page_base")}
+    packed = kw.get("seg_q") is not None
+    planes = {k: kw[k].int() for k in ("seg_q", "page_seg", "page_base")} \
+        if packed else {}
     n0 = cuda.LAUNCHES["flash_chunk_prefill"]
     k3 = ops.paged_chunk_prefill(q, pos, kv, sc, table, **kw)
     n3 = cuda.LAUNCHES["flash_chunk_prefill"] - n0
     ref = (q, pos.int(), kv[0], kv[1], ks, vs, table.int())
     p3 = fc.flash_chunk_prefill_ref(*ref, **base, **planes)
-    c3 = fc.flash_chunk_prefill_ref(*ref, **base)
+    if packed:
+        control3 = "planes dropped"
+        c3 = fc.flash_chunk_prefill_ref(*ref, **base)
+    elif base["window"]:
+        control3 = "window dropped"
+        c3 = fc.flash_chunk_prefill_ref(*ref, **dict(base, window=0))
+    else:
+        control3 = "newest key masked off"
+        c3 = fc.flash_chunk_prefill_ref(q, pos.int() - 1, *ref[2:], **base)
     torch.cuda.synchronize()
     r3, err3 = tol_ratio(k3, p3)
     rc3, errc3 = tol_ratio(k3, c3)
     R, S, Hq, _ = q.shape
     out["flash_chunk_prefill"] = dict(
-        G=Hq // kv.shape[3], rows=R, S=S,
-        segments=int(planes["seg_q"].max()) + 1, ratio=r3,
-        max_abs_err=err3, control_ratio=rc3, control_err=errc3)
+        G=Hq // kv.shape[3], rows=R, S=S, window=base["window"],
+        max_position=int(pos.max()),
+        segments=int(planes["seg_q"].max()) + 1 if packed else 1, ratio=r3,
+        max_abs_err=err3, control=control3, control_ratio=rc3,
+        control_err=errc3)
     (q, kv, sc, cl, phys, logt), kw = got["paged_pool_decode_visits"]
     ks, vs = (sc[0], sc[1]) if sc is not None else (None, None)
     base = {k: kw[k] for k in ("opt_kv", "opt_gqa", "window", "sink_pages")}
@@ -2186,6 +2241,9 @@ def _hold_to_plain(torch, got, what):
                                   **base)
     c2 = pd.paged_pool_decode_ref(*ref, (cl.int() - 1).clamp(min=0),
                                   phys.int(), logt.int(), **base)
+    w2 = pd.paged_pool_decode_ref(*ref, cl.int(), phys.int(), logt.int(),
+                                  **dict(base, window=0)) \
+        if base["window"] else None
     torch.cuda.synchronize()
     r2, err2 = tol_ratio(k2, p2)
     rc2, errc2 = tol_ratio(k2, c2)
@@ -2193,22 +2251,31 @@ def _hold_to_plain(torch, got, what):
     bitwise = torch.equal(k4, k2)
     out["paged_pool_decode_visits"] = dict(
         G=q.shape[1] // kv.shape[3], lanes=q.shape[0],
-        cache_len=cl.tolist(), ratio=r4, max_abs_err=err4,
-        bit_identical_to_k2=bitwise, k2_ratio=r2, k2_err=err2,
-        control_ratio=rc2, control_err=errc2)
-    log(f"{what}: K3 on an engine-built packed step (G {Hq // kv.shape[3]},"
-        f" {R} rows x {S}, up to {out['flash_chunk_prefill']['segments']} "
-        f"prompts a row): max |kernel - plain| {err3:.3e} = {r3:.3f} of the "
-        f"tolerance; control, planes dropped: {errc3:.3e} = {rc3:.2f}. K4 "
-        f"on an engine-built decode step (cache_len {cl.tolist()}): "
-        f"bit-identical to K2 {bitwise}, max |kernel - plain| {err4:.3e} = "
-        f"{r4:.3f} of the tolerance; control, newest key masked off: "
-        f"{errc2:.3e} = {rc2:.2f}")
+        cache_len=cl.tolist(), window=base["window"], ratio=r4,
+        max_abs_err=err4, bit_identical_to_k2=bitwise, k2_ratio=r2,
+        k2_err=err2, control_ratio=rc2, control_err=errc2)
+    line = ""
+    if w2 is not None:
+        rw2, errw2 = tol_ratio(k2, w2)
+        out["paged_pool_decode_visits"].update(window_control_ratio=rw2,
+                                               window_control_err=errw2)
+        line = f"; control, window dropped: {errw2:.3e} = {rw2:.2f}"
+    kind = "packed" if packed else "windowed" if base["window"] else "mixed"
+    log(f"{what}: K3 on an engine-built {kind} step (G {Hq // kv.shape[3]},"
+        f" {R} rows x {S}, positions to {int(pos.max())}, up to "
+        f"{out['flash_chunk_prefill']['segments']} prompts a row): max "
+        f"|kernel - plain| {err3:.3e} = {r3:.3f} of the tolerance; control, "
+        f"{control3}: {errc3:.3e} = {rc3:.2f}. K4 on an engine-built decode "
+        f"step (cache_len {cl.tolist()}): bit-identical to K2 {bitwise}, max "
+        f"|kernel - plain| {err4:.3e} = {r4:.3f} of the tolerance; control, "
+        f"newest key masked off: {errc2:.3e} = {rc2:.2f}" + line)
     check(n3 == 1 and n4 == 1, f"{what}: the held calls launched K3 {n3} "
           f"and K4 {n4} times, not once each")
     check(r3 <= 1, f"{what}: K3 differs from its plain version")
-    check(rc3 > 1, f"{what}: the tolerance passes a segment mask error in "
-          "K3")
+    check(rc3 > 1, f"{what}: the tolerance passes a K3 mask error "
+          f"({control3})")
+    check(w2 is None or rw2 > 1, f"{what}: the tolerance passes a window "
+          "error in K2/K4")
     check(bitwise, f"{what}: K4 is not bit-identical to K2")
     check(r2 <= 1 and r4 <= 1, f"{what}: K2/K4 differ from their plain "
           "version")
@@ -2218,19 +2285,24 @@ def _hold_to_plain(torch, got, what):
 
 
 def _packed_sync(torch, cfg, coopt, ecfg, params, prompts, max_new, what,
-                 kernel="flash_chunk_prefill", hold=False):
+                 kernel="flash_chunk_prefill", hold=False, capture=(),
+                 count=None):
     """``Engine.generate`` with ``ecfg`` on ``params``: (summary, logits
     rows, launches). Every request must finish with finite logits;
     with packing the engine must pack and save rows, and ``kernel`` must
     launch once a layer in every packed step. ``hold``: K3 and K4 are
     held to their plain versions on the inputs of one of this run's
     packed and decode steps (``_hold_to_plain``, into the summary's
-    ``vs_plain``)."""
+    ``vs_plain``); ``capture`` (``_capture_kernel_inputs``' predicates)
+    chooses other steps. ``count(step)``: the launches in the steps it
+    holds for go to the summary's ``counted_launches``."""
     from repro_torch.serving import Engine
     eng = Engine(cfg, coopt, ecfg, params=params, device=DEV)
-    in_packed = _launches_in_packed_steps(eng, kernel)
+    in_packed = _launches_in_steps(eng, _packed)
+    counted = _launches_in_steps(eng, count) if count else None
     layouts = _record_layouts(eng)
-    got, restore = _capture_kernel_inputs(torch) if hold else ({}, None)
+    got, restore = _capture_kernel_inputs(torch, *capture) if hold \
+        else ({}, None)
     try:
         reqs, rows, wall, launches, _ = _sync_recorded(torch, eng, prompts,
                                                        max_new)
@@ -2241,8 +2313,11 @@ def _packed_sync(torch, cfg, coopt, ecfg, params, prompts, max_new, what,
     if hold:
         r["vs_plain"] = _hold_to_plain(torch, got, what)
         del got
-    r.update(launches=launches, packed_step_launches={kernel: in_packed["launches"]},
+    r.update(launches=launches,
+             packed_step_launches={kernel: in_packed.get(kernel, 0)},
              layouts=layouts)
+    if counted is not None:
+        r["counted_launches"] = dict(counted)
     log(f"{what}: {_fmt(r)}, packed steps {r['packed_steps']}, rows saved "
         f"{r['packed_rows_saved']}, launches {launches}")
     check(all(len(q.output) == max_new for q in reqs), f"{what}: unfinished")
@@ -2254,15 +2329,15 @@ def _packed_sync(torch, cfg, coopt, ecfg, params, prompts, max_new, what,
               f"{what}: nothing was packed")
         check(st.packed_steps == st.prefill_calls,
               f"{what}: a prefill step ran unpacked")
-        check(in_packed["launches"] == cfg.num_layers * st.packed_steps,
-              f"{what}: {kernel} launched {in_packed['launches']} times in "
-              f"{st.packed_steps} packed steps")
+        check(in_packed.get(kernel, 0) == cfg.num_layers * st.packed_steps,
+              f"{what}: {kernel} launched {in_packed.get(kernel, 0)} times "
+              f"in {st.packed_steps} packed steps")
     return r, rows, launches
 
 
 def _packed_async(torch, cfg, coopt, ecfg, params, prompts, max_new, rows,
                   sync_layouts, what, chunk_kernel="flash_chunk_prefill",
-                  decode_kernel="paged_pool_decode_visits"):
+                  decode_kernel="paged_pool_decode_visits", count=None):
     """``AsyncEngine(warmup=True)`` with ``ecfg`` on ``params``: one runner
     a lattice shape (decode, each prefill bucket and, packing, each row
     bucket x prefill bucket packed), no miss, every prefill step packed
@@ -2271,10 +2346,12 @@ def _packed_async(torch, cfg, coopt, ecfg, params, prompts, max_new, rows,
     or parted at a near-tie (a MoE model: ``_moe_partings``, with the sync
     run's ``sync_layouts``). The summary adds, by step shape ("kind R x
     S"), the host's ms a dispatch and, after the run, the card's ms a
-    replay of that shape's graph (``_replay_ms``). Returns (engine,
-    frontend, summary)."""
+    replay of that shape's graph (``_replay_ms``); ``count(step)``: the
+    launches of the replays of the steps it holds for
+    (``counted_launches``). Returns (engine, frontend, summary)."""
     from repro_torch.serving import Engine, FinishReason
     eng = Engine(cfg, coopt, ecfg, params=params, device=DEV)
+    counted = _launches_in_steps(eng, count) if count else None
     layouts = _record_layouts(eng)
     recorded = _record_steps(eng) if cfg.num_experts else None
     keys, steps = {}, []
@@ -2301,6 +2378,8 @@ def _packed_async(torch, cfg, coopt, ecfg, params, prompts, max_new, rows,
              trace_counts=dict(eng.trace_counts))
     outs = {i: list(h.req.output) for i, h in enumerate(streams)}
     a["layouts"] = layouts
+    if counted is not None:
+        a["counted_launches"] = dict(counted)
     if recorded is not None:
         a.update(_moe_partings(torch, eng, recorded, rows,
                                (sync_layouts, layouts), outs, max_new, what))
@@ -2494,6 +2573,262 @@ def packed_phase(torch, rec, arch="qwen2.5-14b",
         f"errors {res['vs_plain_max_abs_err']}")
     rec["packed"] = res
     return packed_launches
+
+
+# ------------------------------------------------------------ serve ----
+# The serve phase's launcher workload: (arch, requests, new tokens, lanes,
+# max_len, arrival rate in requests/s, measured rounds). max_len holds the
+# longest ShareGPT prompt (2048 tokens at scale 1.0) and its new tokens.
+SERVE = ("qwen3-4b", 16, 32, 4, 2048 + 32, 2.0, 2)
+# the families' workloads: (arch, layers or None for full depth, the long
+# prompt's tokens or 0, ShareGPT requests, new tokens, max_len)
+SERVE_MOE = ("mixtral-8x22b", 4, 5000, 3, 16, 6144)
+SERVE_VLM = ("internvl2-2b", None, 0, 8, 16, 1024 + 2048 + 32)
+
+
+def _context(sb):
+    """The longest context a step's lanes attend over (from its plan)."""
+    return max([c.start + c.n for c in sb.plan.prefill]
+               + [d.pos + 1 for d in sb.plan.decode])
+
+
+def _pass_record(runner, wall, rep):
+    """One measured pass's line: the launcher's report keys this phase
+    prints, and the step counts."""
+    st = runner.engine.stats
+    keys = ("wall_s", "generated_tokens", "wall_throughput_tok_s",
+            "ttft_p50_s", "ttft_p95_s", "tpot_p50_s", "tpot_p95_s",
+            "queue_wait_p50_s", "queue_wait_p95_s", "packed_steps",
+            "packed_rows_saved", "prefix_hit_rate", "preemptions", "rejected")
+    r = {k: rep[k] for k in keys}
+    r.update(steps=st.prefill_calls + st.decode_steps - st.mixed_steps,
+             **runner.trace_report())
+    return r
+
+
+def launcher_runs(torch, rec, params=None, spec=SERVE):
+    """(a) ``repro_torch.launch.serve.ServeRunner`` at full width and depth:
+    sync, async and async + packing built up front on one parameter dict,
+    each warmed with a pass of the workload, then measured round-robin
+    (``rounds`` passes each) over the same Poisson arrivals of ShareGPT
+    requests (``RequestStream`` at scale 1.0). Every request must finish,
+    the async runners must pass ``assert_aot`` (no step without a runner,
+    no runner built after the warmup), and each async pass's greedy tokens
+    must equal the last sync pass's or part at a near-tie of its logits.
+    Returns the launches of the measured passes."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda
+    from repro_torch.launch.serve import ServeRunner
+    from repro_torch.models import get_model
+    arch, n, new, lanes, max_len, rate, rounds = spec
+    if params is None:
+        params = get_model(get_config(arch)).init(0, DEV)
+    kw = dict(requests=n, num_lanes=lanes, max_len=max_len,
+              max_new_tokens=new, scale=1.0, seed=0, use_kernel=True,
+              arrival_rate=rate, warmup_pass=True, device=DEV,
+              params=params)
+    runners, res = {}, {"spec": dict(zip(
+        ("arch", "requests", "new_tokens", "lanes", "max_len",
+         "arrival_rate", "rounds"), spec))}
+    for name, extra in (("sync", {}), ("async", dict(use_async=True)),
+                        ("async_pack", dict(use_async=True, pack=True))):
+        t0 = time.perf_counter()
+        runners[name] = ServeRunner(arch, "coopt", assert_aot=name != "sync",
+                                    **kw, **extra)
+        torch.cuda.synchronize()
+        meta = {k: v for k, v in runners[name].meta.items()
+                if k in ("aot_executables", "aot_by_kind", "warmup_s",
+                         "graph_pool_gib")}
+        res[name] = dict(build_s=time.perf_counter() - t0, passes=[], **meta)
+        log(f"serve {arch} {name}: built and warmed (a pass of the workload)"
+            f" in {res[name]['build_s']:.1f} s {meta}")
+    reqs = runners["sync"].reqs
+    plens = sorted(r.prompt_len for r in reqs)
+    res["prompt_tokens"] = dict(min=plens[0], median=plens[len(plens) // 2],
+                                max=plens[-1], total=sum(plens))
+    log(f"serve {arch}: {n} requests, prompts {res['prompt_tokens']}, "
+        f"Poisson arrivals at {rate} requests/s over "
+        f"{runners['sync'].offsets[-1]:.2f} s")
+    # the sync run's rows (token, logits) of its last pass, by request
+    eng = runners["sync"].engine
+    sample, post, rows, last = eng._sample, eng._postprocess, {}, {}
+
+    def keep(logits):
+        last["logits"] = logits.float()
+        return sample(logits)
+
+    def note(sb, toks, now):
+        for req, _, idx in sb.samples:
+            rows.setdefault(req.req_id - 1, []).append(
+                (int(toks[idx]), last["logits"][idx]))
+        return post(sb, toks, now)
+    eng._sample, eng._postprocess = keep, note
+    launches = {}
+    try:
+        for rnd in range(rounds):
+            for name, runner in runners.items():
+                if name == "sync":
+                    rows.clear()
+                cuda.reset_launches()
+                wall = runner.measure()
+                torch.cuda.synchronize()
+                for k, v in cuda.LAUNCHES.items():
+                    launches[k] = launches.get(k, 0) + v
+                try:
+                    p = _pass_record(runner, wall, runner.metrics(wall))
+                except RuntimeError as e:       # assert_aot
+                    raise Fail(f"serve {arch} {name}: {e}") from e
+                p["launches"] = dict(cuda.LAUNCHES)
+                res[name]["passes"].append(p)
+                log(f"serve {arch} {name} pass {rnd + 1}: "
+                    f"{p['wall_throughput_tok_s']:.1f} tok/s over "
+                    f"{p['wall_s']:.2f} s, TTFT p50/p95 "
+                    f"{p['ttft_p50_s'] * 1e3:.1f}/{p['ttft_p95_s'] * 1e3:.1f}"
+                    f" ms, TPOT p50/p95 {p['tpot_p50_s'] * 1e3:.2f}/"
+                    f"{p['tpot_p95_s'] * 1e3:.2f} ms, queue wait p50/p95 "
+                    f"{p['queue_wait_p50_s'] * 1e3:.1f}/"
+                    f"{p['queue_wait_p95_s'] * 1e3:.1f} ms, {p['steps']} "
+                    f"steps, packed steps {p['packed_steps']}, rows saved "
+                    f"{p['packed_rows_saved']}, aot_misses "
+                    f"{p.get('aot_misses', '-')}, retraces "
+                    f"{p.get('retraces', '-')}")
+                check(p["generated_tokens"] == n * new and not p["rejected"],
+                      f"serve {arch} {name}: {p['generated_tokens']} of "
+                      f"{n * new} tokens")
+                if runner.use_async:
+                    out = runner.outcome_report(wall)["outcomes"]
+                    check(out["finished"] == n, f"serve {arch} {name}: "
+                          f"outcomes {out}")
+        for name in ("async", "async_pack"):
+            outs = {i: list(s.req.output)
+                    for i, s in enumerate(runners[name].last_streams)}
+            res[name]["parted"] = _partings(
+                torch, rows, outs, f"serve {arch} {name} vs sync")
+        check(runners["async_pack"].engine.stats.packed_steps > 0,
+              f"serve {arch}: the packed runner never packed")
+    finally:
+        eng._sample, eng._postprocess = sample, post
+        for runner in runners.values():
+            runner.close()
+    rec.setdefault("serve", {})[arch] = res
+    del runners, rows, last
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def family_runs(torch, rec, spec):
+    """(b), (c): a family's engines at full width (``layers``: cut depth),
+    sync then async (``Engine.generate``, ``AsyncEngine(warmup=True)``;
+    ``_packed_sync``, ``_packed_async``), ShareGPT requests (and a long
+    prompt), K3 and K4 held to their plain versions on steps of the sync
+    run (``_hold_to_plain``): a windowed model on a chunk and a decode
+    step whose context passes its window and sink page, a vlm model on a
+    chunk past its patch stub. Returns (the launches of both runs, the
+    held summary)."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.coopt import COOPT
+    from repro_torch.data import RequestStream
+    from repro_torch.models import get_model
+    from repro_torch.serving import Engine, EngineConfig
+    arch, layers, long_n, n, new, max_len = spec
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    coopt = COOPT.replace(use_kernel=True)
+    ecfg = EngineConfig(num_lanes=4, max_len=max_len, seed=0)
+    t0, held = time.perf_counter(), torch.cuda.memory_allocated()
+    params = get_model(cfg).init(0, DEV)
+    torch.cuda.synchronize()
+    res = {"layers": cfg.num_layers, "params": get_model(cfg).param_count(),
+           "init_s": time.perf_counter() - t0,
+           "weights_gib": (torch.cuda.memory_allocated() - held) / 2**30}
+    prompts = [r.prompt for r in RequestStream(
+        cfg.vocab_size, seed=0, scale=1.0).take(n)]
+    if long_n:
+        prompts.insert(0, np.random.default_rng(5).integers(
+            0, cfg.vocab_size, long_n))
+    stub = cfg.num_patches if cfg.family == "vlm" else 0
+    res["prompt_tokens"] = [len(p) + stub for p in prompts]
+    log(f"serve {arch}: {cfg.num_layers} layers, {res['params'] / 1e9:.3f} B "
+        f"params in {res['init_s']:.1f} s, {res['weights_gib']:.1f} GiB; "
+        f"contexts {res['prompt_tokens']} + {new} new tokens")
+    if cfg.attn_window:
+        limit = cfg.attn_window + cfg.sink_blocks * coopt.page_size
+
+        def chunk_when(args, kw):
+            return kw["window"] > 0 and int(args[1].max()) >= limit
+
+        def decode_when(args, kw):
+            return int(args[3].max()) > limit
+        res["window_limit"] = limit
+    else:
+        def chunk_when(args, kw):
+            return int(args[1].max()) >= stub
+        decode_when = None
+        limit = stub
+    past = (lambda sb: _context(sb) > limit) if cfg.attn_window else None
+    res["sync"], rows, launches = _packed_sync(
+        torch, cfg, coopt, ecfg, params, prompts, new, f"serve {arch} sync",
+        hold=True, capture=(chunk_when, decode_when), count=past)
+    total = dict(launches)
+    eng, fe, res["async"] = _packed_async(
+        torch, cfg, coopt, ecfg, params, prompts, new, rows,
+        res["sync"]["layouts"], f"serve {arch} async", count=past)
+    for k, v in res["async"]["launches"].items():
+        total[k] = total.get(k, 0) + v
+    del eng, fe, rows
+    for k in ("flash_chunk_prefill", "paged_pool_decode_visits"):
+        check(total.get(k, 0) > 0, f"serve {arch}: {k} never launched")
+    if past is not None:
+        for run in ("sync", "async"):
+            got = res[run]["counted_launches"]
+            log(f"serve {arch} {run}: launches in steps past the window "
+                f"and sink page ({limit} positions): {got}")
+            for k in ("flash_chunk_prefill", "paged_pool_decode_visits"):
+                check(got.get(k, 0) > 0, f"serve {arch} {run}: {k} never "
+                      "launched on a windowed step")
+    if stub:
+        try:
+            Engine(cfg, coopt, dataclasses.replace(ecfg, pack_prefill=True),
+                   params=params, device=DEV)
+        except ValueError as e:
+            res["pack_refused"] = str(e)
+        check("pack_refused" in res, f"serve {arch}: pack_prefill did not "
+              "raise")
+    rec.setdefault("serve", {})[arch] = res
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total, res["sync"]["vs_plain"]
+
+
+def serve_phase(torch, rec, params=None):
+    """The launcher at full width and depth (``launcher_runs``), then
+    mixtral-8x22b (4 layers, windowed) and internvl2-2b (full depth, patch
+    stub) through both engines (``family_runs``). Returns (the launches of
+    the phase's runs, the held summaries)."""
+    launches = launcher_runs(torch, rec, params)
+    held = []
+    for spec in (SERVE_MOE, SERVE_VLM):
+        got, vs = family_runs(torch, rec, spec)
+        held.append(vs)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    rec["serve"]["launches"] = launches
+    rec["serve"]["vs_plain_max_abs_err"] = {
+        "flash_chunk_prefill": max(h["flash_chunk_prefill"]["max_abs_err"]
+                                   for h in held),
+        "paged_pool_decode_visits": max(
+            h["paged_pool_decode_visits"]["max_abs_err"] for h in held),
+        "paged_pool_decode": max(h["paged_pool_decode_visits"]["k2_err"]
+                                 for h in held)}
+    for k in ("kv_cache_write", "flash_chunk_prefill",
+              "paged_pool_decode_visits"):
+        check(launches.get(k, 0) > 0, f"serve: {k} never launched")
+    return launches
 
 
 # ------------------------------------------------------- card vs CPU ----
@@ -2691,6 +3026,10 @@ def parity_phase(torch, rec, arch="qwen3-4b-reduced"):
               "mis-route")
 
 
+# the parity phase's reduced configs, card against CPU
+PARITY = ("qwen3-4b-reduced", "deepseek-v2-lite-16b-reduced",
+          "mixtral-8x22b-reduced", "internvl2-2b-reduced")
+
 # which path's run each kernel's launch count is read from
 LAUNCH_PATH = {"kv_cache_write": "qwen3-4b", "flash_chunk_prefill": "qwen3-4b",
                "paged_pool_decode_visits": "qwen3-4b",
@@ -2705,7 +3044,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("kernels", "write", "decode", "latent",
                                        "engine", "mla", "prefill", "async",
-                                       "packed", "parity"),
+                                       "serve", "packed", "parity"),
                     help="run one phase (debugging; prints no result line)")
     ap.add_argument("--src", help="import repro_torch from this directory "
                     "instead of ./src (to time another tree's kernels)")
@@ -2811,6 +3150,11 @@ def main(argv=None) -> int:
             paths["qwen3-4b async"], paths["deepseek-v2-lite-16b async"] = \
                 async_phase(torch, rec, params)
             done("async", t0)
+        serve = {}
+        if only in (None, "serve"):
+            t0 = time.perf_counter()
+            serve = serve_phase(torch, rec, params)
+            done("serve", t0)
         params = None
         torch.cuda.empty_cache()
         if only in (None, "mla"):
@@ -2826,8 +3170,8 @@ def main(argv=None) -> int:
             done("packed", t0)
         if only in (None, "parity"):
             t0 = time.perf_counter()
-            parity_phase(torch, rec, "qwen3-4b-reduced")
-            parity_phase(torch, rec, "deepseek-v2-lite-16b-reduced")
+            for arch in PARITY:
+                parity_phase(torch, rec, arch)
             done("parity", t0)
         if only is None:
             for k in kernels:
@@ -2836,9 +3180,12 @@ def main(argv=None) -> int:
                     paths["qwen3-4b async"][k["name"]]
                     + paths["deepseek-v2-lite-16b async"][k["name"]])
                 k["packed_launches"] = packed.get(k["name"], 0)
-                # the packed phase's engine-built inputs held too
-                k["max_abs_err"] = max(k["max_abs_err"], rec["packed"][
-                    "vs_plain_max_abs_err"].get(k["name"], 0))
+                k["serve_launches"] = serve.get(k["name"], 0)
+                # the packed and serve phases' engine-built inputs held too
+                k["max_abs_err"] = max(
+                    k["max_abs_err"],
+                    rec["packed"]["vs_plain_max_abs_err"].get(k["name"], 0),
+                    rec["serve"]["vs_plain_max_abs_err"].get(k["name"], 0))
                 check(k["launches"] > 0, f"{k['name']} never launched on "
                       f"its path ({LAUNCH_PATH[k['name']]})")
             check(sorted(k["name"] for k in kernels) == sorted(LAUNCH_PATH),
@@ -2868,8 +3215,10 @@ def main(argv=None) -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # every kernel adds its launches through the async phase's graph
-    # replays (qwen3-4b and deepseek-v2-lite-16b at 4 layers) and in the
-    # packed phase's packed runs (sync and async, every model);
+    # replays (qwen3-4b and deepseek-v2-lite-16b at 4 layers), in the
+    # packed phase's packed runs (sync and async, every model) and in the
+    # serve phase's runs (the launcher's measured passes, mixtral-8x22b and
+    # internvl2-2b sync and async);
     # K5, K6 and K7 add their launch's grid (K5/K7: and splits) and their
     # registers and local bytes as the loaded kernels report them; K5 and K7
     # the bound of the pages each reads (``own_bound_ms``) beside the
@@ -2878,7 +3227,7 @@ def main(argv=None) -> int:
     extra = ("blocks", "splits", "rows_per_block", "lanes_per_block",
              "registers", "local_bytes", "own_bound_ms", "shapes",
              "launch_floor_ms", "host_us", "clean_l2", "async_launches",
-             "packed_launches")
+             "packed_launches", "serve_launches")
     print(json.dumps({"kernels": [
         {k: x[k] for k in keys + extra if k in keys or k in x}
         for x in kernels]}))

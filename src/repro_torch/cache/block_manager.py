@@ -338,6 +338,17 @@ class BlockManager:
     def cached_tokens(self, seq_id: int) -> int:
         return self._seqs[seq_id].cached_tokens
 
+    def preferred_shard(self, token_ids: Optional[Sequence[int]],
+                        num_tokens: int) -> Optional[int]:
+        """The JAX package's prefix-affinity placement hint on a pool of one
+        shard: 0 when this prompt's chain-hash HEAD (its first full page)
+        is registered, else None."""
+        if (not self.enable_prefix_cache or token_ids is None
+                or num_tokens <= self.page_size):
+            return None
+        h = _chain_hash(0, token_ids[: self.page_size])
+        return 0 if h in self._hash else None
+
     # ----------------------------------------------------- residency match --
     def match_prefix(self, token_ids: Optional[Sequence[int]],
                      num_tokens: int) -> PrefixMatch:

@@ -3,8 +3,10 @@
 The same frozen ``ModelConfig`` / ``CacheConfig`` as the JAX package, field
 for field, so a config built by either package describes the same model.
 ``family`` selects the implementation in ``repro_torch.models.registry``;
-this port serves the ``dense`` family (llama-style GQA decoders) and the
-``mla`` family (latent attention + MoE, deepseek-v2).
+this port serves the ``dense`` family (llama-style GQA decoders), the
+``moe`` family (GQA + routed experts, mixtral), the ``mla`` family (latent
+attention + MoE, deepseek-v2) and the ``vlm`` family (a GQA decoder behind
+a patch-embedding stub, internvl2).
 """
 from __future__ import annotations
 

@@ -5,8 +5,8 @@ Every model exposes the engine-facing protocol of the JAX package:
   prefill(params, batch, cache, coopt)         — last-token logits + filled cache
   decode_step(params, batch, cache, coopt, long_window) — one-token step
   cache_shape(batch, max_len, coopt, ...) / init_cache(..., device)
-The ``dense`` and ``mla`` families are ported (``TransformerModel``); any
-other family raises ``NotImplementedError``.
+The ``dense``, ``moe``, ``mla`` and ``vlm`` families are ported
+(``TransformerModel``); any other family raises ``NotImplementedError``.
 """
 from __future__ import annotations
 

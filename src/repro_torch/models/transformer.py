@@ -1,7 +1,10 @@
-"""Decoder-only transformer of the dense family (llama/qwen-style GQA) and
-the mla family (deepseek-v2: latent attention + MoE FFN), with paged KV
+"""Decoder-only transformer of the dense family (llama/qwen-style GQA), the
+moe family (mixtral: GQA + a routed-expert FFN on every layer), the mla
+family (deepseek-v2: latent attention + MoE FFN) and the vlm family
+(internvl2: a GQA decoder whose first ``num_patches`` positions take
+precomputed patch embeddings instead of token embeddings), with paged KV
 caching and the three LLM-CoOpt techniques toggled by a ``CoOptConfig``.
-The port of the JAX package's ``TransformerModel`` for those families.
+The port of the JAX package's ``TransformerModel``.
 
 Parameters are a plain dict of tensors in the JAX package's layout:
 ``{"embed", "segments": [{stacked (L, ...) leaves}], "final_norm",
@@ -38,7 +41,7 @@ from repro_torch.models.layers import (apply_rope, causal_attention,
                                        swiglu)
 from repro_torch.models.moe import moe_ffn
 
-FAMILIES = ("dense", "mla")
+FAMILIES = ("dense", "moe", "mla", "vlm")
 
 
 def check_device(device) -> torch.device:
@@ -51,7 +54,8 @@ def check_device(device) -> torch.device:
 
 
 class TransformerModel:
-    """Families: dense (yi/qwen/deepseek/llama), mla (deepseek-v2)."""
+    """Families: dense (yi/qwen/deepseek/llama), moe (mixtral), mla
+    (deepseek-v2), vlm (internvl2: stub patch embeddings prepended)."""
 
     def __init__(self, cfg: ModelConfig):
         if cfg.family not in FAMILIES:
@@ -366,16 +370,31 @@ class TransformerModel:
         ``batch["positions"]`` (B, S) absolute positions plus matching
         GLOBAL ``slot_idx``, the lane ``page_table`` and the post-step
         ``cache_len``; attention then runs over the whole cached history,
-        and a decode lane is a chunk of length 1."""
+        and a decode lane is a chunk of length 1.
+
+        vlm: ``batch["patches"]`` (B, num_patches, d) holds the patch
+        embeddings. A full prompt is the patches followed by the tokens; in
+        a chunk, token column j IS position ``positions[:, j]``, and the
+        columns whose position falls inside the patch prefix take the patch
+        embedding at that position instead of the token's."""
         cfg = self.cfg
         tokens = batch["tokens"]
         dev = tokens.device
         h = params["embed"][tokens].to(torch.bfloat16)
-        B, S, _ = h.shape
         chunked = "positions" in batch
+        off = cfg.num_patches if cfg.family == "vlm" else 0
+        patches = batch.get("patches") if off else None
         if chunked:
             positions = batch["positions"].to(torch.int32)
-        else:
+            if patches is not None:
+                idx = positions.clamp(0, off - 1).long()
+                pe = torch.gather(patches.to(torch.bfloat16), 1, idx[..., None]
+                                  .expand(*idx.shape, h.shape[-1]))
+                h = torch.where((positions < off)[..., None], pe, h)
+        elif patches is not None:
+            h = torch.cat([patches.to(torch.bfloat16), h], dim=1)
+        B, S, _ = h.shape
+        if not chunked:
             positions = torch.arange(S, dtype=torch.int32,
                                      device=dev)[None].expand(B, S)
         page_table, P_total = self._pool_defaults(cache, batch, B, dev)

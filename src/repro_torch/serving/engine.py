@@ -40,6 +40,13 @@ Sampling runs on the device and each sampled token is scattered into the
 persistent per-lane ``lane_tok`` feed, so step N+1 is planned and
 dispatched before step N's tokens reach the host.
 
+A vlm model's (internvl2) prompt is its ``num_patches`` patch-stub
+positions followed by the text: the scheduler counts the stub as
+``extra_tokens``, a chunk's columns inside it carry a placeholder token id,
+and every prefill step passes zero patch embeddings (one tensor allocated
+with the engine, so a captured graph reads it at a fixed address). vlm
+does not pack (``pack_prefill`` raises).
+
 Not ported yet (the engine raises ``NotImplementedError``): the host-DRAM
 tier (``CacheConfig.host_pages > 0``), a device mesh and recurrent
 families; ``CacheConfig`` itself refuses page-range shards
@@ -303,10 +310,24 @@ class Engine:
             raise NotImplementedError("host-DRAM KV tier: not ported yet")
         self.ccfg = ccfg
         self.ecfg = engine_cfg
-        # raises for the families not ported; every ported one (dense,
-        # mla) keeps only the ``length`` leaf batch-major, so packing
-        # applies to all of them
+        # raises for the families not ported
         self.model = get_model(model_cfg)
+        # concat-prefill packing works where "length" is the only
+        # batch-major leaf (rows decouple from lanes): dense/moe/mla. vlm's
+        # patch stubs are per lane.
+        if engine_cfg.pack_prefill and \
+                model_cfg.family not in ("dense", "moe", "mla"):
+            raise ValueError(
+                f"pack_prefill unsupported for family {model_cfg.family!r}"
+                " (per-lane batch-major cache state)")
+        # the vlm patch-stub prefix: the scheduler's extra positions, and
+        # the zero patch embeddings every prefill step reads
+        self._patch_offset = (model_cfg.num_patches
+                              if model_cfg.family == "vlm" else 0)
+        self._patches = (torch.zeros(
+            (engine_cfg.num_lanes, self._patch_offset, model_cfg.d_model),
+            dtype=torch.bfloat16, device=self.device)
+            if self._patch_offset else None)
         if params is None:
             params = self.model.init(engine_cfg.seed, self.device)
         self.params = params
@@ -318,6 +339,7 @@ class Engine:
                                            device=self.device)
         self.scheduler = Scheduler(
             B, M, coopt.page_size, list(engine_cfg.prefill_buckets),
+            extra_tokens=self._patch_offset,
             token_budget=engine_cfg.token_budget or None,
             max_preemptions=engine_cfg.max_preemptions, cache_cfg=ccfg)
         # deterministic fault-injection hooks (serving.faults); None in
@@ -343,8 +365,11 @@ class Engine:
         the batch-major ``length`` leaf is lane-masked and written into the
         persistent leaf (pool writes are slot-disjoint). A packed step's
         rows are not lanes: ``length`` keeps its value (the JAX package's
-        ``_prefill_packed_impl``), and its logits are (R, G, V)."""
+        ``_prefill_packed_impl``), and its logits are (R, G, V). A vlm
+        prefill step reads the engine's zero patch embeddings."""
         cache = dict(self.cache)
+        if self._patches is not None and kind == "prefill":
+            batch = dict(batch, patches=self._patches)
         fn = self.model.decode_step if kind == "decode" else \
             self.model.prefill
         logits, cache = fn(self.params, batch, cache, self.coopt,
@@ -472,9 +497,14 @@ class Engine:
         scatter_lane = np.full(B, B, np.int32)        # B = drop
         samples: List[Tuple[Request, bool, Tuple[int, ...]]] = []
 
+        off = self._patch_offset
         for c in plan.prefill:
             lane, n = c.req.lane, c.n
-            tokens[lane, :len(c.tokens)] = c.tokens
+            # token column j holds position start+j; the columns inside the
+            # vlm patch-stub prefix carry a placeholder id (the model swaps
+            # in the patch embedding by position)
+            pcols = min(max(off - c.start, 0), n)
+            tokens[lane, pcols:pcols + len(c.tokens)] = c.tokens
             positions[lane] = np.minimum(c.start + np.arange(S),
                                          c.start + n - 1)
             slot_idx[lane, :n] = mgr.slot_indices(
@@ -809,7 +839,9 @@ class Engine:
         new = []
         for kind, batch in self._warmup_lattice():
             key = self._async_key(kind, batch)
-            if key in self._runners:
+            # a bucket listed twice (a max_len bucket equal to another) is
+            # one shape: one runner
+            if key in self._runners or any(key == k for k, _ in new):
                 continue
             R = batch["page_table"].shape[0]
             n_slots = batch["last_pos"].size if kind == "packed" else R

@@ -155,6 +155,9 @@ class Scheduler:
                                        # and fetched again
         self.max_prefetch_replans = 3  # per request; then admit as a miss
         self.preemptions = 0
+        # admissions whose prompt head was cached (the JAX package's
+        # prefix-affine placements; one shard, so it never misses)
+        self.placement_prefix_hits = 0
         self.rejected: List[Request] = []
         self.max_preemptions = max(int(max_preemptions), 0)
         self.deadline_shed = 0           # queued requests shed TIMED_OUT
@@ -379,10 +382,13 @@ class Scheduler:
             # are too). Real image/audio inputs must fold a modality-content
             # digest into the chain-hash seed, as the recurrent families'
             # prefix_gate does for state (see ROADMAP).
+            pref = mgr.preferred_shard(eff, total)
             try:
                 mgr.allocate(pool_id, total, token_ids=eff)
             except OutOfBlocks:
                 break              # admission never preempts running work
+            if pref is not None:
+                self.placement_prefix_hits += 1
             cached = mgr.cached_tokens(pool_id)
             self._next_pool_id += 1
             r.pool_id = pool_id

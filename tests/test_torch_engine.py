@@ -18,6 +18,7 @@ from repro.configs.base import CacheConfig as JCacheConfig  # noqa: E402
 
 from repro_torch.configs import CacheConfig, get_config  # noqa: E402
 from repro_torch.core.coopt import MODES  # noqa: E402
+from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.serving import Engine, EngineConfig  # noqa: E402
 
@@ -150,3 +151,33 @@ def test_unported_options_raise(weights):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             Engine(cfg, MODES["coopt"], params=params)
+
+
+@pytest.mark.parametrize("mode,use_kernel",
+                         [("coopt", True), ("original", False)])
+def test_long_window_decode_schedule_independent(mode, use_kernel):
+    """The port's twin of the JAX package's engine-level regression: with
+    ``long_window`` set, a decode token gets the same {sink + sliding
+    window} policy whether its step is decode-only or shares the call with
+    another request's prefill chunks, so the tokens equal the solo run's."""
+    from repro_torch.serving import Request
+    cfg = get_config(ARCH)
+    coopt = MODES[mode].replace(use_kernel=use_kernel)
+    ecfg = EngineConfig(num_lanes=2, max_len=256,
+                        prefill_buckets=(16, 32, 64, 128), long_window=32)
+    r1 = np.random.default_rng(12).integers(0, cfg.vocab_size, 120,
+                                            dtype=np.int32)
+    r2 = np.random.default_rng(13).integers(0, cfg.vocab_size, 100,
+                                            dtype=np.int32)
+    params = get_model(cfg).init(0, "cpu")
+    solo = Engine(cfg, coopt, ecfg, params=params, device="cpu").generate(
+        [r1], max_new_tokens=10)[0]
+    eng = Engine(cfg, coopt, ecfg, params=params, device="cpu")
+    req1 = Request(req_id=1, prompt=r1, max_new_tokens=10)
+    eng.add_request(req1)
+    for _ in range(6):                              # r1 reaches decode
+        eng.step()
+    eng.add_request(Request(req_id=2, prompt=r2, max_new_tokens=10))
+    eng.run()                                       # r1 decodes in MIXED steps
+    assert eng.stats.mixed_steps > 0
+    assert req1.output == solo

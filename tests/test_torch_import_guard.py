@@ -30,4 +30,7 @@ def test_guard_sees_the_package():
     assert {"engine.py", "ops.py", "transformer.py", "chip_smoke.py",
             "mla.py", "moe.py", "deepseek_v2_lite_16b.py",
             "paged_latent_decode.py", "latent_chunk_prefill.py",
-            "flash_prefill.py", "frontend.py", "faults.py"} <= names
+            "flash_prefill.py", "frontend.py", "faults.py", "pipeline.py",
+            "serve.py", "steps.py", "quickstart.py",
+            "serve_continuous_batching.py", "mixtral_8x22b.py",
+            "internvl2_2b.py"} <= names
