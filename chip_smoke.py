@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --only kernels   # or write|decode|latent|engine|
                                            # prefill|async|serve|mla|packed|
-                                           # parity
+                                           # recurrent|parity
     python3 chip_smoke.py --only decode --src OTHER/src
                                      # K2/K4 of another tree's package
                                      # (--only write: K1; --only latent:
@@ -120,8 +120,32 @@ Phases:
      async run's own steps replayed eagerly (its chunk and row layout:
      expert capacity is per row), and where a request's layout equals the
      sync run's, to the sync run too, each at a near-tie at most.
-  6. qwen3-4b-reduced, deepseek-v2-lite-16b-reduced, mixtral-8x22b-reduced
-     and internvl2-2b-reduced (``PARITY``) with the same
+  5c. The recurrent families (``--only recurrent``). K1-K4 at
+     recurrentgemma-9b's attention widths (D 256, Hq 16, Hkv 1: G 16, pages
+     of 64, window 2048 + one sink page): K1 at B 4, S 512 (bytes and
+     scales equal), K3 on a 512-token chunk past the window and its sink
+     page beside 3 decode lanes, K2 and K4 on a windowed decode of 4 lanes
+     (K4 = K2 bit for bit) and K2 at 8 lanes, where K4's plan does not fit
+     (the wrapper must route it to K2), each beside a control that must
+     fail (a key masked off, the window dropped), with its time, plain and
+     library times, bound and the registers and local bytes of its
+     instantiation. Then recurrentgemma-9b (38 layers, 10.4 B parameters)
+     and rwkv6-7b (32 layers, 7.5 B) at full width and depth, coopt with
+     the kernels, 4 lanes, ``Engine.generate`` then
+     ``AsyncEngine(warmup=True)``: 8 requests (a 512-token prefix alone and
+     the same prefix with 100 more tokens, admitted later: a prefix hit
+     that restores a state snapshot; for griffin a 3000-token prompt past
+     its window; ShareGPT prompts), 16 new tokens; the hit request's
+     tokens equal its run with the prefix cache off or part at a near-tie;
+     the async tokens equal the async run's own steps replayed eagerly
+     (lane resets and restores included) exactly, and the sync run's where
+     a request's chunk layout did not move, or part at a near-tie; K1, K3
+     and K4 at D 256 held to their plain versions on engine-built steps
+     past the window and sink page and launched there in both engines;
+     rwkv6 launches no kernel; ``pack_prefill`` raises.
+  6. qwen3-4b-reduced, deepseek-v2-lite-16b-reduced, mixtral-8x22b-reduced,
+     internvl2-2b-reduced, recurrentgemma-9b-reduced and rwkv6-7b-reduced
+     (``PARITY``) with the same
      weights on the card (kernels) and on the CPU (plain versions): the
      first step's logits, and each request's logits until its stream
      parts, within ``LOGIT_ATOL``; first greedy tokens equal, a later one
@@ -134,8 +158,10 @@ set to 0 just before that path and read just after; a kernel that never
 launched fails the run. Launches through a CUDA graph count once a replay
 (the counts its capture made, ``kernels/cuda.py:capture_launches``); the
 ``kernels`` line gives them as ``async_launches``, the packed phase's
-packed runs' as ``packed_launches`` and the serve phase's runs' as
-``serve_launches``. K1's are also split by the shape that runs them
+packed runs' as ``packed_launches``, the serve phase's runs' as
+``serve_launches`` and the recurrent phase's as ``recurrent_launches``;
+K1-K4 add their D 256 records to ``shapes``. K1's are also split by the
+shape that runs them
 (the 4-lane engine's mixed and decode steps, the full-prompt path). The
 line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
@@ -147,6 +173,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -279,58 +306,94 @@ def paged_pool(torch, gen, B, NP, shared, Hkv, D, ps):
 
 
 def decode_step(torch, rec, time_ms, key, q, kv, sc, table, cache_len,
-                timed_plain=True):
-    """K2 and K4 on one decode step (Opt-KV, Opt-GQA, Opt-Pa page select):
-    K2 within one bf16 ulp of its plain version beside a control (the plain
-    version with each lane's last key masked off) that must fail, K4
-    bit-identical to K2 and within the ulp of its own plain version; then
-    each kernel's time, the bytes bound, SDPA on pre-gathered dequantized
-    bf16 K/V, and the splits. Each plain version runs once for the check
-    (and is timed only if ``timed_plain``). The summary goes to
-    ``rec[key]``; returns the two kernel records."""
+                timed_plain=True, window=0, sink=0, visits_fit=True):
+    """K2 and K4 on one decode step (Opt-KV, Opt-GQA, Opt-Pa page select,
+    with ``window`` > 0 the window + ``sink`` pages policy): K2 within one
+    bf16 ulp of its plain version beside a control (the plain version with
+    each lane's last key masked off; windowed, also the window dropped)
+    that must fail, K4 bit-identical to K2 and within the ulp of its own
+    plain version; then each kernel's time, the bytes bound, SDPA on
+    pre-gathered dequantized bf16 K/V, and the splits. Each plain version
+    runs once for the check (and is timed only if ``timed_plain``). Where
+    K4's plan does not fit (``visits_fit`` False), ``ops.paged_pool_decode``
+    with ``share_visits`` must launch K2 and not K4, and only K2 is timed.
+    The summary goes to ``rec[key]``; returns the kernel records."""
     import torch.nn.functional as F
     from repro_torch.core.opt_kv import decode_page_select
+    from repro_torch.kernels import cuda, ops
     from repro_torch.kernels import paged_gqa_decode as pd
     from repro_torch.kernels import visits
     dev = q.device
     B, Hq, D = q.shape
     _, ps, Hkv, _ = kv[0].shape
     NP = table.shape[1]
-    kw = dict(opt_kv=True, opt_gqa=True)
+    kw = dict(opt_kv=True, opt_gqa=True, window=window, sink_pages=sink)
     pool = (q, kv[0], kv[1], sc[0], sc[1])
-    phys, logt = decode_page_select(cache_len, table, ps, opt_pa=True)
+    phys, logt = decode_page_select(cache_len, table, ps, window=window,
+                                    sink_pages=sink, opt_pa=True)
     vp, vm, vl = visits.plan_visits(phys, logt)
     k2 = pd.paged_pool_decode(*pool, cache_len, phys, logt, **kw)
-    k4 = pd.paged_pool_decode_visits(*pool, cache_len, vp, vm, vl, **kw)
     p2 = pd.paged_pool_decode_ref(*pool, cache_len, phys, logt, **kw)
-    p4 = pd.paged_pool_decode_visits_ref(*pool, cache_len, vp, vm, vl, **kw)
     c2 = pd.paged_pool_decode_ref(*pool, cache_len - 1, phys, logt, **kw)
+    w2 = pd.paged_pool_decode_ref(*pool, cache_len, phys, logt,
+                                  **dict(kw, window=0)) if window else None
+    if visits_fit:
+        k4 = pd.paged_pool_decode_visits(*pool, cache_len, vp, vm, vl, **kw)
+        p4 = pd.paged_pool_decode_visits_ref(*pool, cache_len, vp, vm, vl,
+                                             **kw)
+    else:
+        cuda.reset_launches()
+        routed = ops.paged_pool_decode(q, kv, sc, cache_len, phys, logt,
+                                       share_visits=True, **kw)
+        launches = dict(cuda.LAUNCHES)
     torch.cuda.synchronize()
     r2, err2 = tol_ratio(k2, p2)
-    r4, err4 = tol_ratio(k4, p4)
     rc2, errc2 = tol_ratio(k2, c2)
-    bitwise = torch.equal(k4, k2)
     n_visits = int((vp >= 0).sum().item())
     log(f"K2 paged_pool_decode ({key}): max |kernel - plain| {err2:.3e} = "
         f"{r2:.3f} of the tolerance (rtol {ATTN_RTOL}, atol {ATTN_ATOL}); "
         f"control, one key masked off: {errc2:.3e} = {rc2:.2f}")
-    log(f"K4 paged_pool_decode_visits ({key}): bit-identical to K2 "
-        f"{bitwise}, max |kernel - plain| {err4:.3e} = {r4:.3f} of the "
-        f"tolerance, {n_visits} visits for "
-        f"{int((phys >= 0).sum().item())} lane pages")
     check(r2 <= 1, f"K2 differs from its plain version ({key})")
     check(rc2 > 1, f"the tolerance passes a one-key mask error in K2 ({key})")
-    check(bitwise, f"K4 is not bit-identical to K2 ({key})")
-    check(r4 <= 1, f"K4 differs from its plain version ({key})")
     sfx = "" if key == "decode" else "_" + key
-    rec.setdefault("tolerance", {}).update(
-        {"rtol": ATTN_RTOL, "atol": ATTN_ATOL, "k2" + sfx: r2, "k4" + sfx: r4,
-         "k2_control" + sfx: rc2, "k2_control_err" + sfx: errc2})
-    # exact-data bound: distinct live pages once, q and out, the tables
+    tol = {"rtol": ATTN_RTOL, "atol": ATTN_ATOL, "k2" + sfx: r2,
+           "k2_control" + sfx: rc2, "k2_control_err" + sfx: errc2}
+    if w2 is not None:
+        rw2, errw2 = tol_ratio(k2, w2)
+        log(f"  control, window dropped: {errw2:.3e} = {rw2:.2f}")
+        check(rw2 > 1, f"the tolerance passes a window error in K2 ({key})")
+        tol["k2_window_control" + sfx] = rw2
+    if visits_fit:
+        r4, err4 = tol_ratio(k4, p4)
+        bitwise = torch.equal(k4, k2)
+        log(f"K4 paged_pool_decode_visits ({key}): bit-identical to K2 "
+            f"{bitwise}, max |kernel - plain| {err4:.3e} = {r4:.3f} of the "
+            f"tolerance, {n_visits} visits for "
+            f"{int((phys >= 0).sum().item())} lane pages")
+        check(bitwise, f"K4 is not bit-identical to K2 ({key})")
+        check(r4 <= 1, f"K4 differs from its plain version ({key})")
+        tol["k4" + sfx] = r4
+    else:
+        same = torch.equal(routed, k2)
+        log(f"  {B} lanes, K4's plan does not fit: ops.paged_pool_decode "
+            f"launched K2 {launches['paged_pool_decode']} and K4 "
+            f"{launches['paged_pool_decode_visits']} times, equal to K2 "
+            f"{same}")
+        check(launches["paged_pool_decode"] == 1 and
+              launches["paged_pool_decode_visits"] == 0,
+              f"an oversized K4 plan was not routed to K2 ({key})")
+        check(same, f"the rerouted decode differs from K2 ({key})")
+    rec.setdefault("tolerance", {}).update(tol)
+    # exact-data bound: distinct live pages once, q and out, the tables;
+    # the keys each lane sees (its window and sink pages when windowed)
     live_pages = torch.unique(phys[phys >= 0]).numel()
     dec_bytes = live_pages * 2 * ps * Hkv * (D + 4) + 2 * B * Hq * D * 2 + \
         2 * B * NP * 4 + B * 4
-    dec_flops = int(cache_len.sum().item()) * Hq * D * 4
+    cl = cache_len.long()
+    seen = cl if not window else (
+        torch.clamp(cl, max=window)
+        + torch.clamp(torch.clamp(cl - window, min=0), max=sink * ps))
+    dec_flops = int(seen.sum().item()) * Hq * D * 4
     bnd = bound(dec_bytes, dec_flops, BF16_FLOPS)
     # library yardstick: SDPA on pre-gathered, dequantized bf16 K/V
     pt = table.long()
@@ -338,8 +401,11 @@ def decode_step(torch, rec, time_ms, key, q, kv, sc, table, cache_len,
     vd = (kv[1][pt].float() * sc[1][pt][..., None]).to(torch.bfloat16)
     kd = kd.reshape(B, NP * ps, Hkv, D).transpose(1, 2).contiguous()
     vd = vd.reshape(B, NP * ps, Hkv, D).transpose(1, 2).contiguous()
-    mask = (torch.arange(NP * ps, device=dev)[None] <
-            cache_len[:, None])[:, None, None, :]
+    kpos = torch.arange(NP * ps, device=dev)[None]
+    mask = kpos < cache_len[:, None]
+    if window:
+        mask &= (kpos >= cache_len[:, None] - window) | (kpos < sink * ps)
+    mask = mask[:, None, None, :]
     q4 = q[:, :, None, :]
 
     def sdpa_decode():
@@ -353,6 +419,8 @@ def decode_step(torch, rec, time_ms, key, q, kv, sc, table, cache_len,
         dev).multi_processor_count) if split else (None, None)
     shape = (f"B={B} Hq={Hq} Hkv={Hkv} D={D} ps={ps} NSel={NP}, cache_len "
              f"{cache_len.tolist()}, {live_pages} distinct live pages")
+    if window:
+        shape += f", window {window} + {sink} sink page"
     out, summary = [], dict(shape=shape, library_ms=t_lib, **bnd,
                             visits=n_visits, slots=slots, splits=splits)
     for name, fn, plain, err, line, blocks in (
@@ -366,7 +434,8 @@ def decode_step(torch, rec, time_ms, key, q, kv, sc, table, cache_len,
                                                  **kw),
              lambda: pd.paged_pool_decode_visits_ref(*pool, cache_len, vp, vm,
                                                      vl, **kw),
-             err4, 288, splits and Hkv * splits)):
+             visits_fit and err4, 288, splits and Hkv * splits))[
+                :2 if visits_fit else 1]:
         ms = time_ms(fn)
         summary[name] = dict(ms=ms, blocks=blocks,
                              bound_share=bnd["bound_ms"] / ms,
@@ -1682,9 +1751,11 @@ def _partings(torch, rows, outs, what):
 def _record_steps(eng):
     """Record every step the async pipeline dispatches, in order: (kind,
     its host inputs, each sample's request index and index into the
-    step's tokens); at the first dispatch, also the engine's pool, length
-    leaf and lane feed. ``_eager_rows`` replays them. Returns (the steps,
-    the starting state), the lists it fills."""
+    step's tokens, and for a recurrent model the state its first chunks'
+    lanes were reset or restored to); at the first dispatch, also the
+    engine's pool, batch-major leaves and lane feed. ``_eager_rows``
+    replays them. Returns (the steps, the starting state), the lists it
+    fills."""
     import numpy as np
     from repro_torch.serving.engine import _host_inputs
     dispatch, steps, state = eng._dispatch_async, [], {}
@@ -1693,9 +1764,15 @@ def _record_steps(eng):
         if not steps:
             state.update(cache={k: v.clone() for k, v in eng.cache.items()},
                          lane_tok=eng.lane_tok.clone())
+        # the resets and restores _build_step enqueued for this step
+        lanes = {c.req.lane for c in sb.plan.prefill if c.first}
+        resets = {(leaf, lane): eng.cache[leaf][
+            eng._lane_index(leaf, lane)].clone()
+            for leaf in eng._rec_leaves for lane in lanes}
         steps.append((sb.kind, {k: np.array(v, copy=True)
                                 for k, v in _host_inputs(sb).items()},
-                      [(_request_index(r), idx) for r, _, idx in sb.samples]))
+                      [(_request_index(r), idx) for r, _, idx in sb.samples],
+                      resets))
         return dispatch(sb, slot)
     eng._dispatch_async = recorded
     return steps, state
@@ -1704,16 +1781,19 @@ def _record_steps(eng):
 def _eager_rows(torch, eng, recorded, max_new):
     """The async run's own steps (``_record_steps``) replayed eagerly
     (``Engine._async_step``, no graph) from its starting state, in
-    dispatch order: the reference with the async run's chunk and row
-    layout. Returns {request index: [(token, logits row)]}, each request's
-    first ``max_new`` samples (the pipeline's overrun samples dropped, as
-    at emission)."""
+    dispatch order, each after the lane resets and restores of its first
+    chunks: the reference with the async run's chunk and row layout.
+    Returns {request index: [(token, logits row)]}, each request's first
+    ``max_new`` samples (the pipeline's overrun samples dropped, as at
+    emission)."""
     steps, state = recorded
     for k, v in state["cache"].items():
         eng.cache[k].copy_(v)
     eng.lane_tok.copy_(state["lane_tok"])
     rows = {}
-    for kind, host, samples in steps:
+    for kind, host, samples, resets in steps:
+        for (leaf, lane), v in resets.items():
+            eng.cache[leaf][eng._lane_index(leaf, lane)].copy_(v)
         inp = {k: torch.as_tensor(v, device=eng.device)
                for k, v in host.items()}
         logits, toks = eng._async_step(kind, inp)
@@ -2831,6 +2911,441 @@ def serve_phase(torch, rec, params=None):
     return launches
 
 
+# ------------------------------------------------ the recurrent families --
+# (arch, ShareGPT requests, the long prompt's tokens or 0, the shared
+# prefix's tokens, new tokens, max_len)
+RECURRENT_RG = ("recurrentgemma-9b", 5, 3000, 512, 16, 3136)
+RECURRENT_RW = ("rwkv6-7b", 6, 0, 512, 16, 3136)
+
+
+def _d256_record(rec_k, name, info):
+    """A kernel's D 256 record: its numbers, the registers and local bytes
+    its instantiation reports."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "flops",
+            "max_abs_err", "shape", "library")
+    r = {k: rec_k[k] for k in keys if k in rec_k}
+    r.update(key="d256", registers=info["registers"],
+             local_bytes=info["local_bytes"],
+             bound_share=r["bound_ms"] / r["ms"])
+    log(f"  {name} at D 256: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+        f"library {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+        f"{r['bound_by']}, {r['bound_share']:.2%} of it); "
+        f"{info['registers']} registers, {info['local_bytes']} local bytes "
+        "a thread")
+    return r
+
+
+def recurrent_kernel_case(torch, rec, time_ms):
+    """K1-K4 at recurrentgemma-9b's attention widths (D 256, Hq 16, Hkv 1:
+    G 16, pages of 64, window 2048 + one sink page): K1 at B 4, S 512
+    (pool bytes and scales equal); K3 over a 512-token chunk at [2560,
+    3072) beside 3 decode lanes, past the window and its sink page, held
+    to its plain version beside a control (the window dropped); K2 and K4
+    on a windowed decode of 4 lanes of 32 pages (K4 = K2 bit for bit), and
+    K2 at 8 lanes, where K4's plan does not fit a block (the wrapper routes
+    it to K2); the decodes at ~3000 tokens a lane, 48 pages of which the
+    window and sink select 33. Each with its time, the plain version's, a
+    library call's, the bound, and the registers and local bytes of its
+    instantiation. Returns {kernel name: [its D 256 records]}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_chunk_prefill as fc
+    from repro_torch.kernels import kv_cache_write as kw
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_gqa_decode as pd
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    Hq, Hkv, D, ps, W, sink = 16, 1, 256, 64, 2048, 1
+    out = {}
+    # ---- K1: the engine's mixed chunk (one 512-token lane, three decode
+    # lanes' single tokens and a 64-token tail) at one kv head of 256
+    k1 = write_case(torch, time_ms, gen, "d256", 4, 512, (512, 300, 1, 64),
+                    0, 16, True, Hkv=Hkv, D=D, ps=ps)
+    _, vecs, _ = kw.write_plan(4 * 512, Hkv, D)
+    out["kv_cache_write"] = [_d256_record(
+        k1, "K1 kv_cache_write", kw.kernel_info(D, True, vecs, dev))]
+    # ---- K2 / K4: a windowed decode past the window, 4 lanes; K2 at 8
+    for B, NP, key in ((4, 48, "decode_d256"), (8, 48, "decode_d256_b8")):
+        kv, sc, table = paged_pool(torch, gen, B, NP, 4, Hkv, D, ps)
+        cache_len = (NP * ps - torch.arange(B, device=dev) * 37).to(
+            torch.int32)
+        q = torch.randn((B, Hq, D), generator=gen, device=dev).to(
+            torch.bfloat16)
+        fits = pd.plan_fits(B, Hq, Hkv, D, ps, True, True)
+        check(fits == (B <= 6), f"K4's plan at D 256, G 16 and {B} lanes "
+              f"fits {fits}")
+        recs = decode_step(torch, rec, time_ms, key, q, kv, sc, table,
+                           cache_len, window=W, sink=sink, visits_fit=fits)
+        for r in recs:
+            info = pd.kernel_info(D, True, r["name"].endswith("visits"), dev)
+            d = _d256_record(r, f"{r['name']} ({B} lanes)", info)
+            d["key"] = f"d256_b{B}"
+            out.setdefault(r["name"], []).append(d)
+        del kv, sc
+    # ---- K3: a 512-token chunk past the window and its sink page, and 3
+    # decode lanes (one token, padding clamped to it), 50 pages a lane
+    B, S, NP = 4, 512, 50
+    kv, sc, table = paged_pool(torch, gen, B, NP, 0, Hkv, D, ps)
+    pos = torch.empty((B, S), dtype=torch.int32, device=dev)
+    pos[0] = torch.arange(2560, 3072, device=dev, dtype=torch.int32)
+    for b in range(1, B):
+        pos[b] = 3000 + 41 * b
+    qc = torch.randn((B, S, Hq, D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    kwc = dict(opt_kv=True, opt_gqa=True, window=W, sink_pages=sink)
+    k3 = ops.paged_chunk_prefill(qc, pos, kv, sc, table, **kwc)
+    ref = (qc, pos, kv[0], kv[1], sc[0], sc[1], table)
+    p3 = fc.flash_chunk_prefill_ref(*ref, **kwc)
+    c3 = fc.flash_chunk_prefill_ref(*ref, **dict(kwc, window=0))
+    torch.cuda.synchronize()
+    r3, err3 = tol_ratio(k3, p3)
+    rc3, errc3 = tol_ratio(k3, c3)
+    log(f"K3 flash_chunk_prefill at D 256 (G 16, positions to "
+        f"{int(pos.max())}, window {W} + {sink} sink page): max |kernel - "
+        f"plain| {err3:.3e} = {r3:.3f} of the tolerance; control, window "
+        f"dropped: {errc3:.3e} = {rc3:.2f}")
+    check(r3 <= 1, "K3 at D 256 differs from its plain version")
+    check(rc3 > 1, "the tolerance passes a window error in K3 at D 256")
+    rec.setdefault("tolerance", {}).update(k3_d256=r3, k3_d256_control=rc3)
+    # the keys each row sees and the pages they lie on, from the mask
+    T = NP * ps
+    kpos = torch.arange(T, device=dev)
+    vis = (kpos[None, None] <= pos[..., None]) & (
+        (kpos[None, None] > pos[..., None] - W) | (kpos < sink * ps))
+    keys = int(vis.sum().item())
+    pages = int(vis.any(1).reshape(B, NP, ps).any(-1).sum().item())
+    chunk_bytes = pages * 2 * ps * Hkv * (D + 4) + 2 * B * S * Hq * D * 2 + \
+        B * S * 4 + B * NP * 4
+    bnd = bound(chunk_bytes, keys * Hq * D * 4, BF16_FLOPS)
+    pt = table.long()
+    kd = (kv[0][pt].float() * sc[0][pt][..., None]).to(torch.bfloat16)
+    vd = (kv[1][pt].float() * sc[1][pt][..., None]).to(torch.bfloat16)
+    kd = kd.reshape(B, T, Hkv, D).transpose(1, 2).contiguous()
+    vd = vd.reshape(B, T, Hkv, D).transpose(1, 2).contiguous()
+    qc4 = qc.transpose(1, 2).contiguous()
+    vmask = vis[:, None]
+
+    def sdpa_chunk():
+        return F.scaled_dot_product_attention(qc4, kd, vd, attn_mask=vmask,
+                                              enable_gqa=True)
+    lib_err = (sdpa_chunk().transpose(1, 2).float() - p3.float()).abs() \
+        .max().item()
+    k3r = dict(ms=time_ms(lambda: ops.paged_chunk_prefill(
+                   qc, pos, kv, sc, table, **kwc)),
+               plain_ms=time_ms(lambda: fc.flash_chunk_prefill_ref(
+                   *ref, **kwc), iters=3, warmup=1),
+               library_ms=time_ms(sdpa_chunk), max_abs_err=err3,
+               library="F.scaled_dot_product_attention on pre-gathered "
+                       "dequantized bf16 K/V with the window + sink mask "
+                       f"(max |lib - plain| {lib_err:.3e})",
+               shape=f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} ps={ps} NP={NP}, "
+                     f"window {W} + {sink} sink page, {keys} visible keys",
+               **bnd)
+    out["flash_chunk_prefill"] = [_d256_record(
+        k3r, "K3 flash_chunk_prefill", fc.kernel_info(D, True, ps, dev))]
+    # the bf16-pool instantiation (opt_kv off) beside the fp8 one
+    bf = fc.kernel_info(D, False, ps, dev)
+    out["flash_chunk_prefill"][0]["bf16_pool"] = {
+        k: bf[k] for k in ("registers", "local_bytes", "smem_bytes")}
+    log(f"  K3 at D 256 over a bf16 pool: {bf['registers']} registers, "
+        f"{bf['local_bytes']} local bytes a thread, {bf['smem_bytes']} "
+        "bytes of shared memory")
+    rec["d256"] = out
+    del kv, sc, kd, vd
+    torch.cuda.empty_cache()
+    return out
+
+
+def _capture_write_inputs(torch, when):
+    """Keep the inputs of the first K1 call (``ops.kv_cache_write``) for
+    which ``when(args)`` holds, the layer's pool and scales cloned before
+    the write. Returns (the call or {}, restore)."""
+    from repro_torch.kernels import ops
+    got, saved = {}, ops.kv_cache_write
+
+    def write(*args, **kw):
+        if not got and when(args):
+            got["args"] = tuple(a.clone() if isinstance(a, torch.Tensor)
+                                else a for a in args)
+            got["kw"] = dict(kw)
+        return saved(*args, **kw)
+
+    def restore():
+        ops.kv_cache_write = saved
+    ops.kv_cache_write = write
+    return got, restore
+
+
+def _hold_k1(torch, got, what):
+    """K1 on an engine-built write (``_capture_write_inputs``) through its
+    wrapper, against its plain version on a copy of the same pool: pool
+    bytes and scales equal (the JAX sentinel line excluded)."""
+    from repro_torch.kernels import kv_cache_write as kw
+    from repro_torch.kernels import ops
+    check(bool(got), f"{what}: the engine gave no K1 inputs")
+    (kv, sc, k, v, slots), opts = got["args"], got["kw"]
+    a_kv, a_sc = kv.clone(), sc.clone()
+    ops.kv_cache_write(a_kv, a_sc, k, v, slots, **opts)
+    _, P, ps, Hkv, D = kv.shape
+    flat, sflat = kv.view(2, P * ps, Hkv, D), sc.view(2, P * ps, Hkv)
+    kw.kv_cache_write_ref(k.contiguous(), v.contiguous(), slots.int(),
+                          flat[0], flat[1], sflat[0], sflat[1], **opts)
+    torch.cuda.synchronize()
+    n = P * ps - 1
+    same = torch.equal(a_kv.view(2, P * ps, Hkv, D)[:, :n].view(torch.uint8),
+                       flat[:, :n].view(torch.uint8))
+    same_sc = torch.equal(a_sc.view(2, P * ps, Hkv)[:, :n], sflat[:, :n])
+    res = dict(tokens=int((slots >= 0).sum().item()), D=D, Hkv=Hkv,
+               bytes_equal=same, scales_equal=same_sc)
+    log(f"{what}: K1 on an engine-built step ({res['tokens']} tokens, Hkv "
+        f"{Hkv}, D {D}): pool bytes equal {same}, scales equal {same_sc}")
+    check(same and same_sc, f"{what}: K1 differs from its plain version")
+    return res
+
+
+def _record_schedule(eng):
+    """Record, for each request (``_request_index``), every step it ran in:
+    ("chunk", start, tokens, the step's columns) for a prefill chunk and
+    ("token", position, the step's columns) for a decode token, which a
+    mixed step runs as a padded chunk (a recurrent model then takes the
+    chunked form of its recurrence instead of the one-token step). Returns
+    the dict it fills."""
+    build, lay = eng._build_step, {}
+
+    def recorded(plan, device_feed=False):
+        sb = build(plan, device_feed)
+        S = sb.batch["tokens"].shape[1] if "tokens" in sb.batch else 1
+        for c in plan.prefill:
+            lay.setdefault(_request_index(c.req), []).append(
+                ("chunk", c.start, c.n, S))
+        for d in plan.decode:
+            lay.setdefault(_request_index(d.req), []).append(
+                ("token", d.pos, S))
+        return sb
+    eng._build_step = recorded
+    return lay
+
+
+def _runner_shapes(eng):
+    """The async runners' replay ms by step shape ("kind R x S")."""
+    out = {}
+    for r in eng._runners.values():
+        tok = r.inputs["token" if r.kind == "decode" else "tokens"]
+        out[f"{r.kind} {tok.shape[0]} x {tok.shape[1]}"] = r
+    return out
+
+
+def recurrent_runs(torch, rec, spec, kernels=True):
+    """A recurrent family's model at full width and depth, coopt (with the
+    kernels), pages of 64, 4 lanes: ``Engine.generate`` then
+    ``AsyncEngine(warmup=True)`` on one set of weights, greedy. Requests:
+    a page-aligned prefix alone and the same prefix with 100 more tokens
+    (admitted after the first has prefilled it, so it hits the prefix
+    cache and restores the state snapshotted at the prefix's end), a long
+    prompt if any, ShareGPT ones. Checks: every request
+    finishes with finite logits; a prefix hit restored a snapshot in both
+    engines, and the hit request's tokens equal its run with the prefix
+    cache off or part at a near-tie; the async tokens equal the async
+    run's own steps replayed eagerly (``_eager_rows``, the resets and
+    restores replayed too) exactly, and where a request ran in the same
+    steps (``_record_schedule``: they set the state's rounding), the sync
+    run's or part at a near-tie; ``pack_prefill`` raises. With ``kernels`` (griffin): K1, K3
+    and K4 at D 256 held to their plain versions on engine-built steps past
+    the window and its sink page, and launched in both engines. Returns
+    (the launches of both runs, the held summary or None)."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import CacheConfig, get_config
+    from repro_torch.core.coopt import COOPT
+    from repro_torch.data import RequestStream
+    from repro_torch.models import get_model
+    from repro_torch.serving import Engine, EngineConfig
+    arch, n, long_n, shared, new, max_len = spec
+    cfg = get_config(arch)
+    coopt = COOPT.replace(use_kernel=True)
+    ecfg = EngineConfig(num_lanes=4, max_len=max_len, seed=0)
+    t0, held0 = time.perf_counter(), torch.cuda.memory_allocated()
+    model = get_model(cfg)
+    params = model.init(0, DEV)
+    torch.cuda.synchronize()
+    res = {"layers": cfg.num_layers, "params": model.param_count(),
+           "init_s": time.perf_counter() - t0,
+           "weights_gib": (torch.cuda.memory_allocated() - held0) / 2**30}
+    lane_bytes = sum(math.prod(sh[2:]) * torch.empty((), dtype=dt)
+                     .element_size() * sh[0]
+                     for k, (sh, dt, _) in model.cache_shape(
+                         1, max_len, coopt).items()
+                     if k in model.recurrent_leaves)
+    res["snapshot_bytes_a_lane"] = lane_bytes
+    rng = np.random.default_rng(7)
+    # the first sharer is the prefix itself: its last chunk ends on the
+    # prefix's page boundary, where the state is snapshotted
+    prefix = rng.integers(0, cfg.vocab_size, shared)
+    share = [prefix, np.concatenate([prefix, rng.integers(0, cfg.vocab_size,
+                                                          100)])]
+    sgpt = [r.prompt for r in RequestStream(cfg.vocab_size, seed=0,
+                                            scale=1.0).take(n)]
+    longp = [rng.integers(0, cfg.vocab_size, long_n)] if long_n else []
+    # the first sharer, the long prompt and ShareGPT ones fill the 4 lanes;
+    # the second sharer waits for a free lane
+    k = 3 - len(longp)
+    prompts = [share[0]] + longp + sgpt[:k] + [share[1]] + sgpt[k:]
+    hit_i = 4
+    res["prompt_tokens"] = [len(p) for p in prompts]
+    log(f"recurrent {arch}: {cfg.num_layers} layers, "
+        f"{res['params'] / 1e9:.3f} B params in {res['init_s']:.1f} s, "
+        f"{res['weights_gib']:.1f} GiB; prompts {res['prompt_tokens']} "
+        f"(requests 0 and {hit_i} share {shared} tokens) + {new} new; a "
+        f"lane's state snapshot {lane_bytes / 2**20:.2f} MiB")
+    limit = cfg.local_window + cfg.sink_blocks * coopt.page_size
+
+    def restores(eng):
+        seen, fn = [], eng._reset_or_restore_state
+
+        def spy(chunks):
+            seen.extend((_request_index(c.req), c.start)
+                        for c in chunks if c.first)
+            return fn(chunks)
+        eng._reset_or_restore_state = spy
+        return seen
+
+    # ---- sync
+    eng = Engine(cfg, coopt, ecfg, params=params, device=DEV)
+    seen = restores(eng)
+    layouts = _record_schedule(eng)
+    held = {}
+    if kernels:
+        got, restore = _capture_kernel_inputs(
+            torch, lambda a, kw: kw["window"] > 0 and int(a[1].max())
+            >= limit, lambda a, kw: int(a[3].max()) > limit)
+        got1, restore1 = _capture_write_inputs(
+            torch, lambda a: a[2].shape[1] > 1 and int(a[4].max()) >= 0)
+    past = _launches_in_steps(eng, lambda sb: _context(sb) > limit)
+    try:
+        reqs, rows, wall, launches, _ = _sync_recorded(torch, eng, prompts,
+                                                       new)
+    finally:
+        if kernels:
+            restore()
+            restore1()
+    r = _engine_summary(eng.stats, wall)
+    r.update(launches=launches, restores=list(seen),
+             prefix_hits=eng.stats.prefix_cache_hits,
+             snapshots=len(eng._state_cache),
+             past_window_launches=dict(past))
+    log(f"recurrent {arch} sync: {_fmt(r)}, prefix hits "
+        f"{r['prefix_hits']}, first chunks (request, start) {seen}, "
+        f"{r['snapshots']} snapshots, launches {launches}")
+    check(all(len(q.output) == new for q in reqs), f"{arch} sync: unfinished")
+    check(all(bool(torch.isfinite(row).all()) for seq in rows.values()
+              for _, row in seq), f"{arch} sync: non-finite logits")
+    check(r["prefix_hits"] > 0 and (hit_i, 0) not in seen and any(
+        i == hit_i and s > 0 for i, s in seen), f"{arch} sync: request "
+        f"{hit_i} did not restore a snapshot ({seen})")
+    if kernels:
+        held = _hold_to_plain(torch, got, f"recurrent {arch} sync")
+        held["kv_cache_write"] = _hold_k1(torch, got1,
+                                          f"recurrent {arch} sync")
+        del got, got1
+        for k in ("kv_cache_write", "flash_chunk_prefill",
+                  "paged_pool_decode_visits"):
+            check(past.get(k, 0) > 0, f"{arch} sync: {k} never launched "
+                  f"in a step past the window and sink page ({limit})")
+    res["sync"] = r
+    # ---- the hit request alone with the prefix cache off
+    off = Engine(cfg, coopt, dataclasses.replace(
+        ecfg, cache=CacheConfig(enable_prefix_cache=False)), params=params,
+        device=DEV)
+    _, off_rows, _, _, _ = _sync_recorded(torch, off, [prompts[hit_i]], new)
+    del off
+    mine = {0: list(reqs[hit_i].output)}
+    res["hit_vs_cache_off"] = _partings(torch, off_rows, mine,
+                                        f"{arch} prefix hit vs cache off")
+    # ---- async
+    aeng = Engine(cfg, coopt, ecfg, params=params, device=DEV)
+    aseen = restores(aeng)
+    alayouts = _record_schedule(aeng)
+    recorded = _record_steps(aeng)
+    apast = _launches_in_steps(aeng, lambda sb: _context(sb) > limit)
+    fe, streams, warm_s, awall, alaunches, _ = _async_run(torch, aeng,
+                                                          prompts, new)
+    a = _engine_summary(aeng.stats, awall)
+    outs = {i: list(h.req.output) for i, h in enumerate(streams)}
+    eager = _eager_rows(torch, aeng, recorded, new)
+    same = all([t for t, _ in eager[i]] == outs[i] for i in outs)
+    # the steps a request ran in set its state's rounding (the scan's and
+    # the chunked wkv's order, a decode token's one-token step or padded
+    # chunk), and the async schedule frees a lane a step later than the
+    # sync loop: only requests whose schedule did not move are held to the
+    # sync run (the async overrun steps past the last token aside)
+    moved = sorted(i for i in outs if alayouts.get(i, [])[
+        :len(layouts.get(i, []))] != layouts.get(i))
+    a.update(runners=fe.warmed_shapes, warmup_s=warm_s,
+             graph_pool_gib=aeng.graph_pool_bytes / 2**30,
+             aot_misses=aeng.aot_misses, launches=alaunches,
+             restores=list(aseen), prefix_hits=aeng.stats.prefix_cache_hits,
+             equal_to_eager_replay=same, layout_moved=moved,
+             parted_vs_sync=_partings(
+                 torch, {i: q for i, q in rows.items() if i not in moved},
+                 outs, f"{arch} async vs sync"),
+             past_window_launches=dict(apast),
+             replay_ms={k: _replay_ms(torch, rn)
+                        for k, rn in sorted(_runner_shapes(aeng).items())})
+    log(f"recurrent {arch} async: {fe.warmed_shapes} runners in "
+        f"{warm_s:.2f} s, graph pool {a['graph_pool_gib']:.3f} GiB, "
+        f"{_fmt(a)}, prefix hits {a['prefix_hits']}, first chunks "
+        f"{aseen}, aot_misses {aeng.aot_misses}, launches {alaunches}; "
+        f"equal to its steps replayed eagerly: {same}; held to the sync run "
+        f"but {len(moved)} requests run in other steps {moved}; replay ms "
+        + ", ".join(f"{k} {v:.3f}" for k, v in a["replay_ms"].items()))
+    check(aeng.aot_misses == 0, f"{arch} async: a step missed its runner")
+    check(all(len(o) == new for o in outs.values()),
+          f"{arch} async: unfinished")
+    check(same, f"{arch} async: tokens differ from its own steps replayed "
+          "eagerly")
+    check(a["prefix_hits"] > 0 and any(i == hit_i and s > 0
+                                       for i, s in aseen),
+          f"{arch} async: request {hit_i} did not restore a snapshot")
+    if kernels:
+        for k in ("kv_cache_write", "flash_chunk_prefill",
+                  "paged_pool_decode_visits"):
+            check(apast.get(k, 0) > 0, f"{arch} async: {k} never launched "
+                  "in a replay past the window and sink page")
+    res["async"] = a
+    del fe, streams, recorded, eager, aeng, eng
+    try:
+        Engine(cfg, coopt, dataclasses.replace(ecfg, pack_prefill=True),
+               params=params, device=DEV)
+    except ValueError as e:
+        res["pack_refused"] = str(e)
+    check("pack_refused" in res, f"{arch}: pack_prefill did not raise")
+    rec.setdefault("recurrent", {})[arch] = res
+    total = dict(launches)
+    for k, v in alaunches.items():
+        total[k] = total.get(k, 0) + v
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total, held or None
+
+
+def recurrent_phase(torch, rec, time_ms):
+    """The recurrent families: K1-K4 at D 256 (``recurrent_kernel_case``),
+    then recurrentgemma-9b and rwkv6-7b at full width and depth through
+    both engines (``recurrent_runs``). Returns (the D 256 records, the
+    launches of the engines' runs, the held summary)."""
+    d256 = recurrent_kernel_case(torch, rec, time_ms)
+    launches, held = recurrent_runs(torch, rec, RECURRENT_RG)
+    rw, _ = recurrent_runs(torch, rec, RECURRENT_RW, kernels=False)
+    check(not any(rw.values()), f"rwkv6-7b launched kernels: {rw}")
+    rec["recurrent"]["launches"] = launches
+    rec["recurrent"]["vs_plain_max_abs_err"] = {
+        "flash_chunk_prefill": held["flash_chunk_prefill"]["max_abs_err"],
+        "paged_pool_decode_visits":
+            held["paged_pool_decode_visits"]["max_abs_err"],
+        "paged_pool_decode": held["paged_pool_decode_visits"]["k2_err"]}
+    return d256, launches
+
+
 # ------------------------------------------------------- card vs CPU ----
 def _parity_run(torch, cfg, params, dev, prompts, follow=None):
     """``Engine.generate`` with hooks that record, per step, the real-token
@@ -2948,11 +3463,14 @@ def parity_phase(torch, rec, arch="qwen3-4b-reduced"):
     from repro_torch.models import get_model
     cfg = get_config(arch)
     params_cpu = get_model(cfg).init(seed=3, device="cpu")
-    params_gpu = {"embed": params_cpu["embed"].to(DEV),
-                  "segments": [{k: v.to(DEV) for k, v in s.items()}
-                               for s in params_cpu["segments"]],
-                  "final_norm": params_cpu["final_norm"].to(DEV),
-                  "lm_head": params_cpu["lm_head"].to(DEV)}
+
+    def to_card(t):
+        if isinstance(t, dict):
+            return {k: to_card(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [to_card(v) for v in t]
+        return t.to(DEV)
+    params_gpu = to_card(params_cpu)
     rng = np.random.default_rng(1)
     prefix = rng.integers(0, cfg.vocab_size, 100)
     prompts = [np.concatenate([prefix, rng.integers(0, cfg.vocab_size, n)])
@@ -3028,7 +3546,8 @@ def parity_phase(torch, rec, arch="qwen3-4b-reduced"):
 
 # the parity phase's reduced configs, card against CPU
 PARITY = ("qwen3-4b-reduced", "deepseek-v2-lite-16b-reduced",
-          "mixtral-8x22b-reduced", "internvl2-2b-reduced")
+          "mixtral-8x22b-reduced", "internvl2-2b-reduced",
+          "recurrentgemma-9b-reduced", "rwkv6-7b-reduced")
 
 # which path's run each kernel's launch count is read from
 LAUNCH_PATH = {"kv_cache_write": "qwen3-4b", "flash_chunk_prefill": "qwen3-4b",
@@ -3044,7 +3563,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("kernels", "write", "decode", "latent",
                                        "engine", "mla", "prefill", "async",
-                                       "serve", "packed", "parity"),
+                                       "serve", "packed", "recurrent",
+                                       "parity"),
                     help="run one phase (debugging; prints no result line)")
     ap.add_argument("--src", help="import repro_torch from this directory "
                     "instead of ./src (to time another tree's kernels)")
@@ -3168,6 +3688,11 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             packed = packed_phase(torch, rec)
             done("packed", t0)
+        recurrent, d256 = {}, {}
+        if only in (None, "recurrent"):
+            t0 = time.perf_counter()
+            d256, recurrent = recurrent_phase(torch, rec, make_timer(torch))
+            done("recurrent", t0)
         if only in (None, "parity"):
             t0 = time.perf_counter()
             for arch in PARITY:
@@ -3181,11 +3706,23 @@ def main(argv=None) -> int:
                     + paths["deepseek-v2-lite-16b async"][k["name"]])
                 k["packed_launches"] = packed.get(k["name"], 0)
                 k["serve_launches"] = serve.get(k["name"], 0)
-                # the packed and serve phases' engine-built inputs held too
+                k["recurrent_launches"] = recurrent.get(k["name"], 0)
+                # K1-K4 at D 256 (recurrentgemma-9b): a record each, with
+                # the launches of the recurrent phase's engine runs
+                if k["name"] in d256:
+                    for r in d256[k["name"]]:
+                        r.update(path="recurrentgemma-9b",
+                                 launches=k["recurrent_launches"])
+                    k["shapes"] = k.get("shapes", []) + d256[k["name"]]
+                # the packed, serve and recurrent phases' engine-built
+                # inputs held too, and the D 256 cases
                 k["max_abs_err"] = max(
-                    k["max_abs_err"],
-                    rec["packed"]["vs_plain_max_abs_err"].get(k["name"], 0),
-                    rec["serve"]["vs_plain_max_abs_err"].get(k["name"], 0))
+                    [k["max_abs_err"],
+                     rec["packed"]["vs_plain_max_abs_err"].get(k["name"], 0),
+                     rec["serve"]["vs_plain_max_abs_err"].get(k["name"], 0),
+                     rec["recurrent"]["vs_plain_max_abs_err"].get(
+                         k["name"], 0)]
+                    + [r["max_abs_err"] for r in d256.get(k["name"], [])])
                 check(k["launches"] > 0, f"{k['name']} never launched on "
                       f"its path ({LAUNCH_PATH[k['name']]})")
             check(sorted(k["name"] for k in kernels) == sorted(LAUNCH_PATH),
@@ -3193,6 +3730,10 @@ def main(argv=None) -> int:
             for name in ("flash_chunk_prefill", "latent_chunk_prefill"):
                 check(packed.get(name, 0) > 0,
                       f"{name} never launched on packed rows")
+            for name in ("kv_cache_write", "flash_chunk_prefill",
+                         "paged_pool_decode_visits"):
+                check(recurrent.get(name, 0) > 0,
+                      f"{name} never launched at D 256 (recurrentgemma-9b)")
             by_step = rec["engine"]["k1_launches_by_step"]
             runs = {"qwen3-4b prefill": by_step["prefill"],
                     "qwen3-4b decode": by_step["decode"],
@@ -3216,9 +3757,11 @@ def main(argv=None) -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # every kernel adds its launches through the async phase's graph
     # replays (qwen3-4b and deepseek-v2-lite-16b at 4 layers), in the
-    # packed phase's packed runs (sync and async, every model) and in the
+    # packed phase's packed runs (sync and async, every model), in the
     # serve phase's runs (the launcher's measured passes, mixtral-8x22b and
-    # internvl2-2b sync and async);
+    # internvl2-2b sync and async) and in the recurrent phase's
+    # (recurrentgemma-9b sync and async); K1-K4 a record at D 256 in
+    # ``shapes`` (K2 two: 4 and 8 lanes) with registers and local bytes;
     # K5, K6 and K7 add their launch's grid (K5/K7: and splits) and their
     # registers and local bytes as the loaded kernels report them; K5 and K7
     # the bound of the pages each reads (``own_bound_ms``) beside the
@@ -3227,7 +3770,7 @@ def main(argv=None) -> int:
     extra = ("blocks", "splits", "rows_per_block", "lanes_per_block",
              "registers", "local_bytes", "own_bound_ms", "shapes",
              "launch_floor_ms", "host_us", "clean_l2", "async_launches",
-             "packed_launches", "serve_launches")
+             "packed_launches", "serve_launches", "recurrent_launches")
     print(json.dumps({"kernels": [
         {k: x[k] for k in keys + extra if k in keys or k in x}
         for x in kernels]}))

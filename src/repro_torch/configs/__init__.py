@@ -3,9 +3,10 @@ and the assigned input shapes.
 
 The port serves the dense family (qwen3-4b, qwen2.5-14b, yi-34b,
 deepseek-67b, the paper's llama13b-gptq), the MLA family
-(deepseek-v2-lite), the MoE family (mixtral-8x22b) and the vlm family
-(internvl2-2b); the other arch files arrive with their families (see
-ROADMAP.md), and asking for one raises ``KeyError``.
+(deepseek-v2-lite), the MoE family (mixtral-8x22b), the vlm family
+(internvl2-2b) and the recurrent families griffin (recurrentgemma-9b) and
+rwkv6 (rwkv6-7b); whisper's arch file arrives with its family (see
+ROADMAP.md), and asking for it raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -17,8 +18,10 @@ from repro_torch.configs.shapes import SHAPES, InputShape, get_shape
 # arch-id -> module name
 _ARCH_MODULES = {
     "yi-34b": "yi_34b",
+    "rwkv6-7b": "rwkv6_7b",
     "mixtral-8x22b": "mixtral_8x22b",
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
     "internvl2-2b": "internvl2_2b",
     "qwen3-4b": "qwen3_4b",
     "qwen2.5-14b": "qwen2_5_14b",

@@ -5,8 +5,9 @@ for field, so a config built by either package describes the same model.
 ``family`` selects the implementation in ``repro_torch.models.registry``;
 this port serves the ``dense`` family (llama-style GQA decoders), the
 ``moe`` family (GQA + routed experts, mixtral), the ``mla`` family (latent
-attention + MoE, deepseek-v2) and the ``vlm`` family (a GQA decoder behind
-a patch-embedding stub, internvl2).
+attention + MoE, deepseek-v2), the ``vlm`` family (a GQA decoder behind
+a patch-embedding stub, internvl2), ``griffin`` (RG-LRU + local attention,
+recurrentgemma) and ``rwkv6`` (attention-free, RWKV-6 "Finch").
 """
 from __future__ import annotations
 

@@ -28,6 +28,12 @@
 // ps keys that is not a multiple of 16 is padded with zero rows in shared
 // memory and the padding masked. A warp skips a page wholly in its rows'
 // future, and the mask where the page is wholly visible to its rows.
+// Head dims 64, 128 and 256. At D 256 a block's shared memory is 193 KB for
+// an fp8 pool of 64-token pages (the 128-row query tile 64 KB, the bf16
+// K/V tiles 64 KB, the raw e4m3 pages and scales 65 KB): one block an SM,
+// and Q's fragments are read from its staged tile at each use instead of
+// being held in registers (mma_attention.cuh), so that O's 128 f32
+// registers a thread fit under the 255 of a 256-thread block.
 #include <climits>
 
 #include "mma_attention.cuh"
@@ -239,6 +245,26 @@ int launch(const ChunkArgs& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+template <int D_, typename KVT_>
+struct Inst {
+  static constexpr int D = D_;
+  using KVT = KVT_;
+};
+
+// f(Inst<D, KVT>{}) for the instantiation of (d, opt_kv), or an error.
+template <typename F>
+int with_inst(int d, int opt_kv, F f) {
+  switch (d * 2 + (opt_kv ? 1 : 0)) {
+    case 64 * 2 + 1: return f(Inst<64, fp8_t>{});
+    case 64 * 2: return f(Inst<64, __nv_bfloat16>{});
+    case 128 * 2 + 1: return f(Inst<128, fp8_t>{});
+    case 128 * 2: return f(Inst<128, __nv_bfloat16>{});
+    case 256 * 2 + 1: return f(Inst<256, fp8_t>{});
+    case 256 * 2: return f(Inst<256, __nv_bfloat16>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" int flash_chunk_prefill(
@@ -253,11 +279,25 @@ extern "C" int flash_chunk_prefill(
               static_cast<__nv_bfloat16*>(out), B, S, Hq, Hkv, ps, np, opt_gqa,
               window, sink, sm_scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (d * 2 + (opt_kv ? 1 : 0)) {
-    case 64 * 2 + 1: return launch<64, fp8_t>(a, st);
-    case 64 * 2: return launch<64, __nv_bfloat16>(a, st);
-    case 128 * 2 + 1: return launch<128, fp8_t>(a, st);
-    case 128 * 2: return launch<128, __nv_bfloat16>(a, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return with_inst(d, opt_kv, [&](auto k) { return launch<decltype(k)::D,
+                                                     typename decltype(k)::KVT>(a, st); });
+}
+
+// The registers and local (spill and stack) bytes a thread, the static
+// shared bytes and the dynamic bytes at page size ps, and the threads a
+// block of the instantiation that flash_chunk_prefill runs for (d,
+// opt_kv), as the loaded module reports them (cudaFuncGetAttributes).
+extern "C" int flash_chunk_prefill_info(int d, int opt_kv, int ps, int* info) {
+  return with_inst(d, opt_kv, [&](auto k) {
+    using K = decltype(k);
+    cudaFuncAttributes fa;
+    cudaError_t e = cudaFuncGetAttributes(&fa, chunk_kernel<K::D, typename K::KVT>);
+    if (e != cudaSuccess) return (int)e;
+    info[0] = fa.numRegs;
+    info[1] = (int)fa.localSizeBytes;
+    info[2] = (int)fa.sharedSizeBytes;
+    info[3] = (int)Smem<K::D, sizeof(typename K::KVT) == 1>::bytes(ps);
+    info[4] = kWarps * 32;
+    return 0;
+  });
 }

@@ -9,7 +9,8 @@
 // launch (slot, then row, then store). It reads 2 * D bytes of bf16 per
 // head vector and writes D bytes of fp8 plus one f32 scale, with a few
 // operations per byte. Design:
-// - D/8 threads (a group) own one (token, K|V, head) vector; each thread
+// - D/8 threads (a group: a warp at D 256, half one at 128) own one
+//   (token, K|V, head) vector; each thread
 //   moves 8 values with one 16-byte load, and for fp8 one 8-byte store of
 //   four packed pairs, so a group reads one 2*D-byte row and writes one
 //   D-byte line. amax is a butterfly inside the group.
@@ -139,6 +140,20 @@ __global__ void __launch_bounds__(kMaxThreads, 16) kv_write_kernel(
 using WriteKernel = void (*)(const uint4*, const uint4*, const int*, int, int,
                             void*, void*, float*, float*, int);
 
+// The instantiation for (d, opt_kv, vecs), or null.
+WriteKernel kernel_of(int d, int opt_kv, int vecs) {
+  static const WriteKernel kernels[3][2][2] = {   // [D 64|128|256][opt_kv][vecs - 1]
+      {{kv_write_kernel<64, false, 1>, kv_write_kernel<64, false, 2>},
+       {kv_write_kernel<64, true, 1>, kv_write_kernel<64, true, 2>}},
+      {{kv_write_kernel<128, false, 1>, kv_write_kernel<128, false, 2>},
+       {kv_write_kernel<128, true, 1>, kv_write_kernel<128, true, 2>}},
+      {{kv_write_kernel<256, false, 1>, kv_write_kernel<256, false, 2>},
+       {kv_write_kernel<256, true, 1>, kv_write_kernel<256, true, 2>}}};
+  const int di = d == 64 ? 0 : d == 128 ? 1 : d == 256 ? 2 : -1;
+  if (di < 0 || (vecs != 1 && vecs != 2)) return nullptr;
+  return kernels[di][opt_kv != 0][vecs - 1];
+}
+
 // threads, vecs, blocks: the launch plan (`kv_cache_write.write_plan`),
 // checked here to cover every vector with whole groups.
 extern "C" int kv_cache_write(const void* k_new, const void* v_new,
@@ -147,23 +162,35 @@ extern "C" int kv_cache_write(const void* k_new, const void* v_new,
                               float* k_scale, float* v_scale,
                               long long n_slots, int opt_kv, int threads,
                               int vecs, int blocks, void* stream) {
-  static const WriteKernel kernels[2][2][2] = {   // [D 128][opt_kv][vecs - 1]
-      {{kv_write_kernel<64, false, 1>, kv_write_kernel<64, false, 2>},
-       {kv_write_kernel<64, true, 1>, kv_write_kernel<64, true, 2>}},
-      {{kv_write_kernel<128, false, 1>, kv_write_kernel<128, false, 2>},
-       {kv_write_kernel<128, true, 1>, kv_write_kernel<128, true, 2>}}};
   const long long n_vecs = n_tokens * hkv * 2;
   if (n_vecs == 0) return 0;
-  if (d != 64 && d != 128) return (int)cudaErrorInvalidValue;
+  const WriteKernel kernel = kernel_of(d, opt_kv, vecs);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   const long long cover = (long long)blocks * (threads / (d / 8)) * vecs;
   if (hkv < 1 || threads < 32 || threads > kMaxThreads || threads % 32 ||
       (vecs != 1 && vecs != 2) || blocks < 1 || cover < n_vecs ||
       cover > INT_MAX || n_slots * hkv > INT_MAX)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  kernels[d == 128][opt_kv != 0][vecs - 1]<<<blocks, threads, 0, st>>>(
+  kernel<<<blocks, threads, 0, st>>>(
       static_cast<const uint4*>(k_new), static_cast<const uint4*>(v_new),
       slots, (int)n_vecs, hkv, k_cache, v_cache, k_scale, v_scale,
       (int)n_slots);
   return (int)cudaGetLastError();
+}
+
+// The registers and local (spill and stack) bytes a thread, the static
+// shared bytes and the most threads a block of the instantiation for (d,
+// opt_kv, vecs), as the loaded module reports them (cudaFuncGetAttributes).
+extern "C" int kv_cache_write_info(int d, int opt_kv, int vecs, int* info) {
+  const WriteKernel kernel = kernel_of(d, opt_kv, vecs);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes fa;
+  const cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
+  if (e != cudaSuccess) return (int)e;
+  info[0] = fa.numRegs;
+  info[1] = (int)fa.localSizeBytes;
+  info[2] = (int)fa.sharedSizeBytes;
+  info[3] = kMaxThreads;
+  return 0;
 }

@@ -14,8 +14,12 @@
 //
 // Design, per warp and key tile:
 //   S = Q K^T    Q's A-fragments are loaded once by ldmatrix and kept in
-//                registers for the whole key loop; K's B-fragments come
-//                from shared memory by ldmatrix. The score of column j is
+//                registers for the whole key loop (D <= 128); at D 256 they
+//                would take 64 registers a thread beside O's 128, so they
+//                are reloaded by ldmatrix from the staged query tile, which
+//                then stays in shared memory, at each 16-dim step of each
+//                key tile (the same fragments: the same bits). K's
+//                B-fragments come from shared memory by ldmatrix. The score of column j is
 //                acc * k_scale[j] * sm_scale * log2(e) (the fp8 pool's
 //                per-(token, head) K scale multiplies after the MMA; the
 //                plain version scales k first, which differs only in f32
@@ -169,16 +173,24 @@ __device__ __forceinline__ void load_rows(uint32_t dst,
 // g + 8 of the warp (g = lane / 4); l is this lane's share of the quad's sum.
 template <int D>
 struct RowTile {
-  uint32_t q[D / 16][4];
+  // Q's fragments live in registers up to D 128; past it they are read
+  // from the staged query tile at each use (see the header).
+  static constexpr bool kQRegs = D <= 128;
+  uint32_t q[kQRegs ? D / 16 : 1][4];
+  uint32_t q_tile;
   float o[D / 8][4];
   float m[2], l[2];
 
-  // Q fragments from the staged tile; state to (m, l, o) = (-1e30, 0, 0).
-  __device__ __forceinline__ void init(uint32_t q_tile) {
+  // Q fragments from the staged tile (kept there when !kQRegs); state to
+  // (m, l, o) = (-1e30, 0, 0).
+  __device__ __forceinline__ void init(uint32_t tile) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    q_tile = tile;
+    if constexpr (kQRegs) {
 #pragma unroll
-    for (int kd = 0; kd < D / 16; ++kd)
-      ldsm_x4(q_tile + swz<D>(warp * 16 + (lane & 15), 2 * kd + (lane >> 4)), q[kd]);
+      for (int kd = 0; kd < D / 16; ++kd)
+        ldsm_x4(tile + swz<D>(warp * 16 + (lane & 15), 2 * kd + (lane >> 4)), q[kd]);
+    }
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt)
       o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
@@ -216,14 +228,19 @@ struct RowTile {
     // S = Q K^T: each depth step kd feeds 8 independent accumulators
 #pragma unroll
     for (int kd = 0; kd < D / 16; ++kd) {
+      uint32_t qs[4];
+      if constexpr (!kQRegs)
+        ldsm_x4(q_tile + swz<D>((threadIdx.x >> 5) * 16 + (lane & 15), 2 * kd + (lane >> 4)),
+                qs);
+      const uint32_t(&qa)[4] = kQRegs ? q[kQRegs ? kd : 0] : qs;
 #pragma unroll
       for (int kk = 0; kk < kKeys / 16; ++kk) {
         if (!kFull && kk >= steps) break;
         uint32_t b[4];
         ldsm_x4(k_tile + swz<D>(kk * 16 + (lane & 7) + ((lane >> 4) << 3),
                                 2 * kd + ((lane >> 3) & 1)), b);
-        mma_bf16(s[2 * kk], q[kd], b[0], b[1]);
-        mma_bf16(s[2 * kk + 1], q[kd], b[2], b[3]);
+        mma_bf16(s[2 * kk], qa, b[0], b[1]);
+        mma_bf16(s[2 * kk + 1], qa, b[2], b[3]);
       }
     }
     const float masked = kHardZero ? -INFINITY : PA_NEG;

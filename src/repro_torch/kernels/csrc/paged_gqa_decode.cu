@@ -56,6 +56,10 @@
 //            acc / max(l, 1e-30) in bf16 and resets the counter to 0. With
 //            one split the block writes its rows directly (the same bits:
 //            every weight is e^0 = 1).
+// Head dims 64, 128 and 256: at D 256, G 16 and fp8 pages of 64 tokens a
+// K2 block takes ~100 KB of shared memory and a K4 block of 4 lanes ~174
+// KB, both on a one-page ring (more stages would not keep 3 blocks an SM);
+// K4's plan fits up to 6 lanes, and the wrapper sends wider decodes to K2.
 // A row's arithmetic never depends on which rows share its 16-row tile or
 // its block (an MMA output row reads only its own A row), and the order of
 // every sum depends only on (ps, D) and the split, so K4 is bit-identical
@@ -641,20 +645,37 @@ int launch(DecodeArgs a, int splits, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+template <int D_, typename KVT_, bool VISITS_>
+struct Inst {
+  static constexpr int D = D_;
+  static constexpr bool VISITS = VISITS_;
+  using KVT = KVT_;
+};
+
+// f(Inst<D, KVT, VISITS>{}) for the instantiation of (d, opt_kv, visits),
+// or an error.
+template <int D, typename F>
+int with_inst_kv(int opt_kv, bool visits, F f) {
+  if (opt_kv) return visits ? f(Inst<D, fp8_t, true>{}) : f(Inst<D, fp8_t, false>{});
+  return visits ? f(Inst<D, __nv_bfloat16, true>{}) : f(Inst<D, __nv_bfloat16, false>{});
+}
+template <typename F>
+int with_inst(int d, int opt_kv, bool visits, F f) {
+  switch (d) {
+    case 64: return with_inst_kv<64>(opt_kv, visits, f);
+    case 128: return with_inst_kv<128>(opt_kv, visits, f);
+    case 256: return with_inst_kv<256>(opt_kv, visits, f);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 int dispatch(const DecodeArgs& a, int d, int opt_kv, bool visits, int splits,
              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (d * 4 + (opt_kv ? 2 : 0) + (visits ? 1 : 0)) {
-    case 64 * 4 + 0: return launch<64, __nv_bfloat16, false>(a, splits, st);
-    case 64 * 4 + 1: return launch<64, __nv_bfloat16, true>(a, splits, st);
-    case 64 * 4 + 2: return launch<64, fp8_t, false>(a, splits, st);
-    case 64 * 4 + 3: return launch<64, fp8_t, true>(a, splits, st);
-    case 128 * 4 + 0: return launch<128, __nv_bfloat16, false>(a, splits, st);
-    case 128 * 4 + 1: return launch<128, __nv_bfloat16, true>(a, splits, st);
-    case 128 * 4 + 2: return launch<128, fp8_t, false>(a, splits, st);
-    case 128 * 4 + 3: return launch<128, fp8_t, true>(a, splits, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return with_inst(d, opt_kv, visits, [&](auto k) {
+    using K = decltype(k);
+    return launch<K::D, typename K::KVT, K::VISITS>(a, splits, st);
+  });
 }
 
 int splits_of(int nsel, int slots) {
@@ -688,4 +709,22 @@ extern "C" int paged_pool_decode_visits(
                static_cast<__nv_bfloat16*>(out), partial, counter, B, Hq, Hkv,
                ps, nsel, opt_gqa, window, sink, slots, 1, sm_scale};
   return dispatch(a, d, opt_kv, true, splits_of(nsel, slots), stream);
+}
+
+// The registers and local (spill and stack) bytes a thread, the static
+// shared bytes and the threads a block of the K2 (visits 0) or K4 kernel
+// that runs for (d, opt_kv), as the loaded module reports them
+// (cudaFuncGetAttributes).
+extern "C" int paged_gqa_decode_info(int d, int opt_kv, int visits, int* info) {
+  return with_inst(d, opt_kv, visits != 0, [&](auto k) {
+    using K = decltype(k);
+    cudaFuncAttributes fa;
+    cudaError_t e = cudaFuncGetAttributes(&fa, decode_kernel<K::D, typename K::KVT, K::VISITS>);
+    if (e != cudaSuccess) return (int)e;
+    info[0] = fa.numRegs;
+    info[1] = (int)fa.localSizeBytes;
+    info[2] = (int)fa.sharedSizeBytes;
+    info[3] = kThreads;
+    return 0;
+  });
 }

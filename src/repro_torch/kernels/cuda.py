@@ -65,11 +65,16 @@ _ARGTYPES = {
     "latent_chunk_prefill": [_P] * 10 + [_I] * 10 + [_F, _P],
     "latent_chunk_prefill_info": [_I, _I, _I, ctypes.POINTER(_I)],
     "flash_prefill": [_P] * 4 + [_I] * 8 + [_F, _P],
+    "kv_cache_write_info": [_I] * 3 + [ctypes.POINTER(_I)],
+    "paged_gqa_decode_info": [_I] * 3 + [ctypes.POINTER(_I)],
+    "flash_chunk_prefill_info": [_I] * 3 + [ctypes.POINTER(_I)],
 }
-_ENTRIES = {"kv_cache_write": ("kv_cache_write",),
+_ENTRIES = {"kv_cache_write": ("kv_cache_write", "kv_cache_write_info"),
             "paged_gqa_decode": ("paged_pool_decode",
-                                 "paged_pool_decode_visits"),
-            "flash_chunk_prefill": ("flash_chunk_prefill",),
+                                 "paged_pool_decode_visits",
+                                 "paged_gqa_decode_info"),
+            "flash_chunk_prefill": ("flash_chunk_prefill",
+                                    "flash_chunk_prefill_info"),
             "paged_latent_decode": ("paged_latent_decode",
                                     "paged_latent_decode_visits",
                                     "paged_latent_decode_info"),
@@ -181,6 +186,18 @@ def check(err: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a C entry."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def info(library_name: str, entry: str, keys, *args, device=None) -> dict:
+    """A library's ``*_info`` entry (``cudaFuncGetAttributes`` of one
+    instantiation, and its launch geometry) called with ``args`` on
+    ``device``: {key: int} in the order of ``keys``."""
+    import torch
+    out = (ctypes.c_int * len(keys))()
+    with torch.cuda.device(device):
+        err = getattr(library(library_name), entry)(*args, out)
+    check(err, entry)
+    return dict(zip(keys, out))
 
 
 def stream_ptr(device) -> int:

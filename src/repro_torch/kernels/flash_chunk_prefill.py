@@ -24,8 +24,8 @@ import torch
 
 from repro_torch.cache.quant import FP8_DTYPE
 from repro_torch.kernels import cuda
-from repro_torch.kernels.paged_gqa_decode import (MAX_PAGE_SIZE, _geometry,
-                                                  _lane_pages)
+from repro_torch.kernels.paged_gqa_decode import (HEAD_DIMS, MAX_PAGE_SIZE,
+                                                  _geometry, _lane_pages)
 
 _NEG = -1e30
 
@@ -106,7 +106,7 @@ def _check(q, positions, k_pages, v_pages, k_scale, v_scale, phys_table,
             raise ValueError(f"flash_chunk_prefill: all tensors must be on {dev}")
     if q.dtype != torch.bfloat16:
         raise ValueError(f"flash_chunk_prefill: q must be bf16, got {q.dtype}")
-    if D not in (64, 128) or ps > MAX_PAGE_SIZE or Hq % Hkv:
+    if D not in HEAD_DIMS or ps > MAX_PAGE_SIZE or Hq % Hkv:
         raise ValueError(f"flash_chunk_prefill: unsupported geometry "
                          f"D={D} ps={ps} Hq={Hq} Hkv={Hkv}")
     want = FP8_DTYPE if opt_kv else torch.bfloat16
@@ -171,3 +171,16 @@ def flash_chunk_prefill(q, positions, k_pages, v_pages, k_scale, v_scale,
     cuda.check(err, "flash_chunk_prefill")
     cuda.count("flash_chunk_prefill")
     return out
+
+
+KERNEL_INFO = ("registers", "local_bytes", "static_smem_bytes", "smem_bytes",
+               "threads")
+
+
+def kernel_info(d: int, opt_kv: bool, ps: int, device=None) -> dict:
+    """The kernel for (head_dim ``d``, ``opt_kv``) as the loaded library
+    reports it: registers and local bytes (spills and stack) a thread,
+    static shared bytes, the dynamic shared bytes at page size ``ps``, and
+    the threads a block."""
+    return cuda.info("flash_chunk_prefill", "flash_chunk_prefill_info",
+                     KERNEL_INFO, d, int(opt_kv), ps, device=device)

@@ -6,7 +6,8 @@ runs ``kv_cache_write_ref``, its plain PyTorch version, on CPU tensors. Both
 update the cache in place and drop every slot < 0 (the SkipSet). The JAX
 kernel instead routes those tokens to the pool's last line, a sentinel the
 BlockManager never allocates, so the two pools agree everywhere but there.
-The kernel takes its launch from ``write_plan``.
+The kernel takes its launch from ``write_plan``; ``kernel_info`` reports
+an instantiation's registers and local bytes.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import torch
 from repro_torch.cache.quant import FP8_DTYPE, fp8_scale
 from repro_torch.kernels import cuda
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 THREADS = 128            # threads a block at most (csrc kMaxThreads)
 MAX_VECS = 2             # vectors a thread at most
 _SMS = 132               # the H100's SMs: sizes the plan, never the result
@@ -130,3 +131,15 @@ def _launch(k_new, v_new, slot_idx, k_cache, v_cache, k_scale, v_scale,
              cuda.stream_ptr(k_new.device))
     cuda.check(err, "kv_cache_write")
     cuda.count("kv_cache_write")
+
+
+KERNEL_INFO = ("registers", "local_bytes", "static_smem_bytes", "threads")
+
+
+def kernel_info(d: int, opt_kv: bool, vecs: int, device=None) -> dict:
+    """The instantiation for (head_dim ``d``, ``opt_kv``, ``vecs`` vectors a
+    thread) as the loaded library reports it: registers and local bytes
+    (spills and stack) a thread, static shared bytes, and the most threads
+    a block."""
+    return cuda.info("kv_cache_write", "kv_cache_write_info", KERNEL_INFO,
+                     d, int(opt_kv), vecs, device=device)

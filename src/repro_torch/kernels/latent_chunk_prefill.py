@@ -19,8 +19,6 @@ kernel's page order and masks, on CPU tensors.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import cuda
@@ -160,9 +158,5 @@ def kernel_info(R: int, dr: int, opt_kv: bool, device=None) -> dict:
     reports it: rows and threads a block, dynamic shared bytes, registers
     and local bytes (spills and stack) a thread, the bf16 terms of q and
     of P' = p * sc0, and the blocks of the library's last launch."""
-    info = (ctypes.c_int * len(KERNEL_INFO))()
-    with torch.cuda.device(device):
-        err = cuda.library("latent_chunk_prefill").latent_chunk_prefill_info(
-            R, dr, int(opt_kv), info)
-    cuda.check(err, "latent_chunk_prefill_info")
-    return dict(zip(KERNEL_INFO, info))
+    return cuda.info("latent_chunk_prefill", "latent_chunk_prefill_info",
+                     KERNEL_INFO, R, dr, int(opt_kv), device=device)

@@ -29,6 +29,7 @@ from repro_torch.kernels import cuda
 
 _NEG = -1e30
 MAX_PAGE_SIZE = 128              # csrc/paged_attention.cuh PA_MAX_PS
+HEAD_DIMS = (64, 128, 256)       # the kernels' instantiations
 _SMEM_LIMIT = 227 * 1024
 _BLOCKS_PER_SM = 8               # decode_splits' aim: this many blocks an SM
 
@@ -224,8 +225,8 @@ def _check(name, q, k_pages, v_pages, k_scale, v_scale, cache_len, tables,
             raise ValueError(f"{name}: all tensors must be on {dev}")
     if q.dtype != torch.bfloat16:
         raise ValueError(f"{name}: q must be bf16, got {q.dtype}")
-    if D not in (64, 128):
-        raise ValueError(f"{name}: head_dim {D} not in (64, 128)")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {D} not in {HEAD_DIMS}")
     if ps > MAX_PAGE_SIZE:
         raise ValueError(f"{name}: page size {ps} > {MAX_PAGE_SIZE}")
     if Hq % Hkv:
@@ -330,3 +331,15 @@ def paged_pool_decode_visits(q, k_pages, v_pages, k_scale, v_scale,
     cuda.check(err, "paged_pool_decode_visits")
     cuda.count("paged_pool_decode_visits")
     return out
+
+
+KERNEL_INFO = ("registers", "local_bytes", "static_smem_bytes", "threads")
+
+
+def kernel_info(d: int, opt_kv: bool, visits: bool, device=None) -> dict:
+    """The K2 (``visits`` False) or K4 kernel for (head_dim ``d``,
+    ``opt_kv``) as the loaded library reports it: registers and local
+    bytes (spills and stack) a thread, static shared bytes, threads a
+    block (the dynamic bytes are ``_smem_bytes``)."""
+    return cuda.info("paged_gqa_decode", "paged_gqa_decode_info", KERNEL_INFO,
+                     d, int(opt_kv), int(visits), device=device)

@@ -30,8 +30,6 @@ whatever B. Both take at most MAX_HEADS heads (one 16-row MMA group).
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.cache.quant import FP8_DTYPE
@@ -304,9 +302,6 @@ def kernel_info(R: int, dr: int, opt_kv: bool, visits: bool,
     dynamic shared bytes, registers and local bytes (spills and stack) a
     thread, the bf16 terms of q and of P' = p * sc0, and the blocks and
     splits of that kernel's last launch."""
-    info = (ctypes.c_int * len(KERNEL_INFO))()
-    with torch.cuda.device(device):
-        err = cuda.library("paged_latent_decode").paged_latent_decode_info(
-            R, dr, int(opt_kv), int(visits), info)
-    cuda.check(err, "paged_latent_decode_info")
-    return dict(zip(KERNEL_INFO, info))
+    return cuda.info("paged_latent_decode", "paged_latent_decode_info",
+                     KERNEL_INFO, R, dr, int(opt_kv), int(visits),
+                     device=device)

@@ -1,5 +1,5 @@
-"""Shared layer primitives of the port: norms, RoPE, projections, the
-full-sequence causal attention, and parameter init.
+"""Shared layer primitives of the port: norms, activations, RoPE,
+projections, the full-sequence causal attention, and parameter init.
 
 Weights keep the JAX package's ``(d_in, d_out)`` layout (``x @ w``), so a
 parameter tree converts by value without transposes. The JAX package's
@@ -17,15 +17,19 @@ import torch
 # ----------------------------------------------------------------------------
 def init_param(shape, init: str, gen: torch.Generator, device,
                dtype=torch.bfloat16) -> torch.Tensor:
-    """One parameter leaf: "zeros" | "ones" | "embed" (N(0, 0.02)) | "normal"
-    (fan-in scaled: std = 1/sqrt(shape[-2]) for matrices, the JAX package's
-    rule). Draws in f32 from ``gen`` on ``device``, then casts: a stacked
-    (L, ...) leaf one layer at a time, so a full-size model never holds a
-    leaf-sized f32 temporary."""
+    """One parameter leaf: "zeros" | "ones" | "uniform1" (U[0, 1): RWKV's
+    mix coefficients) | "embed" (N(0, 0.02)) | "normal" (fan-in scaled:
+    std = 1/sqrt(shape[-2]) for matrices, the JAX package's rule). Draws in
+    f32 from ``gen`` on ``device``, then casts: a stacked (L, ...) leaf one
+    layer at a time, so a full-size model never holds a leaf-sized f32
+    temporary."""
     if init == "zeros":
         return torch.zeros(shape, dtype=dtype, device=device)
     if init == "ones":
         return torch.ones(shape, dtype=dtype, device=device)
+    if init == "uniform1":
+        return torch.rand(shape, generator=gen, device=device,
+                          dtype=torch.float32).to(dtype)
     if init == "embed":
         std = 0.02
     else:
@@ -37,6 +41,26 @@ def init_param(shape, init: str, gen: torch.Generator, device,
                         dtype=torch.float32)
         part.copy_(x.mul_(std))
     return out
+
+
+def init_tree(spec, seed: int, device):
+    """A nested dict of (shape, init, dtype) leaves -> the same dict of
+    tensors, drawn in order from one generator seeded with ``seed``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def make(leaf):
+        if isinstance(leaf, dict):
+            return {k: make(v) for k, v in leaf.items()}
+        shape, init, dtype = leaf
+        return init_param(shape, init, gen, device, dtype)
+    return make(spec)
+
+
+def tree_count(spec) -> int:
+    """Parameters in a nested dict of (shape, init, dtype) leaves."""
+    if isinstance(spec, dict):
+        return sum(tree_count(v) for v in spec.values())
+    return math.prod(spec[0])
 
 
 # ----------------------------------------------------------------------------
@@ -64,6 +88,24 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 def swiglu(x, wg, wu, wd):
     return linear(silu(linear(x, wg)) * linear(x, wu), wd)
+
+
+_SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation (``F.gelu``'s
+    default is erf), each step rounded to x's dtype as XLA evaluates it on
+    bf16: x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 x^3)))."""
+    c = torch.tensor(_SQRT_2_OVER_PI, dtype=torch.float32).to(x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * (x * x * x)))))
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + e^x) as ``jax.nn.softplus`` computes it (``logaddexp(x,
+    0)``; ``F.softplus`` switches to x above a threshold)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
 
 
 # ----------------------------------------------------------------------------

@@ -6,7 +6,10 @@ Every model exposes the engine-facing protocol of the JAX package:
   decode_step(params, batch, cache, coopt, long_window) — one-token step
   cache_shape(batch, max_len, coopt, ...) / init_cache(..., device)
 The ``dense``, ``moe``, ``mla`` and ``vlm`` families are ported
-(``TransformerModel``); any other family raises ``NotImplementedError``.
+(``TransformerModel``), and so are ``griffin`` (``GriffinModel``) and
+``rwkv6`` (``RWKV6Model``), whose ``recurrent_leaves`` name the cache leaves
+that carry per-lane recurrent state; any other family raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -17,5 +20,11 @@ from repro_torch.configs.base import ModelConfig
 
 @lru_cache(maxsize=64)
 def get_model(cfg: ModelConfig):
+    if cfg.family == "griffin":
+        from repro_torch.models.griffin import GriffinModel
+        return GriffinModel(cfg)
+    if cfg.family == "rwkv6":
+        from repro_torch.models.rwkv6 import RWKV6Model
+        return RWKV6Model(cfg)
     from repro_torch.models.transformer import TransformerModel
     return TransformerModel(cfg)

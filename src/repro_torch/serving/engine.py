@@ -9,8 +9,8 @@ paging state (free lists, refcounts, prefix-cache hash tables, slot
 indices, SkipSets) lives host-side in the Scheduler/BlockManager; the device
 sees only index tensors: global ``slot_idx``, per-lane ``page_table``,
 per-lane ``cache_len``. Lane isolation is enforced by slot disjointness, so
-pool writes need no lane masking; only the batch-major ``length`` leaf is
-masked with the admitted-lane mask.
+pool writes need no lane masking; the batch-major leaves (``length`` and a
+recurrent model's state) are masked with the step's lane mask.
 
 The pool is updated IN PLACE by every step (the JAX package donates it to
 XLA instead); the engine owns it and nothing else holds a reference.
@@ -47,21 +47,37 @@ and every prefill step passes zero patch embeddings (one tensor allocated
 with the engine, so a captured graph reads it at a fixed address). vlm
 does not pack (``pack_prefill`` raises).
 
+The recurrent families (griffin, rwkv6) carry per-lane state in
+batch-major cache leaves (the model's ``recurrent_leaves``). A request's
+first chunk since admission zeroes its lane's state, or restores the
+snapshot that matches its prefix-cache hit; chunks end on page boundaries
+(``Scheduler(page_aligned=True)``), and a chunk that ends on one leaves a
+snapshot of the lane's state under the chain hash of its pages, the
+prefix cache's resume artifact (a match stops at the deepest page with a
+snapshot: the manager's ``prefix_gate``). Resets, restores and snapshots
+are device copies enqueued on the step stream into and out of the
+persistent leaves, so they keep the addresses a captured graph reads and
+never wait for the card. Prefill steps carry ``pad_mask`` (B, S), which
+freezes the recurrence on a lane's padding columns. These families do not
+pack (``pack_prefill`` raises).
+
 Not ported yet (the engine raises ``NotImplementedError``): the host-DRAM
-tier (``CacheConfig.host_pages > 0``), a device mesh and recurrent
-families; ``CacheConfig`` itself refuses page-range shards
-(``num_shards != 1``).
+tier (``CacheConfig.host_pages > 0``) and a device mesh; ``CacheConfig``
+itself refuses page-range shards (``num_shards != 1``).
 """
 from __future__ import annotations
 
 import gc
 import time
+from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.cache.block_manager import (chain_hash_tokens,
+                                             extend_chain_hash)
 from repro_torch.configs.base import CacheConfig, ModelConfig
 from repro_torch.core.coopt import COOPT, CoOptConfig
 from repro_torch.kernels.visits import sharing_stats
@@ -69,8 +85,8 @@ from repro_torch.models import get_model
 from repro_torch.models.transformer import check_device
 from repro_torch.serving.request import FinishReason, Request, RequestState
 from repro_torch.serving.sampler import SamplingParams, sample
-from repro_torch.serving.scheduler import (Scheduler, StepPlan, bucket_len,
-                                           chunk_pages, pack_rows)
+from repro_torch.serving.scheduler import (PrefillChunk, Scheduler, StepPlan,
+                                           bucket_len, chunk_pages, pack_rows)
 
 
 @dataclass(frozen=True)
@@ -89,6 +105,8 @@ class EngineConfig:
                                     # (max final chunks packed together)
     max_preemptions: int = 32       # past it a request is rejected
                                     # (PREEMPTION_LIMIT)
+    state_cache_entries: int = 128  # recurrent-state snapshots retained
+                                    # (griffin/rwkv6 prefix-cache resume)
     cache: CacheConfig = CacheConfig()   # pool geometry and cache policy
 
     def cache_config(self, page_size: int) -> CacheConfig:
@@ -312,11 +330,15 @@ class Engine:
         self.ecfg = engine_cfg
         # raises for the families not ported
         self.model = get_model(model_cfg)
+        # recurrent-state families: the batch-major leaves that carry a
+        # lane's state across chunks
+        self._rec_leaves = tuple(getattr(self.model, "recurrent_leaves", ()))
         # concat-prefill packing works where "length" is the only
         # batch-major leaf (rows decouple from lanes): dense/moe/mla. vlm's
-        # patch stubs are per lane.
-        if engine_cfg.pack_prefill and \
-                model_cfg.family not in ("dense", "moe", "mla"):
+        # patch stubs and the recurrent families' state are per lane.
+        if engine_cfg.pack_prefill and (
+                model_cfg.family not in ("dense", "moe", "mla")
+                or self._rec_leaves):
             raise ValueError(
                 f"pack_prefill unsupported for family {model_cfg.family!r}"
                 " (per-lane batch-major cache state)")
@@ -337,11 +359,29 @@ class Engine:
         B, M = engine_cfg.num_lanes, engine_cfg.max_len
         self.cache = self.model.init_cache(B, M, coopt, cache_cfg=ccfg,
                                            device=self.device)
+        # the batch-major leaves (length, recurrent state) and their batch
+        # axis: a step writes them under its lane mask; the pool leaves are
+        # isolated by slot disjointness
+        shapes = self.model.cache_shape(B, M, coopt, cache_cfg=ccfg)
+        self._batch_axis = {k: axes.index("batch")
+                            for k, (_, _, axes) in shapes.items()
+                            if "batch" in axes}
+        # recurrent families: chunk ends land on page boundaries, so the
+        # state after a chunk can be snapshotted as the prefix cache's
+        # resume artifact (KV pages alone cannot resume a recurrence)
         self.scheduler = Scheduler(
             B, M, coopt.page_size, list(engine_cfg.prefill_buckets),
             extra_tokens=self._patch_offset,
             token_budget=engine_cfg.token_budget or None,
+            page_aligned=bool(self._rec_leaves),
             max_preemptions=engine_cfg.max_preemptions, cache_cfg=ccfg)
+        # chain hash of a prefix's pages -> the lane state after it, as
+        # device tensors (the snapshots); the manager's prefix_gate stops
+        # page matching at the deepest boundary that can be restored
+        self._state_cache: "OrderedDict[int, Dict[str, torch.Tensor]]" = \
+            OrderedDict()
+        if self._rec_leaves:
+            self.scheduler.manager.prefix_gate = self._state_cache.__contains__
         # deterministic fault-injection hooks (serving.faults); None in
         # production, a seeded FaultInjector in the chaos tests
         self.faults = None
@@ -362,11 +402,12 @@ class Engine:
     # ---------------------------------------------------------- step bodies --
     def _forward(self, kind: str, batch, lane_mask: torch.Tensor):
         """One model call for the whole step. The pool is updated in place;
-        the batch-major ``length`` leaf is lane-masked and written into the
-        persistent leaf (pool writes are slot-disjoint). A packed step's
-        rows are not lanes: ``length`` keeps its value (the JAX package's
-        ``_prefill_packed_impl``), and its logits are (R, G, V). A vlm
-        prefill step reads the engine's zero patch embeddings."""
+        every batch-major leaf (``length``, a recurrent model's state) is
+        lane-masked and written into its persistent tensor, in place (the
+        JAX package's ``_mask_lanes``; pool writes are slot-disjoint). A
+        packed step's rows are not lanes: ``length`` keeps its value (the
+        JAX package's ``_prefill_packed_impl``), and its logits are (R, G,
+        V). A vlm prefill step reads the engine's zero patch embeddings."""
         cache = dict(self.cache)
         if self._patches is not None and kind == "prefill":
             batch = dict(batch, patches=self._patches)
@@ -375,8 +416,11 @@ class Engine:
         logits, cache = fn(self.params, batch, cache, self.coopt,
                            long_window=self.ecfg.long_window)
         if kind != "packed":
-            length = self.cache["length"]
-            length.copy_(torch.where(lane_mask, cache["length"], length))
+            for name, ax in self._batch_axis.items():
+                leaf = self.cache[name]
+                m = lane_mask.reshape((1,) * ax + (-1,)
+                                      + (1,) * (leaf.dim() - ax - 1))
+                leaf.copy_(torch.where(m, cache[name], leaf))
         return logits
 
     def _run_model(self, sb: StepBatch):
@@ -464,6 +508,59 @@ class Engine:
         for k, n in st["lanes_per_shared_page"].items():
             hist[k] = hist.get(k, 0) + n
 
+    # ------------------------------------------------- recurrent snapshots --
+    def _lane_index(self, leaf: str, lane: int):
+        return (slice(None),) * self._batch_axis[leaf] + (lane,)
+
+    def _reset_or_restore_state(self, chunks: List[PrefillChunk]) -> None:
+        """First chunk of a (re)admitted request on a recurrent family: the
+        lane's state leaves hold the PREVIOUS occupant's state. Zero them,
+        or restore the snapshot matching the prefix-cache hit (``start >
+        0`` implies the manager's prefix_gate found one). Device copies into
+        the persistent leaves, on the current stream: ordered before the
+        step that reads them and after every step already enqueued."""
+        ps = self.scheduler.page_size
+        for c in chunks:
+            if not c.first:
+                continue
+            # (re)seed the request's running chain hash at its resume point
+            c.req.prefix_hash_pages = c.start // ps
+            c.req.prefix_hash = chain_hash_tokens(
+                c.req.effective_prompt(), c.req.prefix_hash_pages, ps)
+            snap = None
+            if c.start > 0:
+                snap = self._state_cache[c.req.prefix_hash]
+                self._state_cache.move_to_end(c.req.prefix_hash)
+            for leaf in self._rec_leaves:
+                dst = self.cache[leaf][self._lane_index(leaf, c.req.lane)]
+                if snap is None:
+                    dst.zero_()
+                else:
+                    dst.copy_(snap[leaf])
+
+    def _snapshot_state(self, c: PrefillChunk) -> None:
+        """A chunk that ended exactly on a page boundary leaves the lane's
+        recurrent state at a committed-prefix resume point: keep a copy of
+        it under the chain hash its pages were registered with. The copy is
+        a device clone enqueued after the step that produced the state, so
+        the async pipeline's host loop never waits for it."""
+        ps = self.scheduler.page_size
+        end = c.start + c.n
+        if end % ps or not self.ccfg.enable_prefix_cache:
+            return
+        # extend the request's running hash; never rehash from page 0
+        key = extend_chain_hash(c.req.prefix_hash, c.req.effective_prompt(),
+                                c.req.prefix_hash_pages, end // ps, ps)
+        c.req.prefix_hash, c.req.prefix_hash_pages = key, end // ps
+        if key in self._state_cache:
+            self._state_cache.move_to_end(key)
+            return
+        self._state_cache[key] = {
+            leaf: self.cache[leaf][self._lane_index(leaf, c.req.lane)].clone()
+            for leaf in self._rec_leaves}
+        while len(self._state_cache) > self.ecfg.state_cache_entries:
+            self._state_cache.popitem(last=False)
+
     # --------------------------------------------------- the ONE step path --
     def _build_step(self, plan: StepPlan,
                     device_feed: bool = False) -> StepBatch:
@@ -476,7 +573,12 @@ class Engine:
         the previous step's tokens reach the host; a decode-only step then
         carries its per-lane metadata as ONE (3, B) ``dmeta`` array
         (positions, slots, cache lengths). With ``pack_prefill`` a step
-        with prefill chunks is built as packed rows (``_build_packed``)."""
+        with prefill chunks is built as packed rows (``_build_packed``). A
+        recurrent model's lanes that start a request are reset or restored
+        first, and its prefill steps carry ``pad_mask`` (B, S), the real
+        columns of each lane."""
+        if self._rec_leaves and plan.prefill:
+            self._reset_or_restore_state(plan.prefill)
         if self._should_pack(plan):
             return self._build_packed(plan, device_feed)
         B = self.ecfg.num_lanes
@@ -492,6 +594,7 @@ class Engine:
         tokens = np.zeros((B, S), np.int32)
         positions = np.zeros((B, S), np.int32)
         slot_idx = np.full((B, S), -1, np.int32)      # Eq. 5 SkipSet: pads
+        pad_mask = np.zeros((B, S), bool)
         last_pos = np.zeros(B, np.int32)
         feed = np.full(B, -2, np.int32)
         scatter_lane = np.full(B, B, np.int32)        # B = drop
@@ -511,6 +614,7 @@ class Engine:
                 c.req.pool_id, np.arange(c.start, c.start + n))
             page_table[lane] = self.scheduler.page_table(c.req)
             cache_len[lane] = c.start + n
+            pad_mask[lane, :n] = True
             last_pos[lane] = n - 1
             lane_mask[lane] = True
             if c.final:
@@ -523,6 +627,7 @@ class Engine:
             slot_idx[lane, 0] = d.slot
             page_table[lane] = self.scheduler.page_table(d.req)
             cache_len[lane] = d.pos + 1
+            pad_mask[lane, 0] = True
             last_pos[lane] = 0
             lane_mask[lane] = True
             samples.append((d.req, False, (lane,)))
@@ -543,6 +648,8 @@ class Engine:
                      "page_table": page_table, "cache_len": cache_len}
             if kind == "prefill":
                 batch.update(tokens=tokens, last_pos=last_pos)
+                if self._rec_leaves:
+                    batch["pad_mask"] = pad_mask
             else:
                 batch["token"] = tokens
             if not device_feed:
@@ -684,9 +791,11 @@ class Engine:
     def _note_executed(self, sb: StepBatch) -> None:
         """Host metadata updates that must land before the NEXT plan is
         built and do not depend on sampled token values: advance prefill
-        progress and register prefix pages."""
+        progress, register prefix pages, snapshot recurrent state."""
         for c in sb.plan.prefill:
             self.scheduler.note_prefilled(c.req, c.n)
+            if self._rec_leaves:
+                self._snapshot_state(c)
 
     def _postprocess(self, sb: StepBatch, toks: np.ndarray,
                      now: float) -> None:
@@ -777,8 +886,9 @@ class Engine:
     # ------------------------------------------------ step-runner warmup --
     def _dummy_batch(self, kind: str, R: int, S: int) -> Dict[str, np.ndarray]:
         """A shape-exact stand-in for one async step's batch that touches
-        no live state: every slot and page is -1, so the write kernel
-        stores nothing and no page is read."""
+        no live pool state: every slot and page is -1, so the write kernel
+        stores nothing and no page is read (a recurrent model's dummy steps
+        do write its lanes' state, which a request's first chunk resets)."""
         NP = self.scheduler.pages_per_lane
         table = np.full((R, NP), -1, np.int32)
         if kind == "decode":                 # the fused-dmeta schema
@@ -798,6 +908,8 @@ class Engine:
                          page_base=np.zeros((R, NP), np.int32))
         else:
             batch["last_pos"] = np.zeros(R, np.int32)
+            if self._rec_leaves:
+                batch["pad_mask"] = np.zeros((R, S), bool)
         return batch
 
     def _warmup_lattice(self) -> List[Tuple[str, Dict[str, np.ndarray]]]:
@@ -831,7 +943,8 @@ class Engine:
         counters. On CUDA each runner then captures its graph; all share
         one memory pool, since replays are serialized on one stream.
         Returns the number of runners built. The eager runs write the
-        lanes' ``length`` leaf, so the engine must have no work."""
+        lanes' ``length`` leaf (and a recurrent model's state), so the
+        engine must have no work."""
         if self.scheduler.has_work:
             raise RuntimeError("warmup() needs an engine with no work: its "
                                "dummy steps write the lanes' lengths")

@@ -54,7 +54,7 @@ def test_active_param_count_agrees(arch):
 
 def test_unported_arch_raises():
     with pytest.raises(KeyError, match="not ported"):
-        get_config("rwkv6-7b")
+        get_config("whisper-small")
 
 
 def test_registry_exports_agree():
@@ -62,7 +62,8 @@ def test_registry_exports_agree():
     of which still raises; ``ALL_IDS`` adds the paper's model."""
     ported = [a for a in jconfigs.ARCH_IDS if a in ALL_IDS]
     assert configs.ARCH_IDS == ported
-    assert set(ported) == {"yi-34b", "mixtral-8x22b", "deepseek-v2-lite-16b",
+    assert set(ported) == {"yi-34b", "rwkv6-7b", "mixtral-8x22b",
+                           "deepseek-v2-lite-16b", "recurrentgemma-9b",
                            "internvl2-2b", "qwen3-4b", "qwen2.5-14b",
                            "deepseek-67b"}
     assert ALL_IDS == [a for a in jconfigs.ALL_IDS if a in ALL_IDS]

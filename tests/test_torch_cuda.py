@@ -61,7 +61,13 @@ _WRITE_CASES = (
        (True, 128, 8, 2, 40, "none"), (False, 64, 2, 2, 40, "none"),
        (True, 128, 8, 2, 40, "pool_edge"), (False, 64, 40, 2, 40, "pool_edge"),
        (True, 128, 8, 2, 40, "values"), (True, 64, 2, 2, 40, "values"),
-       (False, 128, 8, 2, 40, "values")])
+       (False, 128, 8, 2, 40, "values")]
+    # recurrentgemma-9b's local attention: D 256 on one kv head (a group is
+    # a whole warp), its decode step, mixed chunk and the value edges
+    + [(o, 256, 1, 2, 40, "base") for o in (False, True)]
+    + [(True, 256, 1, 4, 1, "base"), (True, 256, 1, 4, 512, "base"),
+       (True, 256, 1, 2, 40, "none"), (True, 256, 1, 2, 40, "pool_edge"),
+       (True, 256, 1, 2, 40, "values")])
 _EDGE = [1.0625, 1.1875, -1.0625, 432.0, -432.0, 0.0, 3.25, 208.0]
 
 
@@ -180,9 +186,13 @@ _DECODE_CASES = {
     # qwen2.5-14b (G 5), yi-34b (G 7), deepseek-67b (G 8), llama13b (G 1)
     "g5": (4, 16, 64, None), "g7": (4, 16, 64, None),
     "g8": (4, 16, 64, None), "g1": (4, 16, 64, None),
+    # recurrentgemma-9b (G 16, one kv head, D 256): 4 lanes, and 6, the
+    # most whose K4 plan fits a block
+    "g16": (4, 32, 64, None), "g16b6": (6, 8, 64, None),
 }
 # (Hkv, G) of a case; G 4 over 2 KV heads otherwise
-_DECODE_HEADS = {"g5": (8, 5), "g7": (8, 7), "g8": (8, 8), "g1": (40, 1)}
+_DECODE_HEADS = {"g5": (8, 5), "g7": (8, 7), "g8": (8, 8), "g1": (40, 1),
+                 "g16": (1, 16), "g16b6": (1, 16)}
 
 
 def _decode_tables(case, dev):
@@ -226,7 +236,11 @@ def _decode_tables(case, dev):
        (False, False, 0, 0, 64, "b32"), (True, True, 0, 0, 128, "all_share")]
     # K4 at the served models' G, fp8 and bf16 pools
     + [(kv, True, 0, 0, 128, g) for g in ("g5", "g7", "g8", "g1")
-       for kv in (True, False)])
+       for kv in (True, False)]
+    # D 256: G 16 on one kv head, plain and windowed with a sink page
+    + [(kv, True, w, s, 256, "g16") for kv in (True, False)
+       for w, s in ((0, 0), (2048, 1), (96, 1))]
+    + [(True, True, 96, 1, 256, "b1"), (True, True, 96, 1, 256, "g16b6")])
 def test_decode_kernels(dev, monkeypatch, opt_kv, opt_gqa, window, sink, D,
                         case):
     """K2 vs its plain version within one bf16 ulp; K4 bit-identical to
@@ -315,6 +329,19 @@ def test_decode_routes_oversized_visit_plan_to_k2(dev, opt_kv, ps):
                                     opt_kv=opt_kv, opt_gqa=True)
 
 
+@pytest.mark.parametrize("opt_kv", [True, False])
+def test_head_dim_256_kernel_info(dev, opt_kv):
+    """The D 256 instantiations of K1 (one and two vectors a thread), K2,
+    K4 and K3 load and report their resources: at most 255 registers a
+    thread, and K3's dynamic shared memory at pages of 64 within a block's
+    227 KB."""
+    infos = [kw.kernel_info(256, opt_kv, v, dev) for v in (1, 2)] + \
+        [pd.kernel_info(256, opt_kv, v, dev) for v in (False, True)] + \
+        [fc.kernel_info(256, opt_kv, 64, dev)]
+    assert all(0 < i["registers"] <= 255 for i in infos)
+    assert infos[-1]["smem_bytes"] <= 232448
+
+
 _CHUNK_MODES = [(True, True, 0), (False, True, 0), (True, False, 0),
                 (True, True, 40)]
 
@@ -331,7 +358,11 @@ _CHUNK_MODES = [(True, True, 0), (False, True, 0), (True, False, 0),
     + [(kv, gqa, 0, False, 128, 32, 1) for kv, gqa in
        ((True, True), (False, True), (True, False))]
     + [(kv, True, w, False, D, 32, 23) for kv in (True, False)
-       for w, D in ((0, 128), (40, 64))])
+       for w, D in ((0, 128), (40, 64))]
+    # D 256 (Q's fragments read from shared memory at each use), the
+    # engine's pages of 64, packed and windowed
+    + [(kv, True, w, p, 256, 64, 40) for kv in (True, False)
+       for w, p in ((0, False), (40, False), (0, True))])
 def test_chunk_kernel(dev, opt_kv, opt_gqa, window, packed, D, ps, S):
     """K3 vs its plain version within one bf16 ulp, a chunk lane and decode
     lanes. ``packed``: lane 0's row holds two prompts as segments (24 rows

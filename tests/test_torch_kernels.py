@@ -79,7 +79,7 @@ def _i32(x):
 
 # ------------------------------------------------------------------ K1 ----
 @pytest.mark.parametrize("opt_kv", [False, True])
-@pytest.mark.parametrize("Hkv,D", [(2, 64), (8, 128)])
+@pytest.mark.parametrize("Hkv,D", [(2, 64), (8, 128), (1, 256)])
 def test_kv_cache_write_plain_matches_pallas_bytes(opt_kv, Hkv, D):
     """K1 plain == the JAX write kernel (interpret) and the jnp
     ``write_kv``, pool bytes equal, the pool's last line (the JAX sentinel)
@@ -146,7 +146,7 @@ def test_kv_cache_write_plain_drops_skipset_in_place():
     assert torch.all(k_cache[keep] == 7.0)
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("Hkv", [1, 2, 8, 40])
 @pytest.mark.parametrize("n_tokens", [1, 4, 877, 2048, 4096])
 def test_write_plan_covers_every_vector_once(n_tokens, Hkv, D):
@@ -177,7 +177,7 @@ def test_write_plan_covers_every_vector_once(n_tokens, Hkv, D):
 
 
 def test_kv_cache_write_checks_before_launch(monkeypatch):
-    """The kernel path refuses a head_dim outside (64, 128) and a new-token
+    """The kernel path refuses a head_dim outside (64, 128, 256) and a new-token
     or cache view off a 16-byte boundary with ValueError, before the
     library is loaded or a launch counted."""
     def refuse(name):
@@ -209,9 +209,9 @@ def test_kv_cache_write_checks_before_launch(monkeypatch):
 
 
 # ------------------------------------------------------------------ K2 ----
-def _decode_inputs(mode, window=0, sink=0, seed=2):
+def _decode_inputs(mode, window=0, sink=0, seed=2, Hkv=2, G=4, D=64):
     rng = np.random.default_rng(seed)
-    B, P_lane, ps, Hkv, G, D = 3, 6, 16, 2, 4, 64
+    B, P_lane, ps = 3, 6, 16
     coopt = MODES[mode]
     jkv, jsc, tkv, tsc = _pool(rng, B * P_lane, ps, Hkv, D, coopt.opt_kv)
     q = rng.standard_normal((B, Hkv * G, D)).astype(np.float32)
@@ -528,10 +528,79 @@ def test_decode_smem_plan():
     assert pdm._smem_bytes(64, 128, 1, 32, 16) > limit
 
 
+# ------------------------------------------------------ K1-K4 at D 256 ----
+# recurrentgemma-9b's local attention: head_dim 256, 16 query heads on one
+# kv head (MQA, G 16), a window with one sink page.
+D256 = dict(Hkv=1, G=16, D=256)
+
+
+def test_decode_smem_plan_at_head_dim_256():
+    """At G 16, D 256 and fp8 pages of 64 tokens K2's block (~100 KB) and
+    K4's at 4 lanes (~174 KB) fit one block's shared memory on a one-page
+    ring; K4's fits up to 6 lanes, and ops sends 8 lanes to K2."""
+    limit = pdm._SMEM_LIMIT
+    assert pdm._smem_bytes(64, 256, 1, 1, 16) <= limit // 2
+    assert pdm._smem_bytes(64, 256, 1, 4, 16) <= limit
+    assert pdm.plan_fits(6, 16, 1, 256, 64, True, True)
+    assert not pdm.plan_fits(7, 16, 1, 256, 64, True, True)
+    assert ops._gqa_use_visits(True, 4, 16, 1, 256, 64, True, True)
+    assert not ops._gqa_use_visits(True, 8, 16, 1, 256, 64, True, True)
+
+
+@pytest.mark.parametrize("opt_kv", [False, True])
+def test_pool_decode_plain_at_head_dim_256(opt_kv):
+    """K2 plain at D 256, G 16, Hkv 1, windowed with a sink page, vs the
+    interpret kernel and the flat jnp oracle (KERNEL_ATOL: one bf16 ulp);
+    K4 plain over the same tables equals K2 plain bit for bit."""
+    mode = "coopt" if opt_kv else "opt-gqa"
+    window, sink = 32, 1
+    coopt, (jq, jkv, jsc, jcl, jphys, jlog), (tq, tkv, tsc, tcl, tphys,
+                                              tlog) = \
+        _decode_inputs(mode, window, sink, **D256)
+    jks, jvs = (jsc[0], jsc[1]) if jsc is not None else (None, None)
+    tks, tvs = (tsc[0], tsc[1]) if tsc is not None else (None, None)
+    kw = dict(opt_kv=coopt.opt_kv, opt_gqa=True, window=window,
+              sink_pages=sink)
+    got = paged_pool_decode_ref(tq, tkv[0], tkv[1], tks, tvs, tcl, tphys,
+                                tlog, **kw)
+    kern = jpd.paged_pool_decode(jq, jkv[0], jkv[1], jks, jvs, jcl, jphys,
+                                 jlog, interpret=True, **kw)
+    oracle = jref.paged_pool_decode_ref(jq, jkv[0], jkv[1], jks, jvs, jcl,
+                                        jphys, jlog, opt_kv=coopt.opt_kv,
+                                        window=window, sink_pages=sink)
+    np.testing.assert_allclose(_t2n(got), _f32(kern), atol=KERNEL_ATOL)
+    np.testing.assert_allclose(_t2n(got), _f32(oracle), atol=KERNEL_ATOL)
+    vp, vm, vl = visits.plan_visits(tphys, tlog)
+    k4 = paged_pool_decode_visits_ref(tq, tkv[0], tkv[1], tks, tvs, tcl, vp,
+                                      vm, vl, **kw)
+    assert torch.equal(k4, got)
+
+
+@pytest.mark.parametrize("opt_kv", [False, True])
+def test_chunk_prefill_plain_at_head_dim_256(opt_kv):
+    """K3 plain at D 256, G 16, Hkv 1, windowed with a sink page, vs the
+    interpret kernel (KERNEL_ATOL) and the jnp ``paged_chunk_attention``
+    (JNP_ATOL)."""
+    window, sink = 16, 1
+    (jq, jkv, jsc, jpos, jpt), (tq, tkv, tsc, tpos, tpt) = \
+        _chunk_case(opt_kv, **D256)
+    got = ops.paged_chunk_prefill(tq, tpos, tkv, tsc, tpt, opt_kv=opt_kv,
+                                  opt_gqa=True, window=window,
+                                  sink_pages=sink)
+    kern = jops.paged_chunk_prefill(jq, jpos, jkv, jsc, jpt, opt_kv=opt_kv,
+                                    opt_gqa=True, window=window,
+                                    sink_pages=sink)
+    exp = jchunk(jq, jkv, jsc, jpos, jpt,
+                 JMODES["coopt"].replace(opt_kv=opt_kv), window=window,
+                 sink_pages=sink)
+    np.testing.assert_allclose(_t2n(got), _f32(kern), atol=KERNEL_ATOL)
+    np.testing.assert_allclose(_t2n(got), _f32(exp), atol=JNP_ATOL)
+
+
 # ------------------------------------------------------------------ K3 ----
-def _chunk_case(opt_kv, seed=7):
+def _chunk_case(opt_kv, seed=7, Hkv=2, G=4, D=64):
     rng = np.random.default_rng(seed)
-    B, P, ps, Hkv, G, D, S = 2, 4, 16, 2, 4, 64, 8
+    B, P, ps, S = 2, 4, 16, 8
     jkv, jsc, tkv, tsc = _pool(rng, B * P, ps, Hkv, D, opt_kv)
     jq, tq = _bf16(rng.standard_normal((B, S, Hkv * G, D)).astype(np.float32))
     # lane 0: a continuation chunk at positions [24, 32); lane 1: a decode

@@ -151,7 +151,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         model.init_cache(2, 64, MODES["coopt"])
     with pytest.raises(NotImplementedError):
-        get_model(get_config(ARCH).replace(family="rwkv6"))
+        get_model(get_config(ARCH).replace(family="whisper"))
 
 
 def test_param_init_is_seeded_and_fan_in_scaled():

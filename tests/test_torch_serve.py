@@ -207,3 +207,19 @@ def test_main_runs_on_the_card_by_default():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--arch", "qwen3-4b", "--reduced", "--requests", "1"])
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "rwkv6-7b"])
+def test_main_serves_the_recurrent_families(arch, capsys):
+    """griffin and rwkv6 (``--reduced``) serve through ``ServeRunner`` sync
+    and async on the CPU, every request finished; ``--pack`` raises the
+    engine's ValueError (their state is per lane)."""
+    base = ["--arch", arch, "--reduced", "--device", "cpu", "--requests",
+            "3", "--max-new-tokens", "3", "--lanes", "2", "--max-len", "128",
+            "--use-kernel"]
+    for extra in ([], ["--async", "--assert-aot"]):
+        serve.main(base + extra)
+        out = json.loads(capsys.readouterr().out)
+        assert out["generated_tokens"] == 9 and out["rejected"] == 0
+    with pytest.raises(ValueError, match="pack_prefill unsupported"):
+        serve.main(base + ["--pack"])
