@@ -1448,11 +1448,16 @@ KERNEL_GROUPS = (("K1", ("kv_write",)), ("K3", ("chunk_kernel",)),
 # ``LAUNCHES`` keys that count it
 TRACE_KERNELS = (
     ("kv_write_kernel", ("kv_cache_write",)),
-    ("chunk_kernel", ("flash_chunk_prefill",)),
-    ("decode_kernel", ("paged_pool_decode", "paged_pool_decode_visits")),
-    ("latent_chunk_kernel", ("latent_chunk_prefill",)),
+    ("chunk_kernel", ("flash_chunk_prefill", "flash_chunk_prefill_state")),
+    ("decode_kernel", ("paged_pool_decode", "paged_pool_decode_visits",
+                       "paged_pool_decode_state",
+                       "paged_pool_decode_visits_state")),
+    ("latent_chunk_kernel", ("latent_chunk_prefill",
+                             "latent_chunk_prefill_state")),
     ("latent_decode_kernel", ("paged_latent_decode",
-                              "paged_latent_decode_visits")),
+                              "paged_latent_decode_visits",
+                              "paged_latent_decode_state",
+                              "paged_latent_decode_visits_state")),
     ("prefill_kernel", ("flash_prefill",)))
 DEVICE_ACTIVITIES = ("kernel", "gpu_memcpy", "gpu_memset")
 TRACE_PAD = 64          # spin kernels on each side of a traced run,
@@ -3545,6 +3550,697 @@ def parity_phase(torch, rec, arch="qwen3-4b-reduced"):
 
 
 # the parity phase's reduced configs, card against CPU
+# ------------------------------------------------------------ sharded --
+# The (m, l) state a kernel returns (``return_state``) against its plain
+# version's: m (natural units of the scaled scores) within STATE_M_TOL * (1
+# + |m|) -- the scores' f32 sums in another order, and for K3 and K5-K7 one
+# f32 rounding of their log2 -> ln conversion -- and l within STATE_L_RTOL
+# of |l| (its p's rounded like the outputs' terms); a row that saw no live
+# key must report m = -1e30 and l = 0 exactly. The control, the plain
+# version with each row's newest key masked off, must exceed the l rule.
+STATE_M_TOL = 2 ** -16
+STATE_L_RTOL = 2 ** -12
+SHARDS = (1, 2, 4)              # 1: the whole pool (the control's case)
+PA_NEG = -1e30
+STATE_LINES = {"paged_pool_decode": ("paged_gqa_decode", 122),
+               "paged_pool_decode_visits": ("paged_gqa_decode", 288),
+               "flash_chunk_prefill": ("flash_chunk_prefill", 155),
+               "paged_latent_decode": ("paged_latent_decode", 132),
+               "paged_latent_decode_visits": ("paged_latent_decode", 277),
+               "latent_chunk_prefill": ("latent_chunk_prefill", 150)}
+STATE_SOURCES = {"paged_pool_decode": "paged_gqa_decode.cu",
+                 "paged_pool_decode_visits": "paged_gqa_decode.cu",
+                 "flash_chunk_prefill": "flash_chunk_prefill.cu",
+                 "paged_latent_decode": "paged_latent_decode.cu",
+                 "paged_latent_decode_visits": "paged_latent_decode.cu",
+                 "latent_chunk_prefill": "latent_chunk_prefill.cu"}
+
+
+def torch_equal(a, b):
+    return bool((a == b).all().item()) if a.numel() else True
+
+
+def state_ratio(got, plain):
+    """(m ratio, l ratio) of a kernel's (o, m, l) against its plain
+    version's as shares of the state rule (<= 1 passes), and whether the
+    rows the plain version reports at m = -1e30 (no live key) are exact in
+    the kernel's: m -1e30, the same l (0 where no page was read: then a
+    zero output), every output finite."""
+    _, m, l = got
+    _, mp, lp = plain
+    empty = mp == PA_NEG
+    rm = ((m - mp).abs() / (STATE_M_TOL * (1 + mp.abs())))[~empty]
+    rl = ((l - lp).abs() / (STATE_L_RTOL * lp.abs()))[~empty]
+    o = got[0].float()
+    unread = empty & (lp == 0)
+    sentinel = bool((m[empty] == PA_NEG).all().item()
+                    and torch_equal(l[empty], lp[empty])
+                    and (o[unread] == 0).all().item()
+                    and o.isfinite().all().item())
+    return (rm.max().item() if rm.numel() else 0.0,
+            rl.max().item() if rl.numel() else 0.0, sentinel)
+
+
+def _l_control(torch, got, control):
+    """The l rule's ratio for the kernel's l against the control's (one key
+    dropped), over rows both see as non-empty: must exceed 1."""
+    _, m, l = got
+    _, mc, lc = control
+    ok = (mc != PA_NEG) & (m != PA_NEG)
+    return ((l - lc).abs() / (STATE_L_RTOL * lc.abs()))[ok].max().item()
+
+
+def shard_tables(torch, B, NP, P, shared, seed):
+    """Page tables of B lanes, NP pages each, from a pool of P pages (P a
+    multiple of 4, its last page reserved): lane 0's pages all in the first
+    quarter (so it has none on the other shards of 2 or 4), the others'
+    scattered over the rest, lanes 2.. sharing lane 1's first ``shared``
+    pages (a prefix for the visit list to read once)."""
+    g = torch.Generator().manual_seed(seed)
+    q4 = P // 4
+    lane0 = torch.randperm(q4, generator=g)[:NP]
+    rest = q4 + torch.randperm(P - 1 - q4, generator=g)[:(B - 1) * NP]
+    table = torch.cat([lane0, rest]).reshape(B, NP).to(torch.int32)
+    table[2:, :shared] = table[1, :shared]
+    return table.to(DEV)
+
+
+def _views(x, first, n):
+    return None if x is None else x[first:first + n]
+
+
+def _shard_runs(torch, P, tables):
+    """(shards, shard, first page, pages, the tables translated) for each
+    shard of each count in SHARDS."""
+    from repro_torch.core.opt_kv import global_to_local_pages
+    for n in SHARDS:
+        per = P // n
+        for s in range(n):
+            yield n, s, s * per, per, [
+                global_to_local_pages(t, s * per, per) for t in tables]
+
+
+def _hold_states(torch, rec, key, runs, tol):
+    """Hold each kernel of ``runs`` (name -> [(shards, shard, kernel's (o,
+    m, l), plain's (o, m, l))]) to its plain version: o within ``tol``,
+    (m, l) within the state rule, empty rows exact. Returns {name: worst o
+    error}."""
+    errs = {}
+    for name, cases in runs.items():
+        worst = dict(o=0.0, m=0.0, l=0.0, err=0.0, empty_rows=0)
+        for n, s, got, plain in cases:
+            ro, err = tol_ratio(got[0], plain[0], *tol)
+            rm, rl, sentinel = state_ratio(got, plain)
+            check(ro <= 1, f"{name} (return_state, {n} shards, shard {s}) "
+                  f"differs from its plain version ({key})")
+            check(rm <= 1 and rl <= 1, f"{name}: (m, l) outside the state "
+                  f"rule ({key}, {n} shards, shard {s}): m {rm:.3f}, l "
+                  f"{rl:.3f}")
+            check(sentinel, f"{name}: an empty row is not (-1e30, 0) with a "
+                  f"zero output ({key}, {n} shards, shard {s})")
+            worst = dict(o=max(worst["o"], ro), m=max(worst["m"], rm),
+                         l=max(worst["l"], rl), err=max(worst["err"], err),
+                         empty_rows=worst["empty_rows"] + int(
+                             ((plain[1] == PA_NEG) & (plain[2] == 0))
+                             .sum().item()))
+        log(f"{name} return_state ({key}, {len(cases)} shard launches over "
+            f"{SHARDS} shards): o {worst['o']:.3f} of its tolerance, m "
+            f"{worst['m']:.3f}, l {worst['l']:.3f} of the state rule; "
+            f"{worst['empty_rows']} rows that read no page, (-1e30, 0) "
+            "exact")
+        rec.setdefault("state_tolerance", {})[f"{name} {key}"] = worst
+        errs[name] = worst["err"]
+    return errs
+
+
+def _state_record(torch, time_ms, name, key, fn, plain, bnd, lib_ms, err,
+                  shape, extra=None):
+    """A ``return_state`` instantiation's record: its time with and without
+    the state (cold L2), the plain version's with it, the bound and the
+    library yardstick of the same shape."""
+    ms = time_ms(lambda: fn(True))
+    ms_off = time_ms(lambda: fn(False))
+    plain_ms = time_ms(plain, iters=3, warmup=1)
+    lib, line = STATE_LINES[name]
+    log(f"  {name}_state ({key}): {ms:.4f} ms with the state, {ms_off:.4f} "
+        f"without (+{ms / ms_off - 1:.2%}), plain {plain_ms:.4f}, bound "
+        f"{bnd['bound_ms']:.4f} by {bnd['bound_by']} "
+        f"({bnd['bound_ms'] / ms:.2%}), library {lib_ms:.4f}")
+    return dict(name=name + "_state", route="cuda",
+                source="src/repro_torch/kernels/csrc/" + STATE_SOURCES[name],
+                replaces=f"src/repro/kernels/{lib}.py:{line}",
+                max_abs_err=err, ms=ms, ms_without_state=ms_off,
+                state_cost=ms / ms_off - 1, plain_ms=plain_ms, **bnd,
+                library_ms=lib_ms, shape=shape, key=key, **(extra or {}))
+
+
+def _gqa_state_case(torch, rec, time_ms, key, B, Hq, Hkv, D, ps, NP,
+                    cache_len, window=0, sink=0, chunk_pos=None, seed=0):
+    """K2, K4 (a decode step) and K3 (a mixed step at ``chunk_pos``) with
+    ``return_state`` on 1, 2 and 4 shard-local tables of one fp8 pool of
+    4 * (NP + 1) pages. Returns ({name: record}, the pool and tables for
+    the sharded reads)."""
+    import torch.nn.functional as F
+    from repro_torch.cache.quant import quantize_fp8
+    from repro_torch.core.opt_kv import decode_page_select
+    from repro_torch.kernels import flash_chunk_prefill as fc
+    from repro_torch.kernels import paged_gqa_decode as pd
+    from repro_torch.kernels import visits
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    P = 4 * (NP + 1)
+    kq, ks = quantize_fp8(torch.randn((P, ps, Hkv, D), generator=gen,
+                                      device=dev))
+    vq, vs = quantize_fp8(torch.randn((P, ps, Hkv, D), generator=gen,
+                                      device=dev))
+    table = shard_tables(torch, B, NP, P, 4, seed)
+    q = torch.randn((B, Hq, D), generator=gen, device=dev).to(torch.bfloat16)
+    S = chunk_pos.shape[1]
+    qc = torch.randn((B, S, Hq, D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    kw = dict(opt_kv=True, opt_gqa=True, window=window, sink_pages=sink)
+    phys, logt = decode_page_select(cache_len, table, ps, window=window,
+                                    sink_pages=sink, opt_pa=True)
+    runs = {"paged_pool_decode": [], "paged_pool_decode_visits": [],
+            "flash_chunk_prefill": []}
+    bits = True
+    for n, s, first, per, (lp, lt) in _shard_runs(torch, P, (phys, table)):
+        pool = (_views(kq, first, per), _views(vq, first, per),
+                _views(ks, first, per), _views(vs, first, per))
+        vp, vm, vl = visits.plan_visits(lp, logt)
+        k2 = pd.paged_pool_decode(q, *pool, cache_len, lp, logt, **kw,
+                                  return_state=True)
+        k4 = pd.paged_pool_decode_visits(q, *pool, cache_len, vp, vm, vl,
+                                         **kw, return_state=True)
+        k3 = fc.flash_chunk_prefill(qc, chunk_pos, *pool, lt, **kw,
+                                    return_state=True)
+        runs["paged_pool_decode"].append((n, s, k2, pd.paged_pool_decode_ref(
+            q, *pool, cache_len, lp, logt, **kw, return_state=True)))
+        runs["paged_pool_decode_visits"].append(
+            (n, s, k4, pd.paged_pool_decode_visits_ref(
+                q, *pool, cache_len, vp, vm, vl, **kw, return_state=True)))
+        runs["flash_chunk_prefill"].append((n, s, k3, fc.flash_chunk_prefill_ref(
+            qc, chunk_pos, *pool, lt, **kw, return_state=True)))
+        bits &= all(torch.equal(a, b) for a, b in zip(k4, k2))
+        if n == 1:         # controls: each row's newest key masked off
+            ctl = {"paged_pool_decode": (k2, pd.paged_pool_decode_ref(
+                q, *pool, cache_len - 1, lp, logt, **kw, return_state=True)),
+                "flash_chunk_prefill": (k3, fc.flash_chunk_prefill_ref(
+                    qc, chunk_pos - 1, *pool, lt, **kw, return_state=True))}
+    torch.cuda.synchronize()
+    errs = _hold_states(torch, rec, key, runs, (ATTN_RTOL, ATTN_ATOL))
+    log(f"K4 = K2 bit for bit in (o, m, l) on every shard ({key}): {bits}")
+    check(bits, f"K4's (o, m, l) is not K2's bit for bit ({key})")
+    for name, (got, c) in ctl.items():
+        r = _l_control(torch, got, c)
+        log(f"  {name} ({key}) control, one key masked off: l {r:.2f} of "
+            "the state rule")
+        check(r > 1, f"the state rule passes a one-key mask error in {name} "
+              f"({key})")
+        rec.setdefault("state_tolerance", {})[f"{name} {key} control"] = r
+    # timing at the whole pool (1 shard), the bound, SDPA on the pages
+    # gathered and dequantized to bf16
+    pool = (kq, vq, ks, vs)
+    vp, vm, vl = visits.plan_visits(phys, logt)
+    T = NP * ps
+    pt = table.long()
+    kd = (kq[pt].float() * ks[pt][..., None]).to(torch.bfloat16) \
+        .reshape(B, T, Hkv, D).transpose(1, 2).contiguous()
+    vd = (vq[pt].float() * vs[pt][..., None]).to(torch.bfloat16) \
+        .reshape(B, T, Hkv, D).transpose(1, 2).contiguous()
+    kpos = torch.arange(T, device=dev)
+    cl = cache_len.long()
+    dmask = kpos[None] < cl[:, None]
+    if window:
+        dmask &= (kpos[None] >= cl[:, None] - window) | (kpos < sink * ps)
+    q4 = q[:, :, None, :]
+    t_dec = time_ms(lambda: F.scaled_dot_product_attention(
+        q4, kd, vd, attn_mask=dmask[:, None, None, :], enable_gqa=True))
+    cp = chunk_pos.long()
+    cmask = kpos[None, None] <= cp[..., None]
+    if window:
+        cmask &= (kpos[None, None] > cp[..., None] - window) | \
+            (kpos < sink * ps)
+    qc4 = qc.transpose(1, 2).contiguous()
+    t_chunk = time_ms(lambda: F.scaled_dot_product_attention(
+        qc4, kd, vd, attn_mask=cmask[:, None], enable_gqa=True))
+    del kd, vd
+    state_b = 8 * B * Hq
+    live = torch.unique(phys[phys >= 0]).numel()
+    seen = int(dmask.sum().item())
+    dec_bytes = 2 * B * Hq * D * 2 + 2 * B * NP * 4 + B * 4 + state_b
+    bnd2 = bound(live * 2 * ps * Hkv * (D + 4) + dec_bytes,
+                 seen * Hq * D * 4, BF16_FLOPS)
+    pages3 = int(cmask.any(1).reshape(B, NP, ps).any(-1).sum().item())
+    bnd3 = bound(pages3 * 2 * ps * Hkv * (D + 4) + 2 * B * S * Hq * D * 2 +
+                 B * S * 4 + B * NP * 4 + 8 * B * S * Hq,
+                 int(cmask.sum().item()) * Hq * D * 4, BF16_FLOPS)
+    shape = (f"B={B} Hq={Hq} Hkv={Hkv} D={D} ps={ps} NSel={NP}, pool {P} "
+             f"pages, cache_len {cache_len.tolist()}" +
+             (f", window {window} + {sink} sink page" if window else ""))
+    recs = {
+        "paged_pool_decode": _state_record(
+            torch, time_ms, "paged_pool_decode", key,
+            lambda st: pd.paged_pool_decode(q, *pool, cache_len, phys, logt,
+                                            **kw, return_state=st),
+            lambda: pd.paged_pool_decode_ref(q, *pool, cache_len, phys, logt,
+                                             **kw, return_state=True),
+            bnd2, t_dec, errs["paged_pool_decode"], shape),
+        "paged_pool_decode_visits": _state_record(
+            torch, time_ms, "paged_pool_decode_visits", key,
+            lambda st: pd.paged_pool_decode_visits(
+                q, *pool, cache_len, vp, vm, vl, **kw, return_state=st),
+            lambda: pd.paged_pool_decode_visits_ref(
+                q, *pool, cache_len, vp, vm, vl, **kw, return_state=True),
+            bnd2, t_dec, errs["paged_pool_decode_visits"],
+            shape + f", {int((vp >= 0).sum().item())} visits"),
+        "flash_chunk_prefill": _state_record(
+            torch, time_ms, "flash_chunk_prefill", key,
+            lambda st: fc.flash_chunk_prefill(qc, chunk_pos, *pool, table,
+                                              **kw, return_state=st),
+            lambda: fc.flash_chunk_prefill_ref(qc, chunk_pos, *pool, table,
+                                               **kw, return_state=True),
+            bnd3, t_chunk, errs["flash_chunk_prefill"],
+            f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} ps={ps} NP={NP}, "
+            f"positions to {int(cp.max())}" +
+            (f", window {window} + {sink} sink page" if window else "")),
+    }
+    data = dict(kv=torch.stack([kq, vq]), sc=torch.stack([ks, vs]), q=q,
+                qc=qc, pos=chunk_pos, table=table, phys=phys, log=logt,
+                cache_len=cache_len, kw=kw)
+    return recs, data
+
+
+def _latent_state_case(torch, rec, time_ms, key="latent", seed=1):
+    """K5, K7 (a decode step) and K6 (a mixed step) at deepseek-v2-lite's
+    widths with ``return_state`` on 1, 2 and 4 shard-local tables of one
+    fp8 latent pool of 68 pages."""
+    import torch.nn.functional as F
+    from repro_torch.cache.quant import quantize_latent
+    from repro_torch.core.opt_kv import decode_page_select
+    from repro_torch.kernels import latent_chunk_prefill as lc
+    from repro_torch.kernels import paged_latent_decode as ld
+    from repro_torch.kernels import visits
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    B, H, R, dr, ps, NP, S = 4, 16, 512, 64, 64, 16, 512
+    W, P = R + dr, 4 * (NP + 1)
+    sm_scale = 1.0 / (128 + dr) ** 0.5
+    lat_f = torch.randn((P, ps, W), generator=gen, device=dev)
+    lat_f[..., R:] *= 3.0
+    lat, sc = quantize_latent(lat_f, R)
+    del lat_f
+    table = shard_tables(torch, B, NP, P, 4, seed)
+    cache_len = torch.tensor([1024, 1000, 980, 1010], dtype=torch.int32,
+                             device=dev)
+    ql = torch.randn((B, H, R), generator=gen, device=dev)
+    qr = torch.randn((B, H, dr), generator=gen, device=dev)
+    qlc = torch.randn((B, S, H, R), generator=gen, device=dev)
+    qrc = torch.randn((B, S, H, dr), generator=gen, device=dev)
+    pos = torch.empty((B, S), dtype=torch.int32, device=dev)
+    pos[0] = torch.arange(512, 1024, device=dev, dtype=torch.int32)
+    for b in range(1, B):
+        pos[b] = cache_len[b] - 1
+    kw = dict(sm_scale=sm_scale, opt_kv=True)
+    phys, logt = decode_page_select(cache_len, table, ps, opt_pa=True)
+    runs = {"paged_latent_decode": [], "paged_latent_decode_visits": [],
+            "latent_chunk_prefill": []}
+    bits = True
+    for n, s, first, per, (lp, lt) in _shard_runs(torch, P, (phys, table)):
+        pool = (_views(lat, first, per), _views(sc, first, per))
+        vp, vm, vl = visits.plan_visits(lp, logt)
+        k5 = ld.paged_latent_decode(ql, qr, *pool, cache_len, lp, logt, **kw,
+                                    return_state=True)
+        k7 = ld.paged_latent_decode_visits(ql, qr, *pool, cache_len, vp, vm,
+                                           vl, **kw, return_state=True)
+        k6 = lc.latent_chunk_prefill(qlc, qrc, pos, *pool, lt, **kw,
+                                     return_state=True)
+        runs["paged_latent_decode"].append((n, s, k5, ld.paged_latent_decode_ref(
+            ql, qr, *pool, cache_len, lp, logt, **kw, return_state=True)))
+        runs["paged_latent_decode_visits"].append(
+            (n, s, k7, ld.paged_latent_decode_visits_ref(
+                ql, qr, *pool, cache_len, vp, vm, vl, **kw,
+                return_state=True)))
+        runs["latent_chunk_prefill"].append(
+            (n, s, k6, lc.latent_chunk_prefill_ref(
+                qlc, qrc, pos, *pool, lt, **kw, return_state=True)))
+        bits &= all(torch.equal(a, b) for a, b in zip(k7, k5))
+        if n == 1:
+            ctl = {"paged_latent_decode": (k5, ld.paged_latent_decode_ref(
+                ql, qr, *pool, cache_len - 1, lp, logt, **kw,
+                return_state=True)),
+                "latent_chunk_prefill": (k6, lc.latent_chunk_prefill_ref(
+                    qlc, qrc, pos - 1, *pool, lt, **kw, return_state=True))}
+    torch.cuda.synchronize()
+    errs = _hold_states(torch, rec, key, runs, (LAT_RTOL, LAT_ATOL))
+    log(f"K7 = K5 bit for bit in (o, m, l) on every shard ({key}): {bits}")
+    check(bits, f"K7's (o, m, l) is not K5's bit for bit ({key})")
+    for name, (got, c) in ctl.items():
+        r = _l_control(torch, got, c)
+        log(f"  {name} ({key}) control, one key masked off: l {r:.2f} of "
+            "the state rule")
+        check(r > 1, f"the state rule passes a one-key mask error in {name} "
+              f"({key})")
+        rec.setdefault("state_tolerance", {})[f"{name} {key} control"] = r
+    pt = table.long()
+    T = NP * ps
+    lat_d = (torch.cat([lat[pt][..., :R].float() * sc[pt][..., 0:1],
+                        lat[pt][..., R:].float() * sc[pt][..., 1:2]], -1)
+             .to(torch.bfloat16).reshape(B, 1, T, W))
+    val_d = lat_d[..., :R]
+    kpos = torch.arange(T, device=dev)
+    dmask = (kpos[None] < cache_len[:, None])[:, None, None, :]
+    q_d = torch.cat([ql, qr], -1).to(torch.bfloat16)[:, :, None, :]
+    t_dec = time_ms(lambda: F.scaled_dot_product_attention(
+        q_d, lat_d, val_d, attn_mask=dmask, scale=sm_scale, enable_gqa=True))
+    q6 = torch.cat([qlc, qrc], -1).to(torch.bfloat16).transpose(1, 2) \
+        .contiguous()
+    cmask = (kpos[None, None] <= pos.long()[..., None])[:, None]
+    t_chunk = time_ms(lambda: F.scaled_dot_product_attention(
+        q6, lat_d, val_d, attn_mask=cmask, scale=sm_scale, enable_gqa=True))
+    del lat_d, val_d, q6
+    pool = (lat, sc)
+    vp, vm, vl = visits.plan_visits(phys, logt)
+    live = torch.unique(phys[phys >= 0]).numel()
+    keys = int(cache_len.sum().item())
+    bnd5 = bound(live * ps * (W + 8) + B * H * (W + R) * 4 + B * 4 +
+                 2 * B * NP * 4 + 8 * B * H, keys * H * (2 * W + 2 * R),
+                 BF16_FLOPS)
+    ckeys = int((pos.long() + 1).sum().item()) * H
+    pages6 = torch.unique(torch.cat([table[b, :int(pos[b].max()) // ps + 1]
+                                     for b in range(B)])).numel()
+    bnd6 = bound(pages6 * ps * (W + 8) + B * S * H * (W + R) * 4 + B * S * 4
+                 + B * NP * 4 + 8 * B * S * H, ckeys * (2 * W + 2 * R),
+                 BF16_FLOPS)
+    shape = (f"B={B} H={H} R={R} dr={dr} ps={ps} NSel={NP}, pool {P} pages,"
+             f" cache_len {cache_len.tolist()}")
+    recs = {
+        "paged_latent_decode": _state_record(
+            torch, time_ms, "paged_latent_decode", key,
+            lambda st: ld.paged_latent_decode(ql, qr, *pool, cache_len, phys,
+                                              logt, **kw, return_state=st),
+            lambda: ld.paged_latent_decode_ref(ql, qr, *pool, cache_len,
+                                               phys, logt, **kw,
+                                               return_state=True),
+            bnd5, t_dec, errs["paged_latent_decode"], shape),
+        "paged_latent_decode_visits": _state_record(
+            torch, time_ms, "paged_latent_decode_visits", key,
+            lambda st: ld.paged_latent_decode_visits(
+                ql, qr, *pool, cache_len, vp, vm, vl, **kw, return_state=st),
+            lambda: ld.paged_latent_decode_visits_ref(
+                ql, qr, *pool, cache_len, vp, vm, vl, **kw,
+                return_state=True),
+            bnd5, t_dec, errs["paged_latent_decode_visits"],
+            shape + f", {int((vp >= 0).sum().item())} visits"),
+        "latent_chunk_prefill": _state_record(
+            torch, time_ms, "latent_chunk_prefill", key,
+            lambda st: lc.latent_chunk_prefill(qlc, qrc, pos, *pool, table,
+                                               **kw, return_state=st),
+            lambda: lc.latent_chunk_prefill_ref(qlc, qrc, pos, *pool, table,
+                                                **kw, return_state=True),
+            bnd6, t_chunk, errs["latent_chunk_prefill"],
+            f"B={B} S={S} H={H} R={R} dr={dr} ps={ps} NP={NP} (1 chunk "
+            "lane, 3 decode lanes)"),
+    }
+    data = dict(lat=lat, sc=sc, ql=ql, qr=qr, qlc=qlc, qrc=qrc, pos=pos,
+                table=table, phys=phys, log=logt, cache_len=cache_len,
+                kw=kw)
+    return recs, data
+
+
+# The sharded reads against the unsharded kernels: bf16 partials (K2-K4)
+# are each rounded to bf16 before the merge, an error of up to 2^-9 of the
+# partial's own magnitude (which cancellation between shards can leave
+# above the result's), so |sharded - unsharded| <= SHARD_ATOL + SHARD_RTOL
+# |x| (a bf16 ulp at |x| ~ 1 absolute, one relative); the f32 partials of
+# the latent kernels (K5-K7) within SHARD_LAT_ATOL + SHARD_LAT_RTOL |x|. A
+# control, the unsharded kernel with the last shard's pages dropped from
+# the table, must exceed each.
+SHARD_RTOL, SHARD_ATOL = 2 ** -7, 2 ** -7
+SHARD_LAT_RTOL, SHARD_LAT_ATOL = 2 ** -11, 2 ** -10
+
+
+def sharded_reads(torch, rec, time_ms, gqa, lat):
+    """``kernels.sharded``'s four reads at 4 shards against the unsharded
+    kernels on the same pool and GLOBAL tables (the rule above, beside its
+    control), the visit-planned shards against the per-lane ones, and the
+    time of the 4 launches and their merge beside the one unsharded
+    launch."""
+    from repro_torch.kernels import ops, sharded
+    ctx = sharded.ShardCtx(num_shards=4)
+    g, la = gqa, lat
+    P = g["kv"].shape[1]
+    lo = P - P // 4
+
+    def drop(t):                       # the last shard's pages dropped
+        return torch.where(t >= lo, -1, t)
+    cases = {
+        "paged_pool_decode": ((SHARD_RTOL, SHARD_ATOL),
+                              lambda v, d: ops.paged_pool_decode(
+            g["q"], g["kv"], g["sc"], g["cache_len"], d(g["phys"]), g["log"],
+            **g["kw"], share_visits=v)),
+        "flash_chunk_prefill": ((SHARD_RTOL, SHARD_ATOL),
+                                lambda v, d: ops.paged_chunk_prefill(
+            g["qc"], g["pos"], g["kv"], g["sc"], d(g["table"]), **g["kw"])),
+        "paged_latent_decode": ((SHARD_LAT_RTOL, SHARD_LAT_ATOL),
+                                lambda v, d: ops.paged_latent_decode(
+            la["ql"], la["qr"], la["lat"], la["sc"], la["cache_len"],
+            d(la["phys"]), la["log"], **la["kw"], share_visits=v)),
+        "latent_chunk_prefill": ((SHARD_LAT_RTOL, SHARD_LAT_ATOL),
+                                 lambda v, d: ops.latent_chunk_prefill(
+            la["qlc"], la["qrc"], la["pos"], la["lat"], la["sc"],
+            d(la["table"]), **la["kw"])),
+    }
+    out = {}
+    for name, (tol, fn) in cases.items():
+        def run(c, v=False, d=lambda t: t):
+            with ops.mesh_ctx_scope(c):
+                return fn(v, d)
+        one, four, four_v = run(None), run(ctx), run(ctx, True)
+        ctl = run(None, d=drop)
+        torch.cuda.synchronize()
+        r, err = tol_ratio(four, one, *tol)
+        rv, _ = tol_ratio(four_v, four, *tol)
+        rc, _ = tol_ratio(four, ctl, *tol)
+        check(r <= 1, f"sharded {name} (4 shards) differs from the "
+              "unsharded kernel")
+        check(rv <= 1, f"sharded {name}: visit-planned shards differ")
+        check(rc > 1, f"the sharded rule passes a dropped shard ({name})")
+        ms4, ms1 = time_ms(lambda: run(ctx, True)), time_ms(
+            lambda: run(None, True))
+        out[name] = dict(ratio=r, max_abs_err=err, visits_ratio=rv,
+                         control=rc, ms_4_shards=ms4, ms_unsharded=ms1,
+                         tolerance=dict(rtol=tol[0], atol=tol[1]))
+        log(f"sharded {name} at 4 shards: max |sharded - unsharded| "
+            f"{err:.3e} = {r:.3f} of the rule (rtol {tol[0]}, atol "
+            f"{tol[1]}); control, a shard dropped: {rc:.2f}; visit plans "
+            f"{rv:.3f}; {ms4:.4f} ms (4 launches and the merge) against "
+            f"{ms1:.4f} ms unsharded")
+    rec["sharded_reads"] = out
+
+
+def _in_shard_tables(eng):
+    """Wrap ``eng._build_step`` so every step checks that each running
+    request's page table lies inside its shard's page range. Returns the
+    list of per-step results it fills."""
+    import numpy as np
+    build, seen = eng._build_step, []
+
+    def checked(plan, device_feed=False):
+        mgr = eng.scheduler.manager
+        ok = True
+        for r in eng.scheduler.running.values():
+            lo, hi = mgr.shard_ranges[r.shard]
+            t = np.asarray(eng.scheduler.page_table(r))
+            live = t[t >= 0]
+            ok &= bool(((live >= lo) & (live < hi)).all())
+        seen.append(ok)
+        return build(plan, device_feed)
+    eng._build_step = checked
+    return seen
+
+
+SHARDED_ENGINE = ("qwen3-4b", 36, 32)            # arch, layers, new tokens
+SHARDED_MLA = ("deepseek-v2-lite-16b", 4, 16)
+
+
+def sharded_engine_runs(torch, rec, spec, mla=False):
+    """One model at full width with ``mesh=make_sim_mesh(data=4)``: the
+    unsharded ``Engine.generate``, then the mesh's sync engine and
+    ``AsyncEngine(warmup=True)`` on the same weights and requests; every
+    lane's page table inside its shard at every step; the kernels launched
+    per shard (the state instantiations, 4 a layer in each replay of a
+    captured step); tokens held to the unsharded run's (a MoE model's like
+    for like, ``_moe_partings``); then a one-lane engine at 4 layers
+    (the per-lane decode kernel per shard). Returns the launches of the
+    sharded runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.coopt import COOPT
+    from repro_torch.launch.mesh import make_sim_mesh
+    from repro_torch.models import get_model
+    from repro_torch.serving import Engine, EngineConfig
+    arch, layers, max_new = spec
+    cfg = get_config(arch).replace(num_layers=layers)
+    coopt = COOPT.replace(use_kernel=True)
+    ecfg = EngineConfig(num_lanes=4, max_len=1024, seed=0)
+    prompts = engine_prompts(cfg)
+    params = get_model(cfg).init(0, DEV)
+    mesh = make_sim_mesh(data=4, device=DEV)
+    res, total = {}, {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    ref = Engine(cfg, coopt, ecfg, params=params, device=DEV)
+    lay_ref = _record_layouts(ref)
+    _, rows, wall, _, _ = _sync_recorded(torch, ref, prompts, max_new)
+    res["unsharded_sync"] = _engine_summary(ref.stats, wall)
+    del ref
+    eng = Engine(cfg, coopt, ecfg, params=params, device=DEV, mesh=mesh)
+    check(eng._kernel_ctx is not None and eng._kernel_ctx.num_shards == 4
+          and eng.ccfg.num_shards == 4, "the mesh gave no 4-shard context")
+    tables = _in_shard_tables(eng)
+    checked = eng._build_step
+    lay = _record_layouts(eng)
+    reqs, rows_s, wall, launches, _ = _sync_recorded(torch, eng, prompts,
+                                                     max_new)
+    add(launches)
+    res["sharded_sync"] = dict(_engine_summary(eng.stats, wall),
+                               launches=launches,
+                               shard_pages=list(eng.stats.shard_pages),
+                               peak_shard_pages_in_use=list(
+                                   eng.stats.peak_shard_pages_in_use),
+                               shard_preemptions=list(
+                                   eng.stats.shard_preemptions),
+                               placement_prefix_hits=eng.stats
+                               .placement_prefix_hits,
+                               placement_misses=eng.stats.placement_misses)
+    outs = {i: list(r.output) for i, r in enumerate(reqs)}
+    if mla:
+        moved = sorted(i for i in outs if lay_ref.get(i) != lay.get(i))
+        res["sync_parted"] = _partings(
+            torch, {i: s for i, s in rows.items() if i not in moved}, outs,
+            f"{arch} sharded sync vs unsharded")
+        res["sync_layout_moved"] = moved
+    else:
+        res["sync_parted"] = _partings(torch, rows, outs,
+                                       f"{arch} sharded sync vs unsharded")
+    # the async engine on the same engine state: graphs of the sharded step
+    eng.stats.__init__()
+    eng._build_step = checked           # the sync run's layouts are kept
+    rec_steps = _record_steps(eng) if mla else None
+    lay_async = _record_layouts(eng) if mla else None
+    fe, streams, warm_s, wall_a, launches_a, _ = _async_run(
+        torch, eng, prompts, max_new)
+    add(launches_a)
+    aouts = {i: list(s.req.output) for i, s in enumerate(streams)}
+    per_runner = {f"{r.kind} {tuple(r.inputs['page_table'].shape)}":
+                  dict(r.launches) for r in eng._runners.values()}
+    L = cfg.num_layers
+    decode_k = "paged_latent_decode_visits_state" if mla else \
+        "paged_pool_decode_visits_state"
+    chunk_k = "latent_chunk_prefill_state" if mla else \
+        "flash_chunk_prefill_state"
+    for r in eng._runners.values():
+        want = decode_k if r.kind == "decode" else chunk_k
+        check(r.launches.get(want, 0) == 4 * L, f"{arch}: a {r.kind} graph "
+              f"launches {want} {r.launches.get(want, 0)} times, not 4 a "
+              f"layer ({4 * L})")
+        unsharded = [n for n in r.launches if not n.endswith("_state")
+                     and n != "kv_cache_write" and r.launches[n]]
+        check(not unsharded, f"{arch}: a {r.kind} graph launches the "
+              f"unsharded {unsharded}")
+    if mla:
+        res["async_vs"] = _moe_partings(torch, eng, rec_steps, rows_s,
+                                        (lay, lay_async), aouts, max_new,
+                                        f"{arch} sharded async")
+    else:
+        res["async_parted"] = _partings(torch, rows, aouts,
+                                        f"{arch} sharded async vs unsharded")
+    check(all(tables), f"{arch}: a lane's page table left its shard")
+    res["sharded_async"] = dict(_engine_summary(eng.stats, wall_a),
+                                warmup_s=warm_s, runners=len(eng._runners),
+                                launches=launches_a,
+                                runner_launches=per_runner,
+                                aot_misses=eng.aot_misses)
+    check(eng.aot_misses == 0, f"{arch}: an async step found no runner")
+    res["steps_in_shard"] = len(tables)
+    for name in (decode_k, chunk_k):
+        check(total.get(name, 0) > 0, f"{name} never launched on the "
+              f"sharded {arch} engines")
+    log(f"{arch} ({L} layers), 4 shards: unsharded sync "
+        f"{_fmt(res['unsharded_sync'])}; sharded sync "
+        f"{_fmt(res['sharded_sync'])}; sharded async "
+        f"{_fmt(res['sharded_async'])}, {len(eng._runners)} graphs "
+        f"(warmup {warm_s:.1f} s); {len(tables)} steps, every lane table "
+        f"in its shard; shard pages {res['sharded_sync']['shard_pages']}, "
+        f"peak in use {res['sharded_sync']['peak_shard_pages_in_use']}")
+    del eng, fe
+    gc.collect()
+    torch.cuda.empty_cache()
+    # one lane, 4 layers: the per-lane decode kernel, per shard (a pool of
+    # 64 pages, so each shard holds a 1024-token request)
+    from repro_torch.configs import CacheConfig
+    eng1 = Engine(cfg.replace(num_layers=4), coopt,
+                  EngineConfig(num_lanes=1, max_len=1024, seed=1,
+                               cache=CacheConfig(num_pages=64)),
+                  params=params if layers == 4 else None, device=DEV,
+                  mesh=mesh)
+    from repro_torch.kernels import cuda
+    cuda.reset_launches()
+    outs1 = eng1.generate(prompts[:2], max_new_tokens=8)
+    torch.cuda.synchronize()
+    launches1 = dict(cuda.LAUNCHES)
+    add(launches1)
+    one = "paged_latent_decode_state" if mla else "paged_pool_decode_state"
+    check(all(len(o) == 8 for o in outs1) and launches1.get(one, 0) > 0,
+          f"{one} never launched on the one-lane sharded engine")
+    res["one_lane_launches"] = launches1
+    rec.setdefault("sharded", {})[arch] = res
+    del eng1, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def sharded_phase(torch, rec, time_ms):
+    """``--only sharded``: K2-K7 with ``return_state`` against their plain
+    versions on 1, 2 and 4 shard-local tables (qwen3-4b's widths, K2-K4
+    again at recurrentgemma-9b's D 256 windowed, deepseek-v2-lite's), the
+    sharded reads at 4 shards against the unsharded kernels, then qwen3-4b
+    at full width and depth and deepseek-v2-lite-16b at 4 layers on a
+    4-shard mesh, sync and async. Returns (the state instantiations'
+    records, the launches of the sharded engine runs)."""
+    dev = torch.device(DEV)
+    cl = torch.tensor([1024, 1000, 980, 1010], dtype=torch.int32, device=dev)
+    pos = torch.empty((4, 512), dtype=torch.int32, device=dev)
+    pos[0] = torch.arange(512, 1024, device=dev, dtype=torch.int32)
+    for b in range(1, 4):
+        pos[b] = cl[b] - 1
+    recs, gqa = _gqa_state_case(torch, rec, time_ms, "decode", 4, 32, 8, 128,
+                                64, 16, cl, chunk_pos=pos, seed=30)
+    cl256 = (48 * 64 - torch.arange(4, device=dev) * 37).to(torch.int32)
+    pos256 = torch.empty((4, 512), dtype=torch.int32, device=dev)
+    pos256[0] = torch.arange(2560, 3072, device=dev, dtype=torch.int32)
+    for b in range(1, 4):
+        pos256[b] = cl256[b] - 1
+    recs256, _ = _gqa_state_case(torch, rec, time_ms, "d256", 4, 16, 1, 256,
+                                 64, 48, cl256, window=2048, sink=1,
+                                 chunk_pos=pos256, seed=31)
+    for name, r in recs256.items():
+        recs[name]["shapes"] = [r]
+    lrecs, lat = _latent_state_case(torch, rec, time_ms)
+    recs.update(lrecs)
+    sharded_reads(torch, rec, time_ms, gqa, lat)
+    del gqa, lat
+    torch.cuda.empty_cache()
+    total = sharded_engine_runs(torch, rec, SHARDED_ENGINE)
+    for k, v in sharded_engine_runs(torch, rec, SHARDED_MLA,
+                                    mla=True).items():
+        total[k] = total.get(k, 0) + v
+    return list(recs.values()), total
+
+
 PARITY = ("qwen3-4b-reduced", "deepseek-v2-lite-16b-reduced",
           "mixtral-8x22b-reduced", "internvl2-2b-reduced",
           "recurrentgemma-9b-reduced", "rwkv6-7b-reduced")
@@ -3564,7 +4260,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=("kernels", "write", "decode", "latent",
                                        "engine", "mla", "prefill", "async",
                                        "serve", "packed", "recurrent",
-                                       "parity"),
+                                       "sharded", "parity"),
                     help="run one phase (debugging; prints no result line)")
     ap.add_argument("--src", help="import repro_torch from this directory "
                     "instead of ./src (to time another tree's kernels)")
@@ -3693,6 +4389,12 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             d256, recurrent = recurrent_phase(torch, rec, make_timer(torch))
             done("recurrent", t0)
+        state_recs, sharded = [], {}
+        if only in (None, "sharded"):
+            t0 = time.perf_counter()
+            state_recs, sharded = sharded_phase(torch, rec, make_timer(torch))
+            rec["state_kernels"] = state_recs
+            done("sharded", t0)
         if only in (None, "parity"):
             t0 = time.perf_counter()
             for arch in PARITY:
@@ -3727,6 +4429,16 @@ def main(argv=None) -> int:
                       f"its path ({LAUNCH_PATH[k['name']]})")
             check(sorted(k["name"] for k in kernels) == sorted(LAUNCH_PATH),
                   "the kernels line does not list every kernel")
+            # the return_state instantiations, launched per shard by the
+            # sharded phase's engines (qwen3-4b and deepseek-v2-lite-16b on
+            # a 4-shard mesh, sync, async and one lane)
+            for r in state_recs:
+                r["launches"] = sharded.get(r["name"], 0)
+                check(r["launches"] > 0, f"{r['name']} never launched on "
+                      "the sharded engines")
+            check(len(state_recs) == 6, "the kernels line lacks a "
+                  "return_state instantiation")
+            kernels = kernels + state_recs
             for name in ("flash_chunk_prefill", "latent_chunk_prefill"):
                 check(packed.get(name, 0) > 0,
                       f"{name} never launched on packed rows")
@@ -3770,7 +4482,8 @@ def main(argv=None) -> int:
     extra = ("blocks", "splits", "rows_per_block", "lanes_per_block",
              "registers", "local_bytes", "own_bound_ms", "shapes",
              "launch_floor_ms", "host_us", "clean_l2", "async_launches",
-             "packed_launches", "serve_launches", "recurrent_launches")
+             "packed_launches", "serve_launches", "recurrent_launches",
+             "ms_without_state", "state_cost")
     print(json.dumps({"kernels": [
         {k: x[k] for k in keys + extra if k in keys or k in x}
         for x in kernels]}))

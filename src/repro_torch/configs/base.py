@@ -107,8 +107,10 @@ class CacheConfig:
     ``CoOptConfig.page_size``. ``host_pages > 0`` would turn on the
     host-DRAM spill tier, which this port does not serve yet (the engine
     raises ``NotImplementedError``). ``num_shards`` splits the pool into
-    per-device page ranges in the JAX package; the port has no sharded pool
-    yet and refuses any value but 1.
+    that many contiguous page ranges, the pool padded so they are equal
+    (``cache.block_manager.padded_pool_pages``); a request's pages stay in one
+    range, and under a ``launch.mesh`` mesh the kernels read each range as
+    its own shard (``kernels.sharded``).
     """
     num_pages: int = 0
     page_size: int = 0
@@ -121,9 +123,8 @@ class CacheConfig:
     def __post_init__(self):
         if self.num_pages < 0 or self.page_size < 0 or self.host_pages < 0:
             raise ValueError("CacheConfig sizes must be >= 0")
-        if self.num_shards != 1:
-            raise NotImplementedError(
-                "page-range KV shards (num_shards != 1): not ported yet")
+        if self.num_shards < 1:
+            raise ValueError("CacheConfig.num_shards must be >= 1")
 
     def replace(self, **kw) -> "CacheConfig":
         return dataclasses.replace(self, **kw)

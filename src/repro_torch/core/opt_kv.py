@@ -26,21 +26,49 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.cache.block_manager import padded_pool_pages
 from repro_torch.cache.quant import dequantize_fp8, quantize_fp8
 from repro_torch.core.coopt import CoOptConfig
 
 
-def pool_layout(batch: int, max_len: int, coopt, cache_cfg=None):
-    """The device pool's pages-axis layout -> ``(P, page_size)``: ``P`` is
-    ``CacheConfig.num_pages`` when set, else ``batch * pages(max_len)``."""
+# ------------------------------------------------------- shard ownership --
+# The mesh axes the pool's pages axis is split over (the port's
+# ``launch.mesh`` meshes carry them by name): ``launch.mesh.kv_shard_count``
+# takes its extent from them, ``BlockManager.shard_page_ranges`` is the
+# host's copy of the split, and ``kernels.sharded`` runs one kernel per
+# page range.
+PAGES_AXES = ("pod", "data")
+
+
+def pool_layout(batch: int, max_len: int, coopt, num_shards: int = 1,
+                cache_cfg=None):
+    """The device pool's pages-axis layout -> ``(P, page_size)``: the
+    requested pool size (``CacheConfig.num_pages`` when set, else ``batch *
+    pages(max_len)``) padded so the pages axis splits evenly into the KV
+    shards (``CacheConfig.num_shards`` when a config is given). Every
+    model's ``cache_shape`` and the scheduler's BlockManager agree on this
+    rule, so host page ids are device page ids; the final padded page is
+    the reserved one."""
     ps = coopt.page_size
     pages = 0
     if cache_cfg is not None:
         ps = cache_cfg.page_size or ps
+        num_shards = cache_cfg.num_shards or num_shards
         pages = cache_cfg.num_pages
     if not pages:
         pages = batch * (-(-max_len // ps))
-    return pages, ps
+    return padded_pool_pages(pages, num_shards), ps
+
+
+def global_to_local_pages(phys_table: torch.Tensor, first_page: int,
+                          num_local: int) -> torch.Tensor:
+    """A GLOBAL physical page table in one shard's LOCAL page domain:
+    entries inside ``[first_page, first_page + num_local)`` become local
+    indices, every other entry (another shard's page, or a -1 hole) -1, the
+    kernels' hole, never read. int32, on the table's device."""
+    local = phys_table - first_page
+    owned = (phys_table >= 0) & (local >= 0) & (local < num_local)
+    return torch.where(owned, local, -1).to(torch.int32)
 
 
 # ------------------------------------------------------- identity layout --

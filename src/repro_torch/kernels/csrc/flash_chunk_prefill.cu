@@ -28,6 +28,12 @@
 // ps keys that is not a multiple of 16 is padded with zero rows in shared
 // memory and the padding masked. A warp skips a page wholly in its rows'
 // future, and the mask where the page is wholly visible to its rows.
+// With `return_state` (m_out and l_out set) the epilogue also stores each
+// row's final (m, l): the running max kept in log2 units is converted to
+// the natural units of the scaled scores by one f32 multiply, and a row
+// that saw no live key (its max never left -1e30: masked scores are -inf)
+// reports exactly -1e30 and 0, never -inf, so the merge across shards
+// weighs it by 0 instead of NaN. l is the quad's reduced sum.
 // Head dims 64, 128 and 256. At D 256 a block's shared memory is 193 KB for
 // an fp8 pool of 64-token pages (the 128-row query tile 64 KB, the bf16
 // K/V tiles 64 KB, the raw e4m3 pages and scales 65 KB): one block an SM,
@@ -55,6 +61,8 @@ struct ChunkArgs {
   const int* page_seg;          // (B, NP) or null: segment 0
   const int* seg_q;             // (B, S) or null: segment 0
   __nv_bfloat16* out;           // (B, S, Hq, D)
+  float* m_out;                 // (B, S, Hq) final m, natural units, or null
+  float* l_out;                 // (B, S, Hq) final l, or null
   int B, S, Hq, Hkv, ps, np, opt_gqa, window, sink;
   float sm_scale;
 };
@@ -228,7 +236,7 @@ __global__ void __launch_bounds__(kWarps * 32) chunk_kernel(ChunkArgs a) {
     }
     j = jn;
   }
-  t.store(a.out, b, a.S, a.Hq, h * G, G, row0, R);
+  t.store(a.out, b, a.S, a.Hq, h * G, G, row0, R, a.m_out, a.l_out);
 }
 
 template <int D, typename KVT>
@@ -271,12 +279,12 @@ extern "C" int flash_chunk_prefill(
     const void* q, const int* positions, const void* k_pages,
     const void* v_pages, const float* k_scale, const float* v_scale,
     const int* phys, const int* page_base, const int* page_seg,
-    const int* seg_q, void* out, int B, int S, int Hq, int Hkv, int d, int ps,
-    int np, int opt_kv, int opt_gqa, int window, int sink, float sm_scale,
-    void* stream) {
+    const int* seg_q, void* out, float* m_out, float* l_out, int B, int S,
+    int Hq, int Hkv, int d, int ps, int np, int opt_kv, int opt_gqa,
+    int window, int sink, float sm_scale, void* stream) {
   ChunkArgs a{static_cast<const __nv_bfloat16*>(q), positions, k_pages, v_pages,
               k_scale, v_scale, phys, page_base, page_seg, seg_q,
-              static_cast<__nv_bfloat16*>(out), B, S, Hq, Hkv, ps, np, opt_gqa,
+              static_cast<__nv_bfloat16*>(out), m_out, l_out, B, S, Hq, Hkv, ps, np, opt_gqa,
               window, sink, sm_scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return with_inst(d, opt_kv, [&](auto k) { return launch<decltype(k)::D,

@@ -37,8 +37,10 @@
 // tile, and the next raw tile is in flight while this one computes; a bf16
 // pool is staged straight into the bf16 tile. A page shorter than 64 keys
 // fills a tile whose rows (and scales) past its end are zero and whose
-// columns there are masked. wgmma, TMA and warp specialisation are later
-// work.
+// columns there are masked. With `return_state` (m_out and l_out set) the
+// epilogue also stores each row's final (m, l), m in natural units and a
+// row that saw no live key as -1e30 and 0 (latent_mma.cuh). wgmma, TMA and
+// warp specialisation are later work.
 #include <climits>
 
 #include "latent_mma.cuh"
@@ -60,6 +62,8 @@ struct LatentChunkArgs {
   const int* page_seg;     // (B, NP) or null: segment 0
   const int* seg_q;        // (B, S) or null: segment 0
   float* out;              // (B, S * H, R)
+  float* m_out;            // (B, S * H) final m, natural units, or null
+  float* l_out;            // (B, S * H) final l, or null
   int B, S, H, ps, np, window, sink;
   float sm_scale;
 };
@@ -178,7 +182,8 @@ latent_chunk_kernel(LatentChunkArgs a) {
   }
   // the rows' offsets recomputed here, not kept live across the loop
   wt.store(a.out, (long long)blockIdx.x * (a.S * a.H),
-           blockIdx.y * G::kRows + (threadIdx.x >> 5) / CW * 16, a.S * a.H);
+           blockIdx.y * G::kRows + (threadIdx.x >> 5) / CW * 16, a.S * a.H, a.m_out,
+           a.l_out);
 }
 
 // One instantiation: the rows' split (CW warps a row group) and the pool type.
@@ -239,11 +244,11 @@ extern "C" int latent_chunk_prefill(
     const float* q_lat, const float* q_rope, const int* positions,
     const void* pages, const float* scales, const int* phys,
     const int* page_base, const int* page_seg, const int* seg_q, float* out,
-    int B, int S, int H, int R, int dr, int ps, int np, int opt_kv, int window,
-    int sink, float sm_scale, void* stream) {
+    float* m_out, float* l_out, int B, int S, int H, int R, int dr, int ps,
+    int np, int opt_kv, int window, int sink, float sm_scale, void* stream) {
   LatentChunkArgs a{q_lat, q_rope, positions, pages, scales, phys, page_base,
-                    page_seg, seg_q, out, B, S, H, ps, np, window, sink,
-                    sm_scale};
+                    page_seg, seg_q, out, m_out, l_out, B, S, H, ps, np, window,
+                    sink, sm_scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dispatch(R, dr, opt_kv, [&](auto inst) { return launch<decltype(inst)>(a, st); });
 }

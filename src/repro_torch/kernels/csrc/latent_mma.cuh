@@ -20,7 +20,9 @@
 //        bf16 tile read transposed.
 // Masked probabilities are hard-zeroed (a masked score is -inf), so a
 // wholly masked tile leaves (m, l, acc) exactly as they were. The online
-// softmax runs in the log2 domain (m in units of log2).
+// softmax runs in the log2 domain (m in units of log2); a kernel's
+// `return_state` stores m in the natural units of the scaled scores (one
+// f32 multiply by ln 2), a row that saw no live key -1e30 and l 0.
 // Why three q terms: this arithmetic emulated on the CPU (tests/
 // test_torch_kernels.py::test_latent_tile_three_q_terms_hold_f32_tolerance,
 // 256 tokens of 16 heads over 1024 keys) reads 0.61 of the f32 tolerance
@@ -443,15 +445,22 @@ struct WarpTile {
   }
 
   // out row = acc / max(l, 1e-30): the warp's columns of the group's rows
-  // w0.. of the RW rows at row_base of out (., R), rows below RW only
+  // w0.. of the RW rows at row_base of out (., R), rows below RW only; with
+  // m_out and l_out (`return_state`) also each row's final m, in natural
+  // units (mma::natural_m), and l at row_base + r
   __device__ __forceinline__ void store(float* __restrict__ out, long long row_base, int w0,
-                                        int RW) {
+                                        int RW, float* __restrict__ m_out = nullptr,
+                                        float* __restrict__ l_out = nullptr) {
     const int lane = threadIdx.x & 31, cw = (threadIdx.x >> 5) % CW;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const float sum = row_l(h);
       const int r = w0 + (lane >> 2) + 8 * h;
       if (r >= RW) continue;
+      if (m_out != nullptr && cw == 0 && (lane & 3) == 0) {
+        m_out[row_base + r] = mma::natural_m(m[h]);
+        l_out[row_base + r] = sum;
+      }
       const float den = fmaxf(sum, 1e-30f);
       float* dst = out + (row_base + r) * R + cw * G::NC + 2 * (lane & 3);
 #pragma unroll

@@ -59,6 +59,13 @@ namespace mma {
 
 constexpr int kKeys = 64;              // keys per tile update
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// A row's running max in log2 units as the natural-unit m of the scaled
+// scores (one f32 rounding); a row that saw no live key keeps -1e30.
+__device__ __forceinline__ float natural_m(float m_log2) {
+  return m_log2 == PA_NEG ? PA_NEG : __fmul_rn(m_log2, kLn2);
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -310,10 +317,14 @@ struct RowTile {
     }
   }
 
-  // out row = acc / max(l, 1e-30) in bf16, for the warp's rows below R.
+  // out row = acc / max(l, 1e-30) in bf16, for the warp's rows below R;
+  // with m_out and l_out (K3's `return_state`) also the row's final m, in
+  // natural units (natural_m), and l, the quad's sum, at (b, s, h0 + g).
   __device__ __forceinline__ void store(__nv_bfloat16* __restrict__ out,
                                         long long b, int S, int Hq, int h0,
-                                        int G, int row0, int R) {
+                                        int G, int row0, int R,
+                                        float* __restrict__ m_out = nullptr,
+                                        float* __restrict__ l_out = nullptr) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -322,6 +333,11 @@ struct RowTile {
       sum += __shfl_xor_sync(PA_FULL, sum, 2);
       const int r = row0 + warp * 16 + (lane >> 2) + 8 * h;
       if (r >= R) continue;
+      if (m_out != nullptr && (lane & 3) == 0) {
+        const long long i = row_offset(b, S, Hq, h0, G, r, 1);
+        m_out[i] = natural_m(m[h]);
+        l_out[i] = sum;
+      }
       const float den = fmaxf(sum, 1e-30f);
       __nv_bfloat16* dst = out + row_offset(b, S, Hq, h0, G, r, D) + 2 * (lane & 3);
 #pragma unroll

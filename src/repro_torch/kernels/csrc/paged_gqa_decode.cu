@@ -56,6 +56,13 @@
 //            acc / max(l, 1e-30) in bf16 and resets the counter to 0. With
 //            one split the block writes its rows directly (the same bits:
 //            every weight is e^0 = 1).
+//   State    Where the wrapper passes m_out and l_out (`return_state`), the
+//            epilogue that writes a row's output also stores its final (m,
+//            l) in f32: m in natural units of the scaled scores (the
+//            softmax runs on expf), a row that saw no page -1e30 and 0.
+//            With null pointers nothing more is stored. Both epilogues
+//            store the merged (m, l) the output divides by, so K4's state
+//            equals K2's bit for bit as its output does.
 // Head dims 64, 128 and 256: at D 256, G 16 and fp8 pages of 64 tokens a
 // K2 block takes ~100 KB of shared memory and a K4 block of 4 lanes ~174
 // KB, both on a one-page ring (more stages would not keep 3 blocks an SM);
@@ -192,6 +199,8 @@ struct DecodeArgs {
   const int* table_log;    // K2: log (B, nsel);  K4: visit_log (B*nsel,)
   const int* visit_lanes;  // K4 only
   __nv_bfloat16* out;
+  float* m_out;            // (B, Hq) f32 final m (natural units), or null
+  float* l_out;            // (B, Hq) f32 final l, or null
   float* partial;          // (B, heads, splits, G, D + 4): acc, m, l, pad
   int* counter;            // (B * heads,) zeros between launches
   int B, Hq, Hkv, ps, nsel, opt_gqa, window, sink, slots, nstage;
@@ -542,11 +551,19 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) decode_kernel(DecodeArgs
   auto out_row = [&](int r) {
     return a.out + ((long long)(b0 + r / G) * a.Hq + h * G + r % G) * D;
   };
+  // the final (m, l) of row r, when the caller asked for the state
+  auto store_state = [&](int r, float m, float l) {
+    const long long i = (long long)(b0 + r / G) * a.Hq + h * G + r % G;
+    a.m_out[i] = m;
+    a.l_out[i] = l;
+  };
   if (splits == 1) {
     for (int i = tid; i < rows * D; i += kThreads) {
       const int r = i / D;
       out_row(r)[i % D] = __float2bfloat16_rn(__fdiv_rn(acc[i], fmaxf(st_l[r], 1e-30f)));
     }
+    if (a.m_out != nullptr)
+      for (int r = tid; r < rows; r += kThreads) store_state(r, st_m[r], st_l[r]);
     return;
   }
   // partial of row r in split s: a.partial + part_row(r, s) * (D + 4) holds
@@ -590,6 +607,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) decode_kernel(DecodeArgs
     if (lane == 0) {
       st_m[r] = m;
       st_l[r] = l;
+      if (a.m_out != nullptr) store_state(r, m, l);
     }
   }
   __syncthreads();
@@ -687,12 +705,13 @@ int splits_of(int nsel, int slots) {
 extern "C" int paged_pool_decode(
     const void* q, const void* k_pages, const void* v_pages,
     const float* k_scale, const float* v_scale, const int* cache_len,
-    const int* phys, const int* log, void* out, float* partial, int* counter,
-    int B, int Hq, int Hkv, int d, int ps, int nsel, int opt_kv, int opt_gqa,
-    int window, int sink, int slots, float sm_scale, void* stream) {
+    const int* phys, const int* log, void* out, float* m_out, float* l_out,
+    float* partial, int* counter, int B, int Hq, int Hkv, int d, int ps,
+    int nsel, int opt_kv, int opt_gqa, int window, int sink, int slots,
+    float sm_scale, void* stream) {
   DecodeArgs a{static_cast<const __nv_bfloat16*>(q), k_pages, v_pages,
                k_scale, v_scale, cache_len, phys, log, nullptr,
-               static_cast<__nv_bfloat16*>(out), partial, counter, B, Hq,
+               static_cast<__nv_bfloat16*>(out), m_out, l_out, partial, counter, B, Hq,
                Hkv, ps, nsel, opt_gqa, window, sink, slots, 1, sm_scale};
   return dispatch(a, d, opt_kv, false, splits_of(nsel, slots), stream);
 }
@@ -701,12 +720,12 @@ extern "C" int paged_pool_decode_visits(
     const void* q, const void* k_pages, const void* v_pages,
     const float* k_scale, const float* v_scale, const int* cache_len,
     const int* visit_page, const int* visit_lanes, const int* visit_log,
-    void* out, float* partial, int* counter, int B, int Hq, int Hkv, int d,
-    int ps, int nsel, int opt_kv, int opt_gqa, int window, int sink,
-    int slots, float sm_scale, void* stream) {
+    void* out, float* m_out, float* l_out, float* partial, int* counter,
+    int B, int Hq, int Hkv, int d, int ps, int nsel, int opt_kv, int opt_gqa,
+    int window, int sink, int slots, float sm_scale, void* stream) {
   DecodeArgs a{static_cast<const __nv_bfloat16*>(q), k_pages, v_pages,
                k_scale, v_scale, cache_len, visit_page, visit_log, visit_lanes,
-               static_cast<__nv_bfloat16*>(out), partial, counter, B, Hq, Hkv,
+               static_cast<__nv_bfloat16*>(out), m_out, l_out, partial, counter, B, Hq, Hkv,
                ps, nsel, opt_gqa, window, sink, slots, 1, sm_scale};
   return dispatch(a, d, opt_kv, true, splits_of(nsel, slots), stream);
 }

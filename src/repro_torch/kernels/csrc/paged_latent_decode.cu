@@ -53,6 +53,10 @@
 //            ascending split order: m = max m_s, l = sum l_s 2^(m_s - m),
 //            acc likewise, out = acc / max(l, 1e-30). No scratch in device
 //            memory, no atomics. One split writes its rows directly.
+//   State    With m_out and l_out (`return_state`) the merged (m, l) of each
+//            row is stored too, by block 0 of the cluster (one split: by the
+//            row's store), m in natural units (latent_mma.cuh); null
+//            pointers store nothing. K7's state equals K5's bit for bit.
 // A row's arithmetic depends only on its own lane's tiles in slot order,
 // on (R, dr, ps) and on the split boundaries, never on which lanes share
 // its block (an MMA output row reads only its own A row), so K7 is
@@ -79,6 +83,8 @@ struct LatentDecodeArgs {
   const int* table_log;    // K5: log (B, nsel);  K7: visit_log (B * nsel,)
   const int* visit_lanes;  // K7 only
   float* out;              // (B, H, R)
+  float* m_out;            // (B, H) final m, natural units, or null
+  float* l_out;            // (B, H) final l, or null
   int B, H, ps, nsel, window, sink, slots;
   float sm_scale;
 };
@@ -109,7 +115,8 @@ __device__ __forceinline__ int sreg_ctaid_y() {
 // likewise, out = acc / max(l, 1e-30). Out of line: its registers are its
 // own, apart from the tile loop's.
 template <int R, int LANES>
-__device__ __noinline__ void merge_splits(float* __restrict__ out, float* st_acc, float* st_ml,
+__device__ __noinline__ void merge_splits(float* __restrict__ out, float* __restrict__ m_out,
+                                          float* __restrict__ l_out, float* st_acc, float* st_ml,
                                           int B, int H) {
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x, z = blockIdx.y, splits = gridDim.y;
@@ -137,6 +144,10 @@ __device__ __noinline__ void merge_splits(float* __restrict__ out, float* st_acc
       }
     }
     row_den[r] = fmaxf(l, 1e-30f);
+    if (m_out != nullptr && z == 0) {   // the merged state, once a row
+      m_out[(long long)b0 * H + r] = mma::natural_m(m);
+      l_out[(long long)b0 * H + r] = l;
+    }
   }
   __syncthreads();
   // slice: ceil(R / splits) rounded up to whole float4s; the last slices
@@ -280,13 +291,13 @@ latent_decode_kernel(LatentDecodeArgs a) {
   // the lane, split and lane group read anew (see sreg_tid)
   const int g = (sreg_tid() >> 5) / CW, b = sreg_ctaid_x() * LANES + g;
   if (gridDim.y == 1) {
-    if (b < a.B) wt.store(a.out, (long long)b * a.H, 0, a.H);
+    if (b < a.B) wt.store(a.out, (long long)b * a.H, 0, a.H, a.m_out, a.l_out);
     return;
   }
   float* st_acc = reinterpret_cast<float*>(smem);   // (LANES * H, R); free after the loop
   float* st_ml = st_acc + LANES * a.H * R;          // (LANES * H, 2)
   if (b < a.B) wt.store_state(st_acc + g * a.H * R, st_ml + g * a.H * 2, 2, a.H);
-  merge_splits<R, LANES>(a.out, st_acc, st_ml, a.B, a.H);
+  merge_splits<R, LANES>(a.out, a.m_out, a.l_out, st_acc, st_ml, a.B, a.H);
 }
 
 // One instantiation: CW warps a lane's group, LANES lanes a block, the pool
@@ -389,10 +400,12 @@ int splits_of(int nsel, int slots) {
 extern "C" int paged_latent_decode(
     const float* q_lat, const float* q_rope, const void* pages,
     const float* scales, const int* cache_len, const int* phys, const int* log,
-    float* out, int B, int H, int R, int dr, int ps, int nsel, int opt_kv,
-    int window, int sink, int slots, float sm_scale, void* stream) {
+    float* out, float* m_out, float* l_out, int B, int H, int R, int dr, int ps,
+    int nsel, int opt_kv, int window, int sink, int slots, float sm_scale,
+    void* stream) {
   const LatentDecodeArgs a{q_lat, q_rope, pages, scales, cache_len, phys, log, nullptr,
-                           out, B, H, ps, nsel, window, sink, slots, sm_scale};
+                           out, m_out, l_out, B, H, ps, nsel, window, sink, slots,
+                           sm_scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dispatch(R, dr, opt_kv, false, [&](auto inst) {
     return launch<decltype(inst)>(a, splits_of(nsel, slots), st);
@@ -403,11 +416,12 @@ extern "C" int paged_latent_decode(
 extern "C" int paged_latent_decode_visits(
     const float* q_lat, const float* q_rope, const void* pages,
     const float* scales, const int* cache_len, const int* visit_page,
-    const int* visit_lanes, const int* visit_log, float* out, int B, int H,
-    int R, int dr, int ps, int nsel, int opt_kv, int window, int sink,
-    int slots, float sm_scale, void* stream) {
+    const int* visit_lanes, const int* visit_log, float* out, float* m_out,
+    float* l_out, int B, int H, int R, int dr, int ps, int nsel, int opt_kv,
+    int window, int sink, int slots, float sm_scale, void* stream) {
   const LatentDecodeArgs a{q_lat, q_rope, pages, scales, cache_len, visit_page, visit_log,
-                           visit_lanes, out, B, H, ps, nsel, window, sink, slots, sm_scale};
+                           visit_lanes, out, m_out, l_out, B, H, ps, nsel, window, sink,
+                           slots, sm_scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dispatch(R, dr, opt_kv, true, [&](auto inst) {
     return launch<decltype(inst)>(a, splits_of(nsel, slots), st);

@@ -9,7 +9,9 @@ of its sources, so an edited source is rebuilt and a stale one never
 loaded. Nothing is built or imported at module import time.
 
 ``LAUNCHES`` counts kernel launches per kernel: each wrapper adds one where
-it launches its kernel, and nowhere else. Under CUDA-graph capture nothing
+it launches its kernel, and nowhere else. A launch of K2-K7 that returns
+its softmax state (``return_state``, the sharded layer's) counts under the
+kernel's name with ``_state`` appended (``state_name``). Under CUDA-graph capture nothing
 runs on the card, so ``capture_launches`` takes the counts a capture adds
 back out and hands them to the graph's owner, which adds them once for
 each replay (``add_launches``): ``LAUNCHES`` stays the launches the card
@@ -41,12 +43,17 @@ SOURCES = {                      # library -> source file
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# the kernels that can return their softmax state (m, l)
+STATE_KERNELS = ("paged_pool_decode", "paged_pool_decode_visits",
+                 "flash_chunk_prefill", "paged_latent_decode",
+                 "paged_latent_decode_visits", "latent_chunk_prefill")
 LAUNCHES: Dict[str, int] = {"kv_cache_write": 0, "paged_pool_decode": 0,
                             "paged_pool_decode_visits": 0,
                             "flash_chunk_prefill": 0,
                             "paged_latent_decode": 0,
                             "paged_latent_decode_visits": 0,
-                            "latent_chunk_prefill": 0, "flash_prefill": 0}
+                            "latent_chunk_prefill": 0, "flash_prefill": 0,
+                            **{k + "_state": 0 for k in STATE_KERNELS}}
 BUILD_LOG: Dict[str, str] = {}   # library -> nvcc output (ptxas -v report)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -56,13 +63,13 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _ARGTYPES = {
     "kv_cache_write": [_P] * 3 + [_L, _I, _I] + [_P] * 4 + [_L] + [_I] * 4
     + [_P],
-    "paged_pool_decode": [_P] * 11 + [_I] * 11 + [_F, _P],
-    "paged_pool_decode_visits": [_P] * 12 + [_I] * 11 + [_F, _P],
-    "flash_chunk_prefill": [_P] * 11 + [_I] * 11 + [_F, _P],
-    "paged_latent_decode": [_P] * 8 + [_I] * 10 + [_F, _P],
-    "paged_latent_decode_visits": [_P] * 9 + [_I] * 10 + [_F, _P],
+    "paged_pool_decode": [_P] * 13 + [_I] * 11 + [_F, _P],
+    "paged_pool_decode_visits": [_P] * 14 + [_I] * 11 + [_F, _P],
+    "flash_chunk_prefill": [_P] * 13 + [_I] * 11 + [_F, _P],
+    "paged_latent_decode": [_P] * 10 + [_I] * 10 + [_F, _P],
+    "paged_latent_decode_visits": [_P] * 11 + [_I] * 10 + [_F, _P],
     "paged_latent_decode_info": [_I] * 4 + [ctypes.POINTER(_I)],
-    "latent_chunk_prefill": [_P] * 10 + [_I] * 10 + [_F, _P],
+    "latent_chunk_prefill": [_P] * 12 + [_I] * 10 + [_F, _P],
     "latent_chunk_prefill_info": [_I, _I, _I, ctypes.POINTER(_I)],
     "flash_prefill": [_P] * 4 + [_I] * 8 + [_F, _P],
     "kv_cache_write_info": [_I] * 3 + [ctypes.POINTER(_I)],
@@ -90,6 +97,12 @@ def reset_launches() -> None:
 
 def count(name: str) -> None:
     LAUNCHES[name] += 1
+
+
+def state_name(name: str, return_state: bool) -> str:
+    """The ``LAUNCHES`` key of a launch of ``name``: with ``_state``
+    appended where it returns its softmax state."""
+    return name + "_state" if return_state else name
 
 
 @contextmanager

@@ -14,7 +14,10 @@ queries.
 
 The wrapper launches ``csrc/flash_chunk_prefill.cu`` on CUDA tensors and
 runs ``flash_chunk_prefill_ref``, the plain version that follows the
-kernel's page order and masks, on CPU tensors.
+kernel's page order and masks, on CPU tensors. ``return_state=True``
+returns ``(o, m, l)``, each row's final online-softmax max (natural units
+of the scaled scores) and sum as f32 (B, S, Hq); a row that sees no live
+key reports exactly (-1e30, 0).
 """
 from __future__ import annotations
 
@@ -41,7 +44,8 @@ def _rows(x, heads, G):
 def flash_chunk_prefill_ref(q, positions, k_pages, v_pages, k_scale, v_scale,
                             phys_table, *, opt_kv: bool, opt_gqa: bool = True,
                             window: int = 0, sink_pages: int = 0, seg_q=None,
-                            page_seg=None, page_base=None):
+                            page_seg=None, page_base=None,
+                            return_state: bool = False):
     """Plain version of K3: an online softmax over the lane's table slots in
     ascending order, masked probabilities hard-zeroed."""
     B, S, Hq, D = q.shape
@@ -91,7 +95,12 @@ def flash_chunk_prefill_ref(q, positions, k_pages, v_pages, k_scale, v_scale,
         acc = torch.where(sel[..., None], acc_new, acc)
     out = acc / l.clamp_min(1e-30)[..., None]                 # (B,h,R,D)
     out = out.reshape(B, heads, S, G, D).transpose(1, 2).reshape(B, S, Hq, D)
-    return out.to(q.dtype)
+    if not return_state:
+        return out.to(q.dtype)
+
+    def rows(x):                                    # (B,h,R) -> (B,S,Hq)
+        return x.reshape(B, heads, S, G).transpose(1, 2).reshape(B, S, Hq)
+    return out.to(q.dtype), rows(m), rows(l)
 
 
 def _check(q, positions, k_pages, v_pages, k_scale, v_scale, phys_table,
@@ -140,18 +149,20 @@ def _check(q, positions, k_pages, v_pages, k_scale, v_scale, phys_table,
 def flash_chunk_prefill(q, positions, k_pages, v_pages, k_scale, v_scale,
                         phys_table, *, opt_kv: bool, opt_gqa: bool = True,
                         window: int = 0, sink_pages: int = 0, seg_q=None,
-                        page_seg=None, page_base=None):
+                        page_seg=None, page_base=None,
+                        return_state: bool = False):
     """q: (B, S, Hq, D) bf16 chunk queries; positions: (B, S) int32
     absolute positions; k/v_pages: (P_total, ps, Hkv, D) GLOBAL pool (fp8 if
     ``opt_kv``); k/v_scale: (P_total, ps, Hkv) f32 or None; phys_table:
     (B, NP) int32 physical pages in logical order (-1 = never read). The
-    chunk's own K/V must already be written. Returns (B, S, Hq, D) bf16."""
+    chunk's own K/V must already be written. Returns (B, S, Hq, D) bf16,
+    with ``return_state`` ``(o, m, l)`` (module docstring)."""
     if q.device.type == "cpu":
         return flash_chunk_prefill_ref(
             q, positions, k_pages, v_pages, k_scale, v_scale, phys_table,
             opt_kv=opt_kv, opt_gqa=opt_gqa, window=window,
             sink_pages=sink_pages, seg_q=seg_q, page_seg=page_seg,
-            page_base=page_base)
+            page_base=page_base, return_state=return_state)
     if not q.is_cuda:
         raise ValueError(f"flash_chunk_prefill: unsupported device {q.device}")
     planes = (seg_q, page_seg, page_base)
@@ -160,17 +171,21 @@ def flash_chunk_prefill(q, positions, k_pages, v_pages, k_scale, v_scale,
     B, S, Hq, D = q.shape
     _, ps, Hkv, _ = k_pages.shape
     out = torch.empty_like(q)
+    m = l = None
+    if return_state:
+        m = torch.empty((B, S, Hq), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
     fn = cuda.library("flash_chunk_prefill").flash_chunk_prefill
     err = fn(q.data_ptr(), positions.data_ptr(), k_pages.data_ptr(),
              v_pages.data_ptr(), cuda.ptr(k_scale if opt_kv else None),
              cuda.ptr(v_scale if opt_kv else None), phys_table.data_ptr(),
              cuda.ptr(page_base), cuda.ptr(page_seg), cuda.ptr(seg_q),
-             out.data_ptr(), B, S, Hq, Hkv, D, ps, phys_table.shape[1],
-             int(opt_kv), int(opt_gqa), window, sink_pages,
-             1.0 / math.sqrt(D), cuda.stream_ptr(q.device))
+             out.data_ptr(), cuda.ptr(m), cuda.ptr(l), B, S, Hq, Hkv, D, ps,
+             phys_table.shape[1], int(opt_kv), int(opt_gqa), window,
+             sink_pages, 1.0 / math.sqrt(D), cuda.stream_ptr(q.device))
     cuda.check(err, "flash_chunk_prefill")
-    cuda.count("flash_chunk_prefill")
-    return out
+    cuda.count(cuda.state_name("flash_chunk_prefill", return_state))
+    return (out, m, l) if return_state else out
 
 
 KERNEL_INFO = ("registers", "local_bytes", "static_smem_bytes", "smem_bytes",

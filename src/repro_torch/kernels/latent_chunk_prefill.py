@@ -15,7 +15,10 @@ queries. Returns o_lat (B, S, H, R) f32.
 
 The wrapper launches ``csrc/latent_chunk_prefill.cu`` on CUDA tensors and
 runs ``latent_chunk_prefill_ref``, the plain version that follows the
-kernel's page order and masks, on CPU tensors.
+kernel's page order and masks, on CPU tensors. ``return_state=True``
+returns ``(o_lat, m, l)``, each row's final online-softmax max (natural
+units of the scaled scores) and sum as f32 (B, S, H); a row that sees no
+live key reports exactly (-1e30, 0).
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ def latent_chunk_prefill_ref(q_lat, q_rope, positions, lat_pages,
                              scale_pages, phys_table, *, sm_scale: float,
                              opt_kv: bool, window: int = 0,
                              sink_pages: int = 0, seg_q=None, page_seg=None,
-                             page_base=None):
+                             page_base=None, return_state: bool = False):
     """Plain version of K6: an online softmax over the lane's table slots in
     ascending order, masked probabilities hard-zeroed."""
     B, S, H, R = q_lat.shape
@@ -78,8 +81,10 @@ def latent_chunk_prefill_ref(q_lat, q_rope, positions, lat_pages,
         m = torch.where(sel, m_new, m)
         l = torch.where(sel, l_new, l)
         acc = torch.where(sel[..., None], acc_new, acc)
-    out = acc / l.clamp_min(1e-30)[..., None]
-    return out.reshape(B, S, H, R)
+    out = (acc / l.clamp_min(1e-30)[..., None]).reshape(B, S, H, R)
+    if not return_state:
+        return out
+    return out, m.reshape(B, S, H), l.reshape(B, S, H)
 
 
 def _check(q_lat, q_rope, positions, lat_pages, scale_pages, phys_table,
@@ -116,19 +121,21 @@ def _check(q_lat, q_rope, positions, lat_pages, scale_pages, phys_table,
 def latent_chunk_prefill(q_lat, q_rope, positions, lat_pages, scale_pages,
                          phys_table, *, sm_scale: float, opt_kv: bool,
                          window: int = 0, sink_pages: int = 0, seg_q=None,
-                         page_seg=None, page_base=None):
+                         page_seg=None, page_base=None,
+                         return_state: bool = False):
     """q_lat: (B, S, H, R) f32 absorbed chunk queries; q_rope: (B, S, H, dr)
     f32; positions: (B, S) int32 absolute positions; lat_pages: (P_total,
     ps, R+dr) GLOBAL latent pool (fp8 if ``opt_kv``, else bf16);
     scale_pages: (P_total, ps, 2) f32 or None; phys_table: (B, NP) int32
     physical pages in logical order (-1 = never read). The chunk's own
-    latents must already be written. Returns (B, S, H, R) f32."""
+    latents must already be written. Returns (B, S, H, R) f32, with
+    ``return_state`` ``(o_lat, m, l)`` (module docstring)."""
     if q_lat.device.type == "cpu":
         return latent_chunk_prefill_ref(
             q_lat, q_rope, positions, lat_pages, scale_pages, phys_table,
             sm_scale=sm_scale, opt_kv=opt_kv, window=window,
             sink_pages=sink_pages, seg_q=seg_q, page_seg=page_seg,
-            page_base=page_base)
+            page_base=page_base, return_state=return_state)
     if not q_lat.is_cuda:
         raise ValueError(f"latent_chunk_prefill: unsupported device "
                          f"{q_lat.device}")
@@ -137,16 +144,21 @@ def latent_chunk_prefill(q_lat, q_rope, positions, lat_pages, scale_pages,
            planes, opt_kv)
     B, S, H, R = q_lat.shape
     out = torch.empty_like(q_lat)
+    m = l = None
+    if return_state:
+        m = torch.empty((B, S, H), dtype=torch.float32, device=q_lat.device)
+        l = torch.empty_like(m)
     fn = cuda.library("latent_chunk_prefill").latent_chunk_prefill
     err = fn(q_lat.data_ptr(), q_rope.data_ptr(), positions.data_ptr(),
              lat_pages.data_ptr(), cuda.ptr(scale_pages if opt_kv else None),
              phys_table.data_ptr(), cuda.ptr(page_base), cuda.ptr(page_seg),
-             cuda.ptr(seg_q), out.data_ptr(), B, S, H, R, q_rope.shape[3],
-             lat_pages.shape[1], phys_table.shape[1], int(opt_kv), window,
-             sink_pages, sm_scale, cuda.stream_ptr(q_lat.device))
+             cuda.ptr(seg_q), out.data_ptr(), cuda.ptr(m), cuda.ptr(l), B, S,
+             H, R, q_rope.shape[3], lat_pages.shape[1], phys_table.shape[1],
+             int(opt_kv), window, sink_pages, sm_scale,
+             cuda.stream_ptr(q_lat.device))
     cuda.check(err, "latent_chunk_prefill")
-    cuda.count("latent_chunk_prefill")
-    return out
+    cuda.count(cuda.state_name("latent_chunk_prefill", return_state))
+    return (out, m, l) if return_state else out
 
 
 KERNEL_INFO = ("rows_per_block", "threads", "smem_bytes", "registers",

@@ -8,8 +8,19 @@ views (zero-copy) and plug into ``repro_torch.core`` and
 wrapper launches its CUDA kernel on CUDA tensors, raises if its library
 does not build, and runs its plain PyTorch version only for CPU tensors;
 nothing here catches an error and falls back.
+
+Page-range shards: while a ``sharded.ShardCtx`` is installed
+(``set_mesh_ctx``; the engine binds its mesh's around every step body with
+``mesh_ctx_scope``), every READ wrapper dispatches to ``kernels.sharded``:
+the same kernels run once per shard on that shard's page range, and their
+(o, m, l) partials are merged. Writes stay the global ones. With no
+context (no mesh, or a mesh whose pages axes have extent 1) the unsharded
+kernels run unchanged.
 """
 from __future__ import annotations
+
+from contextlib import contextmanager
+from typing import Optional
 
 import torch
 
@@ -20,7 +31,41 @@ from repro_torch.kernels import kv_cache_write as _kw
 from repro_torch.kernels import latent_chunk_prefill as _lc
 from repro_torch.kernels import paged_gqa_decode as _pd
 from repro_torch.kernels import paged_latent_decode as _ld
+from repro_torch.kernels import sharded as _sh
 from repro_torch.kernels import visits as _vs
+
+# the page-range shard context the read wrappers dispatch on; None = the
+# unsharded kernels
+_MESH_CTX: Optional["_sh.ShardCtx"] = None
+
+
+def make_mesh_ctx(mesh) -> Optional["_sh.ShardCtx"]:
+    """The ShardCtx of ``mesh`` (None when its pages axes have extent 1: an
+    unsharded mesh takes the unsharded path)."""
+    return _sh.make_ctx(mesh)
+
+
+def set_mesh_ctx(ctx: Optional["_sh.ShardCtx"]) -> None:
+    """Install (or clear, with None) the shard context."""
+    global _MESH_CTX
+    _MESH_CTX = ctx
+
+
+def mesh_ctx() -> Optional["_sh.ShardCtx"]:
+    return _MESH_CTX
+
+
+@contextmanager
+def mesh_ctx_scope(ctx: Optional["_sh.ShardCtx"]):
+    """Bind ``ctx`` for the block and restore the previous context after:
+    the engine wraps its step bodies in this, so a step's context neither
+    leaks to later direct calls nor clobbers one a caller installed."""
+    prev = _MESH_CTX
+    set_mesh_ctx(ctx)
+    try:
+        yield
+    finally:
+        set_mesh_ctx(prev)
 
 
 def _use_visits(share_visits: bool, B: int) -> bool:
@@ -50,7 +95,13 @@ def paged_pool_decode(q, kv_pages, scale_pages, cache_len, phys_table,
     (2,P_total,ps,Hkv,D); scale_pages (2,P_total,ps,Hkv)|None; phys/log_table
     (B,NSel) int32 (-1 = never read). With ``share_visits`` and 1 < B <= 32
     the visit-list kernel K4 runs where its plan fits one block's shared
-    memory; otherwise the per-lane kernel K2."""
+    memory; otherwise the per-lane kernel K2. Under a shard context: the
+    sharded read (``sharded.paged_pool_decode``)."""
+    if _MESH_CTX is not None:
+        return _sh.paged_pool_decode(
+            _MESH_CTX, q, kv_pages, scale_pages, cache_len, phys_table,
+            log_table, opt_kv=opt_kv, opt_gqa=opt_gqa, window=window,
+            sink_pages=sink_pages, share_visits=share_visits)
     ks = scale_pages[0] if scale_pages is not None else None
     vs = scale_pages[1] if scale_pages is not None else None
     phys, log, cl = _i32(phys_table), _i32(log_table), _i32(cache_len)
@@ -89,7 +140,14 @@ def paged_chunk_prefill(q, positions, kv_pages, scale_pages, phys_table, *,
     queries (B,S,Hq,D) with absolute ``positions`` (B,S) attends the lane's
     cached pages named by ``phys_table`` (B,NP; -1 = never read). The
     chunk's own K/V must already be written. ``seg_q``/``page_seg``/
-    ``page_base`` are the concat-prefill packing planes; None = unpacked."""
+    ``page_base`` are the concat-prefill packing planes; None = unpacked.
+    Under a shard context: the sharded read."""
+    if _MESH_CTX is not None:
+        return _sh.paged_chunk_prefill(
+            _MESH_CTX, q, positions, kv_pages, scale_pages, phys_table,
+            opt_kv=opt_kv, opt_gqa=opt_gqa, window=window,
+            sink_pages=sink_pages, seg_q=seg_q, page_seg=page_seg,
+            page_base=page_base)
     ks = scale_pages[0] if scale_pages is not None else None
     vs = scale_pages[1] if scale_pages is not None else None
     planes = [None if t is None else _i32(t)
@@ -133,7 +191,13 @@ def paged_latent_decode(q_lat, q_rope, lat_pages, scale_pages, cache_len,
     q_rope (B,H,dr) f32; lat_pages (P_total,ps,R+dr); scale_pages
     (P_total,ps,2)|None; phys/log_table (B,NSel) int32 (-1 = never read).
     With ``share_visits`` and 1 < B <= 32 the visit-list kernel K7 runs;
-    otherwise the per-lane kernel K5. Returns o_lat (B,H,R) f32."""
+    otherwise the per-lane kernel K5. Returns o_lat (B,H,R) f32. Under a
+    shard context: the sharded read."""
+    if _MESH_CTX is not None:
+        return _sh.paged_latent_decode(
+            _MESH_CTX, q_lat, q_rope, lat_pages, scale_pages, cache_len,
+            phys_table, log_table, sm_scale=sm_scale, opt_kv=opt_kv,
+            window=window, sink_pages=sink_pages, share_visits=share_visits)
     phys, log, cl = _i32(phys_table), _i32(log_table), _i32(cache_len)
     q_lat, q_rope = q_lat.contiguous(), q_rope.contiguous()
     if _use_visits(share_visits, q_lat.shape[0]):
@@ -156,7 +220,14 @@ def latent_chunk_prefill(q_lat, q_rope, positions, lat_pages, scale_pages,
     chunk of absorbed queries q_lat (B,S,H,R) / q_rope (B,S,H,dr) with
     absolute ``positions`` (B,S) attends the lane's cached latent pages
     named by ``phys_table`` (B,NP; -1 = never read). The chunk's own
-    latents must already be written. Returns o_lat (B,S,H,R) f32."""
+    latents must already be written. Returns o_lat (B,S,H,R) f32. Under a
+    shard context: the sharded read."""
+    if _MESH_CTX is not None:
+        return _sh.latent_chunk_prefill(
+            _MESH_CTX, q_lat, q_rope, positions, lat_pages, scale_pages,
+            phys_table, sm_scale=sm_scale, opt_kv=opt_kv, window=window,
+            sink_pages=sink_pages, seg_q=seg_q, page_seg=page_seg,
+            page_base=page_base)
     planes = [None if t is None else _i32(t)
               for t in (seg_q, page_seg, page_base)]
     return _lc.latent_chunk_prefill(

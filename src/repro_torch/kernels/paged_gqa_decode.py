@@ -17,6 +17,13 @@ each lane's slots in order; K2's masked probabilities are not hard-zeroed
 split the slots across blocks (``decode_splits``, the same for both) and
 merge the splits' (m, l, acc) in ascending order in the same launch, which
 moves their f32 sums by rounding only.
+
+``return_state=True`` (the page-range sharded layer, ``kernels.sharded``)
+returns ``(o, m, l)``: beside the output, each row's final online-softmax
+max ``m`` (natural units of the scaled scores) and sum ``l``, f32 (B, Hq);
+a row that read no page reports exactly (-1e30, 0). Without it the kernels
+store nothing more and allocate nothing more. K4's (m, l) equal K2's bit
+for bit, as its output does.
 """
 from __future__ import annotations
 
@@ -155,16 +162,19 @@ def _init_state(B, heads, G, D, device):
             torch.zeros((B, heads, G, D), device=device))
 
 
-def _finish(state, q):
-    _, l, acc = state
+def _finish(state, q, return_state=False):
+    m, l, acc = state
     B, Hq, D = q.shape
-    return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype).reshape(B, Hq, D)
+    out = (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype).reshape(B, Hq, D)
+    if not return_state:
+        return out
+    return out, m.reshape(B, Hq), l.reshape(B, Hq)
 
 
 def paged_pool_decode_ref(q, k_pages, v_pages, k_scale, v_scale, cache_len,
                           phys_table, log_table, *, opt_kv: bool,
                           opt_gqa: bool, window: int = 0,
-                          sink_pages: int = 0):
+                          sink_pages: int = 0, return_state: bool = False):
     """Plain version of K2: every lane walks its table slots in ascending
     order; a slot whose physical page is -1 leaves the lane untouched."""
     B, Hq, D = q.shape
@@ -182,13 +192,14 @@ def paged_pool_decode_ref(q, k_pages, v_pages, k_scale, v_scale, cache_len,
         state = _decode_update(qf, k, v, pos, cache_len, page >= 0, state,
                                window=window, sink_pages=sink_pages, ps=ps,
                                sm_scale=1.0 / math.sqrt(D))
-    return _finish(state, q)
+    return _finish(state, q, return_state)
 
 
 def paged_pool_decode_visits_ref(q, k_pages, v_pages, k_scale, v_scale,
                                  cache_len, visit_page, visit_lanes,
                                  visit_log, *, opt_kv: bool, opt_gqa: bool,
-                                 window: int = 0, sink_pages: int = 0):
+                                 window: int = 0, sink_pages: int = 0,
+                                 return_state: bool = False):
     """Plain version of K4: walk the visit list; each visit's page is read
     once and updates the rows of its member lanes (bit b of the mask),
     with the same per-row arithmetic as ``paged_pool_decode_ref``."""
@@ -211,7 +222,16 @@ def paged_pool_decode_visits_ref(q, k_pages, v_pages, k_scale, v_scale,
         state = _decode_update(qf, k, v, pos, cache_len, member, state,
                                window=window, sink_pages=sink_pages, ps=ps,
                                sm_scale=1.0 / math.sqrt(D))
-    return _finish(state, q)
+    return _finish(state, q, return_state)
+
+
+def _state(q, return_state):
+    """The (m, l) outputs of a launch that returns its state, else (None,
+    None): f32 (B, Hq) each."""
+    if not return_state:
+        return None, None
+    m = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    return m, torch.empty_like(m)
 
 
 def _check(name, q, k_pages, v_pages, k_scale, v_scale, cache_len, tables,
@@ -253,17 +273,19 @@ def _check(name, q, k_pages, v_pages, k_scale, v_scale, cache_len, tables,
 
 def paged_pool_decode(q, k_pages, v_pages, k_scale, v_scale, cache_len,
                       phys_table, log_table, *, opt_kv: bool, opt_gqa: bool,
-                      window: int = 0, sink_pages: int = 0):
+                      window: int = 0, sink_pages: int = 0,
+                      return_state: bool = False):
     """q: (B, Hq, D) bf16; k/v_pages: (P_total, ps, Hkv, D) GLOBAL pool (fp8
     if ``opt_kv``); k/v_scale: (P_total, ps, Hkv) f32 or None; cache_len:
     (B,) int32; phys/log_table: (B, NSel) int32, -1 = never read. Returns
-    (B, Hq, D) bf16. On the card the G rows of a (lane, head) and a
-    one-page ring must fit one block's shared memory (``plan_fits``)."""
+    (B, Hq, D) bf16, with ``return_state`` ``(o, m, l)`` (module
+    docstring). On the card the G rows of a (lane, head) and a one-page
+    ring must fit one block's shared memory (``plan_fits``)."""
     if q.device.type == "cpu":
         return paged_pool_decode_ref(
             q, k_pages, v_pages, k_scale, v_scale, cache_len, phys_table,
             log_table, opt_kv=opt_kv, opt_gqa=opt_gqa, window=window,
-            sink_pages=sink_pages)
+            sink_pages=sink_pages, return_state=return_state)
     if not q.is_cuda:
         raise ValueError(f"paged_pool_decode: unsupported device {q.device}")
     _check("paged_pool_decode", q, k_pages, v_pages, k_scale, v_scale,
@@ -276,23 +298,25 @@ def paged_pool_decode(q, k_pages, v_pages, k_scale, v_scale, cache_len,
     slots, partial, ctr = _split_buffers(
         "paged_pool_decode", q, Hkv, NSel, 1, ps, opt_kv, opt_gqa)
     out = torch.empty_like(q)
+    m, l = _state(q, return_state)
     fn = cuda.library("paged_gqa_decode").paged_pool_decode
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              cuda.ptr(k_scale if opt_kv else None),
              cuda.ptr(v_scale if opt_kv else None), cache_len.data_ptr(),
              phys_table.data_ptr(), log_table.data_ptr(), out.data_ptr(),
-             cuda.ptr(partial), ctr.data_ptr(), B, Hq, Hkv, D, ps, NSel,
-             int(opt_kv), int(opt_gqa), window, sink_pages, slots,
-             1.0 / math.sqrt(D), cuda.stream_ptr(q.device))
+             cuda.ptr(m), cuda.ptr(l), cuda.ptr(partial), ctr.data_ptr(), B,
+             Hq, Hkv, D, ps, NSel, int(opt_kv), int(opt_gqa), window,
+             sink_pages, slots, 1.0 / math.sqrt(D),
+             cuda.stream_ptr(q.device))
     cuda.check(err, "paged_pool_decode")
-    cuda.count("paged_pool_decode")
-    return out
+    cuda.count(cuda.state_name("paged_pool_decode", return_state))
+    return (out, m, l) if return_state else out
 
 
 def paged_pool_decode_visits(q, k_pages, v_pages, k_scale, v_scale,
                              cache_len, visit_page, visit_lanes, visit_log,
                              *, opt_kv: bool, opt_gqa: bool, window: int = 0,
-                             sink_pages: int = 0):
+                             sink_pages: int = 0, return_state: bool = False):
     """Visit-list twin of ``paged_pool_decode``: visit_page/visit_lanes/
     visit_log are the (B * NSel,) int32 slot-major plan vectors of
     ``plan_visits``. Requires B <= visits.MAX_VISIT_LANES (int32 lane
@@ -302,7 +326,7 @@ def paged_pool_decode_visits(q, k_pages, v_pages, k_scale, v_scale,
         return paged_pool_decode_visits_ref(
             q, k_pages, v_pages, k_scale, v_scale, cache_len, visit_page,
             visit_lanes, visit_log, opt_kv=opt_kv, opt_gqa=opt_gqa,
-            window=window, sink_pages=sink_pages)
+            window=window, sink_pages=sink_pages, return_state=return_state)
     if not q.is_cuda:
         raise ValueError("paged_pool_decode_visits: unsupported device "
                          f"{q.device}")
@@ -319,18 +343,19 @@ def paged_pool_decode_visits(q, k_pages, v_pages, k_scale, v_scale,
     slots, partial, ctr = _split_buffers(
         "paged_pool_decode_visits", q, Hkv, NV // B, B, ps, opt_kv, opt_gqa)
     out = torch.empty_like(q)
+    m, l = _state(q, return_state)
     fn = cuda.library("paged_gqa_decode").paged_pool_decode_visits
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              cuda.ptr(k_scale if opt_kv else None),
              cuda.ptr(v_scale if opt_kv else None), cache_len.data_ptr(),
              visit_page.data_ptr(), visit_lanes.data_ptr(),
-             visit_log.data_ptr(), out.data_ptr(), cuda.ptr(partial),
-             ctr.data_ptr(), B, Hq, Hkv, D, ps, NV // B, int(opt_kv),
-             int(opt_gqa), window, sink_pages, slots, 1.0 / math.sqrt(D),
-             cuda.stream_ptr(q.device))
+             visit_log.data_ptr(), out.data_ptr(), cuda.ptr(m), cuda.ptr(l),
+             cuda.ptr(partial), ctr.data_ptr(), B, Hq, Hkv, D, ps, NV // B,
+             int(opt_kv), int(opt_gqa), window, sink_pages, slots,
+             1.0 / math.sqrt(D), cuda.stream_ptr(q.device))
     cuda.check(err, "paged_pool_decode_visits")
-    cuda.count("paged_pool_decode_visits")
-    return out
+    cuda.count(cuda.state_name("paged_pool_decode_visits", return_state))
+    return (out, m, l) if return_state else out
 
 
 KERNEL_INFO = ("registers", "local_bytes", "static_smem_bytes", "threads")

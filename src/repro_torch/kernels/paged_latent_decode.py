@@ -27,6 +27,15 @@ ascending order through the cluster's shared memory in the same launch,
 which moves their f32 sums by rounding only. K7 takes every 1 < B <= 32
 that the Pallas K7 serves: its blocks hold a fixed number of lanes,
 whatever B. Both take at most MAX_HEADS heads (one 16-row MMA group).
+
+``return_state=True`` (the page-range sharded layer, ``kernels.sharded``)
+returns ``(o_lat, m, l)``: each row's final online-softmax max (natural
+units of the scaled scores) and sum, f32 (B, H); a lane that read no page
+reports exactly (-1e30, 0). K7's (m, l) equal K5's bit for bit. (Where a
+lane reads pages but none of their keys is live the kernels, hard-zeroing,
+report l = 0, the plain versions l = the masked keys' count; such a lane's
+output is undefined in both packages, and a merge weighs its m = -1e30 by 0
+beside any shard that saw a live key.)
 """
 from __future__ import annotations
 
@@ -90,15 +99,16 @@ def _init_state(B, H, R, device):
             torch.zeros((B, H, R), device=device))
 
 
-def _finish(state):
-    _, l, acc = state
-    return acc / l.clamp_min(1e-30)[..., None]
+def _finish(state, return_state=False):
+    m, l, acc = state
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return (out, m, l) if return_state else out
 
 
 def paged_latent_decode_ref(q_lat, q_rope, lat_pages, scale_pages, cache_len,
                             phys_table, log_table, *, sm_scale: float,
                             opt_kv: bool, window: int = 0,
-                            sink_pages: int = 0):
+                            sink_pages: int = 0, return_state: bool = False):
     """Plain version of K5: every lane walks its table slots in ascending
     order; a slot whose physical page is -1 leaves the lane untouched."""
     B, H, R = q_lat.shape
@@ -115,14 +125,15 @@ def paged_latent_decode_ref(q_lat, q_rope, lat_pages, scale_pages, cache_len,
         state = _latent_update(ql, qr, c, r, pos, cache_len, page >= 0, state,
                                window=window, sink_pages=sink_pages, ps=ps,
                                sm_scale=sm_scale)
-    return _finish(state)
+    return _finish(state, return_state)
 
 
 def paged_latent_decode_visits_ref(q_lat, q_rope, lat_pages, scale_pages,
                                    cache_len, visit_page, visit_lanes,
                                    visit_log, *, sm_scale: float,
                                    opt_kv: bool, window: int = 0,
-                                   sink_pages: int = 0):
+                                   sink_pages: int = 0,
+                                   return_state: bool = False):
     """Plain version of K7: walk the visit list; each visit's page is read
     once and updates the rows of its member lanes (bit b of the mask), with
     the same per-row arithmetic as ``paged_latent_decode_ref``."""
@@ -144,7 +155,17 @@ def paged_latent_decode_visits_ref(q_lat, q_rope, lat_pages, scale_pages,
         state = _latent_update(ql, qr, c, r, pos, cache_len, member, state,
                                window=window, sink_pages=sink_pages, ps=ps,
                                sm_scale=sm_scale)
-    return _finish(state)
+    return _finish(state, return_state)
+
+
+def _state(q_lat, return_state):
+    """The (m, l) outputs of a launch that returns its state, else (None,
+    None): f32 (B, H) each."""
+    if not return_state:
+        return None, None
+    m = torch.empty(q_lat.shape[:2], dtype=torch.float32,
+                    device=q_lat.device)
+    return m, torch.empty_like(m)
 
 
 def check_latent_pool(name, lat_pages, scale_pages, R, dr, opt_kv):
@@ -214,17 +235,19 @@ def _slots(q_lat, nsel):
 
 def paged_latent_decode(q_lat, q_rope, lat_pages, scale_pages, cache_len,
                         phys_table, log_table, *, sm_scale: float,
-                        opt_kv: bool, window: int = 0, sink_pages: int = 0):
+                        opt_kv: bool, window: int = 0, sink_pages: int = 0,
+                        return_state: bool = False):
     """q_lat: (B, H, R) f32 absorbed queries; q_rope: (B, H, dr) f32;
     lat_pages: (P_total, ps, R+dr) GLOBAL latent pool (fp8 if ``opt_kv``,
     else bf16); scale_pages: (P_total, ps, 2) f32 or None; cache_len: (B,)
     int32; phys/log_table: (B, NSel) int32, -1 = never read. ``sm_scale``
-    is 1/sqrt(dn + dr), never derived from R. Returns (B, H, R) f32."""
+    is 1/sqrt(dn + dr), never derived from R. Returns (B, H, R) f32, with
+    ``return_state`` ``(o_lat, m, l)`` (module docstring)."""
     if q_lat.device.type == "cpu":
         return paged_latent_decode_ref(
             q_lat, q_rope, lat_pages, scale_pages, cache_len, phys_table,
             log_table, sm_scale=sm_scale, opt_kv=opt_kv, window=window,
-            sink_pages=sink_pages)
+            sink_pages=sink_pages, return_state=return_state)
     if not q_lat.is_cuda:
         raise ValueError(f"paged_latent_decode: unsupported device "
                          f"{q_lat.device}")
@@ -237,22 +260,24 @@ def paged_latent_decode(q_lat, q_rope, lat_pages, scale_pages, cache_len,
         raise ValueError("paged_latent_decode: tables must be (B, NSel)")
     slots = _slots(q_lat, NSel)
     out = torch.empty_like(q_lat)
+    m, l = _state(q_lat, return_state)
     fn = cuda.library("paged_latent_decode").paged_latent_decode
     err = fn(q_lat.data_ptr(), q_rope.data_ptr(), lat_pages.data_ptr(),
              cuda.ptr(scale_pages if opt_kv else None), cache_len.data_ptr(),
              phys_table.data_ptr(), log_table.data_ptr(), out.data_ptr(),
-             B, H, R, q_rope.shape[2], lat_pages.shape[1], NSel, int(opt_kv),
-             window, sink_pages, slots, sm_scale,
-             cuda.stream_ptr(q_lat.device))
+             cuda.ptr(m), cuda.ptr(l), B, H, R, q_rope.shape[2],
+             lat_pages.shape[1], NSel, int(opt_kv), window, sink_pages,
+             slots, sm_scale, cuda.stream_ptr(q_lat.device))
     cuda.check(err, "paged_latent_decode")
-    cuda.count("paged_latent_decode")
-    return out
+    cuda.count(cuda.state_name("paged_latent_decode", return_state))
+    return (out, m, l) if return_state else out
 
 
 def paged_latent_decode_visits(q_lat, q_rope, lat_pages, scale_pages,
                                cache_len, visit_page, visit_lanes, visit_log,
                                *, sm_scale: float, opt_kv: bool,
-                               window: int = 0, sink_pages: int = 0):
+                               window: int = 0, sink_pages: int = 0,
+                               return_state: bool = False):
     """Visit-list twin of ``paged_latent_decode``: visit_page/visit_lanes/
     visit_log are the (B * NSel,) int32 slot-major plan vectors of
     ``plan_visits``. Requires B <= visits.MAX_VISIT_LANES (int32 lane
@@ -261,7 +286,7 @@ def paged_latent_decode_visits(q_lat, q_rope, lat_pages, scale_pages,
         return paged_latent_decode_visits_ref(
             q_lat, q_rope, lat_pages, scale_pages, cache_len, visit_page,
             visit_lanes, visit_log, sm_scale=sm_scale, opt_kv=opt_kv,
-            window=window, sink_pages=sink_pages)
+            window=window, sink_pages=sink_pages, return_state=return_state)
     if not q_lat.is_cuda:
         raise ValueError("paged_latent_decode_visits: unsupported device "
                          f"{q_lat.device}")
@@ -278,16 +303,18 @@ def paged_latent_decode_visits(q_lat, q_rope, lat_pages, scale_pages,
                          "(B * NSel,)")
     slots = _slots(q_lat, NV // B)
     out = torch.empty_like(q_lat)
+    m, l = _state(q_lat, return_state)
     fn = cuda.library("paged_latent_decode").paged_latent_decode_visits
     err = fn(q_lat.data_ptr(), q_rope.data_ptr(), lat_pages.data_ptr(),
              cuda.ptr(scale_pages if opt_kv else None), cache_len.data_ptr(),
              visit_page.data_ptr(), visit_lanes.data_ptr(),
-             visit_log.data_ptr(), out.data_ptr(), B, H, R, q_rope.shape[2],
-             lat_pages.shape[1], NV // B, int(opt_kv), window, sink_pages,
-             slots, sm_scale, cuda.stream_ptr(q_lat.device))
+             visit_log.data_ptr(), out.data_ptr(), cuda.ptr(m), cuda.ptr(l),
+             B, H, R, q_rope.shape[2], lat_pages.shape[1], NV // B,
+             int(opt_kv), window, sink_pages, slots, sm_scale,
+             cuda.stream_ptr(q_lat.device))
     cuda.check(err, "paged_latent_decode_visits")
-    cuda.count("paged_latent_decode_visits")
-    return out
+    cuda.count(cuda.state_name("paged_latent_decode_visits", return_state))
+    return (out, m, l) if return_state else out
 
 
 KERNEL_INFO = ("lanes_per_block", "threads", "smem_bytes", "registers",

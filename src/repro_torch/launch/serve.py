@@ -26,8 +26,12 @@ same workload through the overlapped host/device pipeline —
   * ``--pack`` routes prefill chunks through concat-prefill packing
     (dense/moe/mla families).
 
-Not ported yet, and refused as the engine refuses them: ``--shards`` other
-than 1 (``CacheConfig``), ``--mesh`` and ``--host-pages`` > 0 (``Engine``).
+Page-range shards: ``--shards N`` splits the pool into N page ranges with
+shard-affine placement; ``--mesh`` also serves on ``make_sim_mesh(data=N,
+model=1)``, whose shard context makes the kernels (``--use-kernel``) read
+each range on its own and merge (``kernels.sharded``).
+
+Not ported yet, and refused as the engine refuses it: ``--host-pages`` > 0.
 """
 from __future__ import annotations
 
@@ -129,7 +133,7 @@ class ServeRunner:
 
     def metrics(self, wall: float) -> dict:
         """Stats snapshot for the LAST measured pass."""
-        return _pass_metrics(self.engine.stats, wall, self.engine.scheduler)
+        return _pass_metrics(self.engine.stats, wall)
 
     def trace_report(self) -> dict:
         """Warmup health after measuring (async only): steps that found no
@@ -261,15 +265,12 @@ def serve_workload(arch: str, mode: str, *, repeats: int = 1,
     return out
 
 
-def _pass_metrics(s, wall: float, scheduler) -> dict:
+def _pass_metrics(s, wall: float) -> dict:
     """Stats snapshot for one measured pass (``s`` = ``engine.stats``),
     with the JAX package's keys in its order. The port has no host-DRAM
-    tier and one page-range shard (``--host-pages`` and ``--shards``
-    raise), so those keys carry the values the JAX package reports with
-    ``host_pages=0`` and one shard: no host hits, spills or prefetches; the
-    shard's peak is the pool's, its preemptions all of them; and a
-    placement counts as prefix-affine when the prompt's first page was
-    cached at admission (``scheduler.placement_prefix_hits``)."""
+    tier (``--host-pages`` raises), so those keys carry the values the JAX
+    package reports with ``host_pages=0``: no host hits, spills or
+    prefetches."""
     lat = s.latency_summary()
     lat.pop("prefix_misses")
     lat.update(prefix_device_hits=float(s.prefix_cache_hits),
@@ -278,7 +279,6 @@ def _pass_metrics(s, wall: float, scheduler) -> dict:
                                    - s.prefix_cache_hits),
                spilled_pages=0, prefetch_committed=0)
     peak = round(s.peak_pages_in_use / max(s.pool_pages, 1), 4)
-    shard = bool(s.pool_pages)      # the pool was read in this pass
     return {
         "wall_s": round(wall, 4),
         "generated_tokens": s.generated_tokens,
@@ -306,12 +306,14 @@ def _pass_metrics(s, wall: float, scheduler) -> dict:
         "host_evictions": 0,
         "prefetch_aborted": 0,
         "prefetch_held_turns": 0,
-        # page-range shards (not ported: one)
-        "kv_shards": 1,
-        "shard_peak_utilization": [peak] if shard else [],
-        "shard_preemptions": [s.preemptions] if shard else [],
-        "placement_prefix_hits": scheduler.placement_prefix_hits,
-        "placement_misses": 0,
+        # per-shard page-range ownership
+        "kv_shards": s.num_shards,
+        "shard_peak_utilization": [
+            round(p / max(c, 1), 4)
+            for p, c in zip(s.peak_shard_pages_in_use, s.shard_pages)],
+        "shard_preemptions": list(s.shard_preemptions),
+        "placement_prefix_hits": s.placement_prefix_hits,
+        "placement_misses": s.placement_misses,
     }
 
 
@@ -329,9 +331,12 @@ def main(argv=None):
                          "PyTorch versions on the CPU)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--shards", type=int, default=1,
-                    help="KV-pool page-range shards (not ported: only 1)")
+                    help="KV-pool page-range shards (= the mesh's pod*data "
+                         "extent; see launch.mesh.kv_shard_count)")
     ap.add_argument("--mesh", action="store_true",
-                    help="serve on a device mesh (not ported: raises)")
+                    help="serve on a simulated (data=--shards, model=1) "
+                         "mesh: with --use-kernel the kernels read each "
+                         "shard's page range and merge (kernels.sharded)")
     ap.add_argument("--async", dest="use_async", action="store_true",
                     help="AsyncEngine: overlapped host/device pipeline "
                          "with a step runner (CUDA graph) a step shape")
@@ -369,15 +374,17 @@ def main(argv=None):
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
+    mesh = None
     if args.mesh:
-        raise NotImplementedError("device mesh: not ported yet")
+        from repro_torch.launch.mesh import make_sim_mesh
+        mesh = make_sim_mesh(data=args.shards, model=1)
     arch = args.arch + ("-reduced" if args.reduced else "")
     out = serve_workload(arch, args.mode, requests=args.requests,
                          num_lanes=args.lanes, max_len=args.max_len,
                          max_new_tokens=args.max_new_tokens,
                          use_kernel=args.use_kernel,
                          temperature=args.temperature,
-                         num_shards=args.shards,
+                         num_shards=args.shards, mesh=mesh,
                          use_async=args.use_async,
                          arrival_rate=args.arrival_rate, pack=args.pack,
                          assert_aot=args.assert_aot, repeats=args.repeats,

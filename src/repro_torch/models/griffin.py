@@ -361,12 +361,12 @@ class GriffinModel:
 
     # ------------------------------------------------------------- caching --
     def cache_shape(self, batch: int, max_len: int, coopt: CoOptConfig,
-                    cache_cfg=None):
+                    num_shards: int = 1, cache_cfg=None):
         """Leaf -> (shape, dtype, logical axes): the attention layers' paged
         KV in the GLOBAL-POOL layout (no batch dimension), the recurrent
         state (conv taps, RG-LRU h) batch-major."""
         cfg = self.cfg
-        P, ps = pool_layout(batch, max_len, coopt, cache_cfg)
+        P, ps = pool_layout(batch, max_len, coopt, num_shards, cache_cfg)
         Hkv, D, W = cfg.num_kv_heads, cfg.head_dim, cfg.lru_width
         out = {
             "conv": ((self.n_rec, batch, cfg.conv1d_width - 1, W),
@@ -383,9 +383,9 @@ class GriffinModel:
         return out
 
     def init_cache(self, batch: int, max_len: int, coopt: CoOptConfig,
-                   cache_cfg=None, device="cuda"):
+                   num_shards: int = 1, cache_cfg=None, device="cuda"):
         device = check_device(device)
         return {k: torch.zeros(sh, dtype=dt, device=device)
                 for k, (sh, dt, _) in
-                self.cache_shape(batch, max_len, coopt,
+                self.cache_shape(batch, max_len, coopt, num_shards=num_shards,
                                  cache_cfg=cache_cfg).items()}

@@ -4,7 +4,9 @@ Every model exposes the engine-facing protocol of the JAX package:
   param_shapes() / init(seed, device)          — parameter dict (stacked layers)
   prefill(params, batch, cache, coopt)         — last-token logits + filled cache
   decode_step(params, batch, cache, coopt, long_window) — one-token step
-  cache_shape(batch, max_len, coopt, ...) / init_cache(..., device)
+  cache_shape(batch, max_len, coopt, num_shards=1, cache_cfg=None) /
+  init_cache(..., device)                      — num_shards pads the paged
+      pool's pages axis so it splits evenly into page-range shards
 The ``dense``, ``moe``, ``mla`` and ``vlm`` families are ported
 (``TransformerModel``), and so are ``griffin`` (``GriffinModel``) and
 ``rwkv6`` (``RWKV6Model``), whose ``recurrent_leaves`` name the cache leaves

@@ -250,9 +250,10 @@ class RWKV6Model:
 
     # ------------------------------------------------------------- caching --
     def cache_shape(self, batch: int, max_len: int, coopt: CoOptConfig,
-                    cache_cfg=None):
+                    num_shards: int = 1, cache_cfg=None):
         """Leaf -> (shape, dtype, logical axes). Attention-free: no paged KV
-        pool, so ``max_len`` and ``cache_cfg`` size nothing here."""
+        pool, so ``max_len``, ``num_shards`` and ``cache_cfg`` size nothing
+        here."""
         cfg = self.cfg
         L, d, H, D = cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.head_dim
         return {
@@ -266,7 +267,7 @@ class RWKV6Model:
         }
 
     def init_cache(self, batch: int, max_len: int, coopt: CoOptConfig,
-                   cache_cfg=None, device="cuda"):
+                   num_shards: int = 1, cache_cfg=None, device="cuda"):
         device = check_device(device)
         return {k: torch.zeros(sh, dtype=dt, device=device)
                 for k, (sh, dt, _) in

@@ -178,11 +178,13 @@ class TransformerModel:
 
     # ------------------------------------------------------------ caching --
     def cache_shape(self, batch: int, max_len: int, coopt: CoOptConfig,
-                    cache_cfg=None):
+                    num_shards: int = 1, cache_cfg=None):
         """Leaf -> (shape, dtype, logical axes). GLOBAL-POOL layout: kv/scale
-        leaves carry no batch dimension; ``length`` stays per-lane."""
+        leaves carry no batch dimension; ``length`` stays per-lane. The
+        pages axis is padded to split evenly into ``num_shards`` page
+        ranges (``core.opt_kv.pool_layout``)."""
         cfg = self.cfg
-        P, ps = pool_layout(batch, max_len, coopt, cache_cfg)
+        P, ps = pool_layout(batch, max_len, coopt, num_shards, cache_cfg)
         L = cfg.num_layers
         if cfg.family == "mla":
             # one latent per token; two scales per token (c_kv and k_rope
@@ -205,11 +207,11 @@ class TransformerModel:
         return out
 
     def init_cache(self, batch: int, max_len: int, coopt: CoOptConfig,
-                   cache_cfg=None, device="cuda"):
+                   num_shards: int = 1, cache_cfg=None, device="cuda"):
         device = check_device(device)
         return {k: torch.zeros(sh, dtype=dt, device=device)
                 for k, (sh, dt, _) in
-                self.cache_shape(batch, max_len, coopt,
+                self.cache_shape(batch, max_len, coopt, num_shards=num_shards,
                                  cache_cfg=cache_cfg).items()}
 
     # -------------------------------------------------------------- layers --

@@ -61,12 +61,23 @@ never wait for the card. Prefill steps carry ``pad_mask`` (B, S), which
 freezes the recurrence on a lane's padding columns. These families do not
 pack (``pack_prefill`` raises).
 
+Page-range shards (``CacheConfig.num_shards``, or ``EngineConfig.num_shards``):
+the pool is padded to split evenly into that many page ranges and the
+scheduler pins each request to one (shard-affine placement, per-shard
+preemption). With a ``launch.mesh`` mesh (``Engine(mesh=...)``) the shard
+count comes from its ``(pod, data)`` extent and, with the kernels, every
+step body runs under the mesh's shard context (``ops.mesh_ctx_scope``):
+each read kernel runs once per page range and the partials are merged
+(``kernels.sharded``), in both engines and inside the async step's CUDA
+graphs. Without a mesh the shards are the host's placement only and the
+kernels read the whole pool.
+
 Not ported yet (the engine raises ``NotImplementedError``): the host-DRAM
-tier (``CacheConfig.host_pages > 0``) and a device mesh; ``CacheConfig``
-itself refuses page-range shards (``num_shards != 1``).
+tier (``CacheConfig.host_pages > 0``).
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import time
 from collections import OrderedDict
@@ -80,6 +91,7 @@ from repro_torch.cache.block_manager import (chain_hash_tokens,
                                              extend_chain_hash)
 from repro_torch.configs.base import CacheConfig, ModelConfig
 from repro_torch.core.coopt import COOPT, CoOptConfig
+from repro_torch.kernels import ops
 from repro_torch.kernels.visits import sharing_stats
 from repro_torch.models import get_model
 from repro_torch.models.transformer import check_device
@@ -107,13 +119,26 @@ class EngineConfig:
                                     # (PREEMPTION_LIMIT)
     state_cache_entries: int = 128  # recurrent-state snapshots retained
                                     # (griffin/rwkv6 prefix-cache resume)
+    num_shards: int = 1             # KV-pool page-range shards (the mesh's
+                                    # (pod, data) extent: launch.mesh.
+                                    # kv_shard_count); or set in ``cache``
     cache: CacheConfig = CacheConfig()   # pool geometry and cache policy
 
     def cache_config(self, page_size: int) -> CacheConfig:
         """The effective :class:`CacheConfig`: ``page_size`` and the pool
-        size (``num_lanes * pages(max_len)``) filled in where left 0."""
-        ps = self.cache.page_size or page_size
-        return self.cache.resolve(
+        size (``num_lanes * pages(max_len)``) filled in where left 0, and
+        ``num_shards`` folded in; set in both places, they must agree."""
+        cc = self.cache
+        if self.num_shards != 1:
+            if cc.num_shards not in (1, self.num_shards):
+                raise ValueError(
+                    f"EngineConfig.num_shards={self.num_shards} conflicts "
+                    f"with EngineConfig.cache.num_shards={cc.num_shards}; "
+                    "set the shard count in ONE place (CacheConfig "
+                    "preferred)")
+            cc = cc.replace(num_shards=self.num_shards)
+        ps = cc.page_size or page_size
+        return cc.resolve(
             page_size=ps, num_pages=self.num_lanes * -(-self.max_len // ps))
 
 
@@ -152,6 +177,15 @@ class EngineStats:
     errors: int = 0                 # requests terminated by a pipeline
                                     # fault (step exception, worker death,
                                     # stall watchdog)
+    # the sharded pool
+    num_shards: int = 1
+    shard_pages: Tuple[int, ...] = ()          # page-range size per shard
+    shard_pages_in_use: Tuple[int, ...] = ()
+    peak_shard_pages_in_use: Tuple[int, ...] = ()
+    shard_preemptions: Tuple[int, ...] = ()    # per-shard pressure evictions
+    placement_prefix_hits: int = 0  # admitted on the prefix-affine shard
+    placement_misses: int = 0       # prefix lived on an unusable shard ->
+                                    # cross-shard CoW reuse lost
 
     @property
     def total_time(self) -> float:
@@ -201,6 +235,11 @@ class EngineStats:
 
     def pool_utilization(self) -> float:
         return self.pages_in_use / self.pool_pages if self.pool_pages else 0.0
+
+    def shard_utilization(self) -> Tuple[float, ...]:
+        return tuple(u / p if p else 0.0
+                     for u, p in zip(self.shard_pages_in_use,
+                                     self.shard_pages))
 
 
 @dataclass
@@ -317,17 +356,44 @@ class Engine:
                  device="cuda", mesh=None):
         """``device``: "cuda" (default) or "cpu"; without CUDA the default
         raises. ``params``: the model's parameter dict on ``device`` (None =
-        random init from ``engine_cfg.seed``)."""
-        if mesh is not None:
-            raise NotImplementedError("device mesh: not ported yet")
+        random init from ``engine_cfg.seed``). ``mesh``: a ``launch.mesh``
+        mesh; the pool's shard count is DERIVED from its pages axes
+        (``kv_shard_count``): a default ``num_shards`` of 1 takes it, and a
+        conflicting explicit value raises. With ``coopt.use_kernel`` the
+        read kernels then run once per page range (``kernels.sharded``)."""
         self.device = check_device(device)
         self.cfg = model_cfg
         self.coopt = coopt
         ccfg = engine_cfg.cache_config(coopt.page_size)
+        if mesh is not None:
+            from repro_torch.launch.mesh import kv_shard_count
+            if mesh.device is not None and \
+                    mesh.device.type != self.device.type:
+                raise ValueError(f"the mesh is on {mesh.device}, the "
+                                 f"engine on {self.device}")
+            ns = kv_shard_count(mesh)
+            if ccfg.num_shards == 1:
+                # config built before the mesh: derive the shard count
+                ccfg = ccfg.replace(num_shards=ns)
+            elif ccfg.num_shards != ns:
+                raise ValueError(
+                    f"EngineConfig.num_shards={ccfg.num_shards} "
+                    f"disagrees with the mesh's KV shard count {ns} "
+                    f"(pages axes {mesh.shape}); build the config "
+                    "from launch.mesh.kv_shard_count(mesh) or leave it at "
+                    "the default to derive it")
         if ccfg.host_pages > 0:
             raise NotImplementedError("host-DRAM KV tier: not ported yet")
+        if engine_cfg.num_shards != ccfg.num_shards:
+            engine_cfg = dataclasses.replace(engine_cfg,
+                                             num_shards=ccfg.num_shards)
         self.ccfg = ccfg
         self.ecfg = engine_cfg
+        # the page-range shard context of the read kernels (None without a
+        # mesh, for an unsharded mesh, or off the kernel path: the
+        # unsharded code path)
+        self._kernel_ctx = (ops.make_mesh_ctx(mesh) if coopt.use_kernel
+                            else None)
         # raises for the families not ported
         self.model = get_model(model_cfg)
         # recurrent-state families: the batch-major leaves that carry a
@@ -357,8 +423,11 @@ class Engine:
             engine_cfg.seed + 1)
 
         B, M = engine_cfg.num_lanes, engine_cfg.max_len
-        self.cache = self.model.init_cache(B, M, coopt, cache_cfg=ccfg,
-                                           device=self.device)
+        # the pool's pages axis is padded to split evenly into the shards
+        # (host page ids == device page ids, core.opt_kv.pool_layout)
+        self.cache = self.model.init_cache(B, M, coopt,
+                                           num_shards=ccfg.num_shards,
+                                           cache_cfg=ccfg, device=self.device)
         # the batch-major leaves (length, recurrent state) and their batch
         # axis: a step writes them under its lane mask; the pool leaves are
         # isolated by slot disjointness
@@ -413,8 +482,9 @@ class Engine:
             batch = dict(batch, patches=self._patches)
         fn = self.model.decode_step if kind == "decode" else \
             self.model.prefill
-        logits, cache = fn(self.params, batch, cache, self.coopt,
-                           long_window=self.ecfg.long_window)
+        with ops.mesh_ctx_scope(self._kernel_ctx):
+            logits, cache = fn(self.params, batch, cache, self.coopt,
+                               long_window=self.ecfg.long_window)
         if kind != "packed":
             for name, ax in self._batch_axis.items():
                 leaf = self.cache[name]
@@ -494,6 +564,18 @@ class Engine:
         s.rejected = len(self.scheduler.rejected)
         s.deadline_shed = self.scheduler.deadline_shed
         s.preemption_limit_rejects = self.scheduler.preemption_limit_rejects
+        # per-shard health (the pool's page ranges)
+        n = mgr.num_shards
+        s.num_shards = n
+        s.shard_pages = tuple(mgr.shard_capacity(i) for i in range(n))
+        s.shard_pages_in_use = tuple(mgr.pages_in_use_in(i)
+                                     for i in range(n))
+        peak = s.peak_shard_pages_in_use or (0,) * n
+        s.peak_shard_pages_in_use = tuple(
+            max(p, u) for p, u in zip(peak, s.shard_pages_in_use))
+        s.shard_preemptions = tuple(self.scheduler.preemptions_by_shard)
+        s.placement_prefix_hits = self.scheduler.placement_prefix_hits
+        s.placement_misses = self.scheduler.placement_misses
 
     def _should_pack(self, plan: StepPlan) -> bool:
         return self.ecfg.pack_prefill and bool(plan.prefill)

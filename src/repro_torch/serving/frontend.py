@@ -31,6 +31,11 @@ built, so host and card take turns idling. This frontend overlaps them:
     lattice (a CUDA graph on the card; ``Engine.warmup``), so steady-state
     serving replays graphs: ``engine.aot_misses`` stays 0 and
     ``engine.trace_counts`` is frozen after warmup.
+  * An engine with a mesh (page-range shards, ``kernels.sharded``) runs
+    its step bodies under the mesh's shard context, so each step's graph
+    holds the per-shard kernel launches and their merge, in order on the
+    one stream (the decode kernels' arrival counters are shared across the
+    shards' launches, which that order keeps safe), with no host sync.
 
 Greedy outputs follow ``Engine.generate``'s: the device consumes its own
 sampled tokens in dispatch order, and a lane's paged-pool step math does

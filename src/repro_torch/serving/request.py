@@ -103,6 +103,10 @@ class Request:
     num_preemptions: int = 0
     pool_id: int = -1                        # BlockManager key (engine-unique,
                                              # reassigned on re-admission)
+    shard: int = -1                          # KV-pool shard the request is
+                                             # pinned to (placement hint at
+                                             # admission; all its pages stay
+                                             # in that shard's page range)
     prefix_hash: int = 0                     # running chain hash after
     prefix_hash_pages: int = 0               # ..this many pages (engine's
                                              # incremental snapshot keying,
@@ -123,6 +127,8 @@ class Request:
                                              # prefetch gates admission: the
                                              # request holds the queue head
                                              # while any is IN_FLIGHT
+    prefetch_shard: int = -1                 # shard the prefetch landed the
+                                             # prefix on (placement hint)
     prefetch_replans: int = 0                # landed pages stolen before
                                              # admission -> fetch re-planned
                                              # (bounded; then admit as miss)

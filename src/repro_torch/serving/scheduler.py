@@ -1,9 +1,14 @@
-"""Token-budget continuous-batching scheduler over ONE shared paged-KV pool —
-ONE step-composition path for every model family. A port of the JAX
-package's ``serving/scheduler.py``, kept close to verbatim so both
-schedulers compose the same steps from the same requests, with its
-concat-prefill row packing (``pack_rows``). The JAX package's page-range
-shards come with a later slice of the port (ROADMAP module item 14).
+"""Token-budget continuous-batching scheduler over ONE shared paged-KV pool,
+split into page-range shards — ONE step-composition path for every model
+family. A port of the JAX package's ``serving/scheduler.py``, kept close to
+verbatim so both schedulers compose the same steps from the same requests
+and place them on the same shards, with its concat-prefill row packing
+(``pack_rows``).
+
+The pool's page range is partitioned into ``CacheConfig.num_shards``
+contiguous ranges (the ``(pod, data)`` extent of a ``launch.mesh`` mesh);
+each request is pinned to one shard at admission, so its page table never
+leaves that range.
 
 The engine exposes ``num_lanes`` batch lanes, but — unlike the old
 JetStream-style static partition — lanes do NOT own private page pools: all
@@ -24,15 +29,20 @@ Each engine step is composed under a TOKEN BUDGET (Sarathi-style):
   * recurrent-state families (griffin/rwkv6) get PAGE-ALIGNED chunk
     boundaries so the engine can snapshot the recurrent state at committed
     page boundaries (the prefix cache's resume points for those families);
+  * admission is SHARD-AFFINE: a prompt whose chain-hash head is registered
+    on shard s is placed on s (prefix-affinity — CoW reuse is only possible
+    shard-locally); otherwise the least-loaded shard wins. If the preferred
+    shard lacks capacity the request falls back to another shard and the
+    lost reuse is counted as a ``placement_miss``.
   * prefix-cache hits shrink a new request's prefill to the uncached tail
     (full shared pages are reused copy-on-write, never recomputed);
-  * on ``OutOfBlocks`` the YOUNGEST running request is preempted — its
-    non-shared pages freed, its registered pages parked in the prefix
-    cache, and the request requeued
+  * ``OutOfBlocks`` is per-shard: the YOUNGEST running request ON THE
+    PRESSURED SHARD is preempted — its non-shared pages freed, its
+    registered pages parked in the prefix cache, and the request requeued
     at the front with ``effective_prompt = prompt + output`` so greedy
     decoding resumes token-for-token instead of the engine crashing;
   * requests that can NEVER be served (prompt + generation budget over the
-    per-request cap — ``max_len`` or the pool's page count) are
+    per-request cap — ``max_len`` or the largest shard's page range) are
     marked ``REJECTED`` and surfaced, not silently dropped.
 
 Resilience rules (every terminal decision carries a ``FinishReason`` and
@@ -59,7 +69,8 @@ from typing import Callable, Deque, Dict, List, Optional
 import numpy as np
 
 from repro_torch.cache.block_manager import (BlockManager, OutOfBlocks,
-                                             PageResidency, PrefixMatch)
+                                             PageResidency, PrefixMatch,
+                                             padded_pool_pages)
 from repro_torch.configs.base import CacheConfig
 from repro_torch.serving.request import FinishReason, Request, RequestState
 
@@ -120,6 +131,7 @@ class Scheduler:
         self.prefill_buckets = sorted(prefill_buckets)
         self.extra_tokens = extra_tokens       # modality-stub prefix (vlm)
         self.token_budget = token_budget or max(self.prefill_buckets)
+        self.num_shards = max(int(cache_cfg.num_shards), 1)
         self.page_aligned = page_aligned       # recurrent-state families:
                                                # chunk ends land on page
                                                # boundaries (state snapshots)
@@ -128,13 +140,16 @@ class Scheduler:
         self.free_lanes: List[int] = list(range(num_lanes - 1, -1, -1))
         self.pages_per_lane = \
             (max_len + self.page_size - 1) // self.page_size
-        # ONE pool for all lanes; the final device page is never allocated
-        # (its last line is the JAX write kernel's SkipSet sentinel, and
-        # both packages hand out the same pages)
+        # ONE pool for all lanes, its page range padded so it splits evenly
+        # into the shards; the final device page is never allocated (its
+        # last line is the JAX write kernel's SkipSet sentinel, and both
+        # packages hand out the same pages), so the LAST shard owns one page
+        # less
         self.cache_cfg = cache_cfg.resolve(
             page_size=self.page_size,
             num_pages=num_lanes * self.pages_per_lane)
-        total = max(self.cache_cfg.num_pages - 1, 1)
+        p_dev = padded_pool_pages(self.cache_cfg.num_pages, self.num_shards)
+        total = max(p_dev - 1, 1)
         self.manager = BlockManager(
             cfg=self.cache_cfg.replace(num_pages=total))
         # ----------------------------------------------- prefetch hooks ----
@@ -155,9 +170,10 @@ class Scheduler:
                                        # and fetched again
         self.max_prefetch_replans = 3  # per request; then admit as a miss
         self.preemptions = 0
-        # admissions whose prompt head was cached (the JAX package's
-        # prefix-affine placements; one shard, so it never misses)
-        self.placement_prefix_hits = 0
+        self.preemptions_by_shard = [0] * self.num_shards
+        self.placement_prefix_hits = 0   # admitted on the prefix-affine shard
+        self.placement_misses = 0        # prefix lived on a shard we could
+                                         # not use -> cross-shard reuse lost
         self.rejected: List[Request] = []
         self.max_preemptions = max(int(max_preemptions), 0)
         self.deadline_shed = 0           # queued requests shed TIMED_OUT
@@ -221,8 +237,10 @@ class Scheduler:
                 return aligned
         return n
 
-    def _youngest_running(self, exclude: Optional[Request] = None):
-        cands = [r for r in self.running.values() if r is not exclude]
+    def _youngest_running(self, exclude: Optional[Request] = None,
+                          shard: Optional[int] = None):
+        cands = [r for r in self.running.values() if r is not exclude
+                 and (shard is None or r.shard == shard)]
         if not cands:
             return None
         return max(cands, key=lambda r: (r.arrival_time, r.req_id))
@@ -241,6 +259,9 @@ class Scheduler:
         req.num_computed = 0
         req.num_preemptions += 1
         self.preemptions += 1
+        if 0 <= req.shard < self.num_shards:
+            self.preemptions_by_shard[req.shard] += 1
+        req.shard = -1                    # re-placed at re-admission
         if req.num_preemptions > self.max_preemptions:
             self.preemption_limit_rejects += 1
             self._reject(req, FinishReason.PREEMPTION_LIMIT)
@@ -250,13 +271,13 @@ class Scheduler:
 
     def _append_with_preemption(self, req: Request) -> Optional[int]:
         """Grow ``req`` by one decode slot, preempting the youngest running
-        request on exhaustion. Returns None if ``req`` itself was the
-        youngest and had to be preempted."""
+        request ON THE PRESSURED SHARD on exhaustion. Returns None if
+        ``req`` itself was the youngest there and had to be preempted."""
         while True:
             try:
                 return self.manager.append_token(req.pool_id)
-            except OutOfBlocks:
-                victim = self._youngest_running(exclude=req)
+            except OutOfBlocks as e:
+                victim = self._youngest_running(exclude=req, shard=e.shard)
                 if victim is None or _younger(req, victim):
                     self.preempt(req)
                     return None
@@ -287,7 +308,37 @@ class Scheduler:
             keys = self.prefetcher(r, m)
             if keys:
                 r.prefetch_keys = list(keys)
+                r.prefetch_shard = m.shard
                 self.prefetches_planned += 1
+
+    def _place(self, pool_id: int, total: int,
+               token_ids, pref_hint: Optional[int] = None) -> Optional[int]:
+        """Shard-affine admission: try the prefix-affine shard first, then
+        every other shard in least-loaded order. Returns the pages' shard or
+        None when no shard can hold the request right now (admission never
+        preempts running work). Updates placement stats. ``pref_hint``
+        (the shard a just-landed prefetch restored the prefix to)
+        overrides the chain-hash-head lookup."""
+        mgr = self.manager
+        pref = pref_hint if pref_hint is not None \
+            else mgr.preferred_shard(token_ids, total)
+        order = sorted(range(self.num_shards), key=mgr.load_key)
+        if pref is not None:
+            order.remove(pref)
+            order.insert(0, pref)
+        for shard in order:
+            try:
+                mgr.allocate(pool_id, total, token_ids=token_ids,
+                             shard=shard)
+            except OutOfBlocks:
+                continue
+            if pref is not None:
+                if shard == pref:
+                    self.placement_prefix_hits += 1
+                else:
+                    self.placement_misses += 1
+            return shard
+        return None
 
     # --------------------------------------------------------------- plan --
     def schedule_step(self) -> StepPlan:
@@ -339,7 +390,7 @@ class Scheduler:
                 final=(lo + n >= tgt), count=n))
             budget -= n
 
-        # 3) admissions (chunked for every family)
+        # 3) admissions (shard-affine placement, chunked for every family)
         while self.waiting and self.free_lanes and budget > 0:
             r = self.waiting[0]
             if r.inflight > 0:
@@ -369,7 +420,10 @@ class Scheduler:
                     break
             eff = r.effective_prompt()
             total = len(eff) + self.extra_tokens
-            cap = min(self.max_len, mgr.num_pages * self.page_size)
+            # a request is pinned to ONE shard, so the largest shard's page
+            # range bounds what is ever servable
+            cap = min(self.max_len,
+                      mgr.max_shard_capacity() * self.page_size)
             if total + (r.max_new_tokens - r.num_generated) > cap:
                 self.waiting.popleft()
                 self._reject(r)
@@ -382,16 +436,17 @@ class Scheduler:
             # are too). Real image/audio inputs must fold a modality-content
             # digest into the chain-hash seed, as the recurrent families'
             # prefix_gate does for state (see ROADMAP).
-            pref = mgr.preferred_shard(eff, total)
-            try:
-                mgr.allocate(pool_id, total, token_ids=eff)
-            except OutOfBlocks:
+            shard = self._place(
+                pool_id, total, eff,
+                pref_hint=r.prefetch_shard if r.prefetch_shard >= 0
+                else None)
+            if shard is None:
                 break              # admission never preempts running work
-            if pref is not None:
-                self.placement_prefix_hits += 1
             cached = mgr.cached_tokens(pool_id)
             self._next_pool_id += 1
             r.pool_id = pool_id
+            r.shard = shard
+            r.prefetch_shard = -1
             if r.admit_time < 0:
                 r.admit_time = time.perf_counter()   # queue-wait anchor
             self.waiting.popleft()
@@ -483,6 +538,7 @@ class PackedRow:
     tokens: int = 0                # occupied query columns
     pages: int = 0                 # page-table slots used
     finals: int = 0                # chunks sampling a first token
+    shard: int = -1                # all chunks share one KV shard
 
 
 def chunk_pages(c: PrefillChunk, page_size: int) -> int:
@@ -495,23 +551,23 @@ def pack_rows(chunks: List[PrefillChunk], width: int, pack_slots: int,
               pages_per_lane: int, page_size: int) -> List[PackedRow]:
     """First-fit-decreasing packing of prefill chunks into rows of
     ``width`` query columns. A chunk is NEVER split: it lands whole in one
-    row. Row constraints: total tokens <= width, page-table slots <=
-    ``pages_per_lane`` (the step's page-table width) and sampled chunks
+    row (and a request's pages live on one shard, so neither crosses
+    shards). Row constraints: total tokens <= width, page-table slots <=
+    ``pages_per_lane`` (the step's page-table width), sampled chunks
     (final=True) <= ``pack_slots`` (the packed step's per-row logits
-    slots). The JAX package also keeps a row on one KV shard; the port's
-    pool is one page range (``CacheConfig.num_shards`` is 1), so that
-    constraint always holds until page-range shards are ported (ROADMAP
-    module item 14)."""
+    slots), and one KV shard per row."""
     rows: List[PackedRow] = []
     for c in sorted(chunks, key=lambda c: -c.n):
         np_c = chunk_pages(c, page_size)
+        shard = c.req.shard
         for row in rows:
             if (row.tokens + c.n <= width
                     and row.pages + np_c <= pages_per_lane
-                    and row.finals + int(c.final) <= pack_slots):
+                    and row.finals + int(c.final) <= pack_slots
+                    and row.shard == shard):
                 break
         else:
-            row = PackedRow()
+            row = PackedRow(shard=shard)
             rows.append(row)
         row.chunks.append(c)
         row.tokens += c.n

@@ -1170,3 +1170,98 @@ def test_latent_chunk_kernel_on_engine_packed_batches(dev, opt_kv):
         assert cuda.LAUNCHES["latent_chunk_prefill"] == 1
         torch.testing.assert_close(got, plain, rtol=LAT_RTOL, atol=LAT_ATOL)
         assert torch.all(got[b["seg_q"] < 0] == 0)
+
+
+# ------------------------------------------------- return_state, shards ----
+# chip_smoke.py's state rule: m within 2**-16 (1 + |m|), l within 2**-12 |l|;
+# rows that read no page exactly (-1e30, 0)
+STATE_M_TOL, STATE_L_RTOL = 2 ** -16, 2 ** -12
+
+
+def _assert_state(got, plain, rtol, atol):
+    torch.testing.assert_close(got[0].float(), plain[0].float(), rtol=rtol,
+                               atol=atol)
+    _, m, l = got
+    _, mp, lp = plain
+    empty = mp == -1e30
+    assert torch.equal(m[empty], mp[empty]) and torch.equal(l[empty],
+                                                            lp[empty])
+    assert bool(((m - mp).abs() <= STATE_M_TOL * (1 + mp.abs()))[~empty]
+                .all())
+    assert bool(((l - lp).abs() <= STATE_L_RTOL * lp.abs())[~empty].all())
+
+
+@pytest.mark.parametrize("D,Hq,Hkv", [(128, 32, 8), (256, 16, 1)])
+@pytest.mark.parametrize("n", [2, 4])
+def test_gqa_kernels_return_state_on_shards(dev, D, Hq, Hkv, n):
+    """K2, K4 and K3 with ``return_state`` on each shard's page range and
+    local table against their plain versions; K4's (o, m, l) equal K2's
+    bit for bit; lane 0's pages lie on the first shard only."""
+    from repro_torch.core.opt_kv import global_to_local_pages
+    B, ps, NP, P = 4, 16, 6, 28
+    kv, sc = _pool(dev, P, ps, Hkv, D, True)
+    table = torch.arange(B * NP, device=dev, dtype=torch.int32).reshape(
+        B, NP)
+    table[1:, :2] = 24 + torch.arange(2, device=dev, dtype=torch.int32)
+    cl = torch.tensor([96, 90, 70, 81], dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn((B, Hq, D), generator=g, device=dev).bfloat16()
+    qc = torch.randn((B, 8, Hq, D), generator=g, device=dev).bfloat16()
+    pos = (cl[:, None] - 8 + torch.arange(8, device=dev)).to(torch.int32)
+    phys, log = decode_page_select(cl, table, ps)
+    kw = dict(opt_kv=True, opt_gqa=True, return_state=True)
+    per = P // n
+    for first in range(0, P, per):
+        pool = [x[first:first + per] for x in (kv[0], kv[1], sc[0], sc[1])]
+        lp = global_to_local_pages(phys, first, per)
+        lt = global_to_local_pages(table, first, per)
+        vp, vm, vl = visits.plan_visits(lp, log)
+        k2 = pd.paged_pool_decode(q, *pool, cl, lp, log, **kw)
+        k4 = pd.paged_pool_decode_visits(q, *pool, cl, vp, vm, vl, **kw)
+        k3 = fc.flash_chunk_prefill(qc, pos, *pool, lt, **kw)
+        _assert_state(k2, pd.paged_pool_decode_ref(q, *pool, cl, lp, log,
+                                                   **kw), RTOL, ATOL)
+        _assert_state(k3, fc.flash_chunk_prefill_ref(qc, pos, *pool, lt,
+                                                     **kw), RTOL, ATOL)
+        assert all(torch.equal(a, b) for a, b in zip(k4, k2))
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_latent_kernels_return_state_on_shards(dev, n):
+    """K5, K7 and K6 with ``return_state`` on each shard against their plain
+    versions (the f32 tolerance); K7's (o, m, l) equal K5's bit for bit."""
+    from repro_torch.cache.quant import quantize_latent
+    from repro_torch.core.opt_kv import global_to_local_pages
+    from repro_torch.kernels import latent_chunk_prefill as lc
+    from repro_torch.kernels import paged_latent_decode as ld
+    B, H, R, dr, ps, NP, P = 4, 16, 512, 64, 16, 6, 28
+    g = torch.Generator(device=dev).manual_seed(4)
+    lat, sc = quantize_latent(torch.randn((P, ps, R + dr), generator=g,
+                                          device=dev), R)
+    table = torch.arange(B * NP, device=dev, dtype=torch.int32).reshape(
+        B, NP)
+    cl = torch.tensor([96, 90, 70, 81], dtype=torch.int32, device=dev)
+    ql = torch.randn((B, H, R), generator=g, device=dev)
+    qr = torch.randn((B, H, dr), generator=g, device=dev)
+    qlc = torch.randn((B, 8, H, R), generator=g, device=dev)
+    qrc = torch.randn((B, 8, H, dr), generator=g, device=dev)
+    pos = (cl[:, None] - 8 + torch.arange(8, device=dev)).to(torch.int32)
+    phys, log = decode_page_select(cl, table, ps)
+    kw = dict(sm_scale=0.1, opt_kv=True, return_state=True)
+    per = P // n
+    for first in range(0, P, per):
+        pool = (lat[first:first + per], sc[first:first + per])
+        lp = global_to_local_pages(phys, first, per)
+        lt = global_to_local_pages(table, first, per)
+        vp, vm, vl = visits.plan_visits(lp, log)
+        k5 = ld.paged_latent_decode(ql, qr, *pool, cl, lp, log, **kw)
+        k7 = ld.paged_latent_decode_visits(ql, qr, *pool, cl, vp, vm, vl,
+                                           **kw)
+        k6 = lc.latent_chunk_prefill(qlc, qrc, pos, *pool, lt, **kw)
+        _assert_state(k5, ld.paged_latent_decode_ref(ql, qr, *pool, cl, lp,
+                                                     log, **kw),
+                      2 ** -12, 2 ** -16)
+        _assert_state(k6, lc.latent_chunk_prefill_ref(qlc, qrc, pos, *pool,
+                                                      lt, **kw),
+                      2 ** -12, 2 ** -16)
+        assert all(torch.equal(a, b) for a, b in zip(k7, k5))

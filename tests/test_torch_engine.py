@@ -128,8 +128,10 @@ def test_generate_matches_jax_engine(weights, jax_run, use_kernel):
 
 
 def test_unported_options_raise(weights):
-    """The options the port does not serve yet raise; ``pack_prefill``,
-    ported since, builds an engine that packs."""
+    """The option the port does not serve yet (the host-DRAM tier) raises;
+    ``pack_prefill``, ported since, builds an engine that packs, and so do
+    page-range shards and a mesh (tests/test_torch_sharded_*.py); a mesh
+    whose shard count disagrees with the config's is refused."""
     _, params = weights
     cfg = get_config(ARCH)
     eng = Engine(cfg, MODES["coopt"], EngineConfig(pack_prefill=True),
@@ -141,13 +143,11 @@ def test_unported_options_raise(weights):
         Engine(cfg, MODES["coopt"],
                EngineConfig(cache=CacheConfig(host_pages=4)), params=params,
                device="cpu")
-    with pytest.raises(NotImplementedError, match="shards"):
+    from repro_torch.launch.mesh import make_sim_mesh
+    with pytest.raises(ValueError, match="disagrees"):
         Engine(cfg, MODES["coopt"],
                EngineConfig(cache=CacheConfig(num_shards=2)), params=params,
-               device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        Engine(cfg, MODES["coopt"], params=params, device="cpu",
-               mesh=object())
+               device="cpu", mesh=make_sim_mesh(data=4))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             Engine(cfg, MODES["coopt"], params=params)

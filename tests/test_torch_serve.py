@@ -1,8 +1,9 @@
 """The port's serving launcher (``repro_torch.launch.serve``) against the JAX
 package's on qwen3-4b-reduced: Poisson offsets, the report of
 ``serve_workload`` sync, async and async + packing (key sets, counts and
-rates), the async pass's greedy tokens, ``--assert-aot``, the options the
-port refuses, and ``main``'s JSON on the CPU.
+rates), the async pass's greedy tokens, ``--assert-aot``, page-range
+shards with and without a mesh, the option the port refuses, and
+``main``'s JSON on the CPU.
 
 The port runs on the JAX engine's weights (``params_from_numpy`` of
 ``init(PRNGKey(seed))``, which the JAX ``ServeRunner`` draws), with its
@@ -183,12 +184,46 @@ def test_assert_aot_passes_after_warmup(params):
 
 
 @pytest.mark.parametrize("flags,err", [
-    (["--shards", "2"], "shards"), (["--mesh"], "mesh"),
     (["--host-pages", "8"], "host-DRAM")])
 def test_unported_options_raise(flags, err):
     with pytest.raises(NotImplementedError, match=err):
         serve.main(["--arch", "qwen3-4b", "--reduced", "--device", "cpu",
                     "--requests", "1"] + flags)
+
+
+# page-range shards: 4 shards of a 16-page pool (4, 4, 4 and 3 usable)
+SHARD_KW = dict(KW, pool_pages=16, num_shards=4)
+
+
+@pytest.mark.parametrize("mesh", [False, True], ids=["shards", "mesh"])
+def test_serve_workload_sharded_matches_jax(params, mesh):
+    """``--shards 4`` (host placement) and ``--mesh`` (the 4-shard mesh:
+    the kernels' plain versions read each shard's page range and merge)
+    report the JAX package's keys, and its counts, with ``num_shards=4``:
+    the per-shard peaks, preemptions and placements included."""
+    from repro_torch.launch.mesh import make_sim_mesh
+    want = jserve.serve_workload(ARCH, "coopt", **SHARD_KW)
+    got = serve.serve_workload(
+        ARCH, "coopt", use_kernel=True, device="cpu", params=params,
+        mesh=make_sim_mesh(data=4, model=1) if mesh else None, **SHARD_KW)
+    assert list(got) == list(want)
+    for k in EQUAL:
+        if k in want:
+            assert got[k] == want[k], k
+    assert got["kv_shards"] == 4 and len(got["shard_peak_utilization"]) == 4
+    assert got["placement_prefix_hits"] > 0
+
+
+def test_main_serves_shards_and_mesh_on_cpu(capsys):
+    """``main`` with ``--shards 4 --mesh`` serves on the CPU and reports the
+    four shards."""
+    serve.main(["--arch", "qwen3-4b", "--reduced", "--device", "cpu",
+                "--requests", "3", "--max-new-tokens", "4", "--lanes", "2",
+                "--max-len", "128", "--use-kernel", "--shards", "4",
+                "--mesh"])
+    out = json.loads(capsys.readouterr().out)
+    assert out["generated_tokens"] == 12 and out["kv_shards"] == 4
+    assert len(out["shard_preemptions"]) == 4
 
 
 def test_main_prints_json_on_cpu(capsys):
