@@ -4,7 +4,8 @@
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --only kernels   # or write|decode|latent|engine|
                                            # prefill|async|serve|mla|packed|
-                                           # recurrent|parity
+                                           # recurrent|sharded|whisper|host|
+                                           # parity
     python3 chip_smoke.py --only decode --src OTHER/src
                                      # K2/K4 of another tree's package
                                      # (--only write: K1; --only latent:
@@ -143,9 +144,39 @@ Phases:
      and K4 at D 256 held to their plain versions on engine-built steps
      past the window and sink page and launched there in both engines;
      rwkv6 launches no kernel; ``pack_prefill`` raises.
+  5d. whisper-small (``--only whisper``). K1-K4 at its decoder widths (D
+     64, Hq = Hkv = 12: G 1, pages of 64, 4 lanes of ~1024 cached tokens
+     with a 128-token shared prefix): K1 at the mixed step (bytes and
+     scales equal), K3 on a 512-token chunk beside 3 decode lanes, K2 and
+     K4 on a 4-lane decode (K4 = K2 bit for bit), each beside a one-key
+     control, with its time, plain and SDPA times, bound, registers and
+     local bytes. Then whisper-small at full width and depth (12 encoder
+     and 12 decoder layers, 1500 frames), coopt with the kernels, 4 lanes,
+     max_len 512: 8 requests (4 sharing a 128-token prefix), 32 new tokens,
+     ``Engine.generate`` then ``AsyncEngine(warmup=True)``: 1 + 2 x
+     buckets runners (a prefill runner with the encoder and one without),
+     no miss, the encoder exactly on the steps that carry a first chunk,
+     a prefix hit, K1, K3 and K4 launched in both engines and held to their
+     plain versions on engine-built steps, the async tokens equal to the
+     sync run's or parted at a near-tie, one encoder-on and one
+     encoder-off prefill step replayed against its eager body.
+  5e. The host-DRAM tier (``--only host``): qwen3-4b at full width and
+     depth, coopt with the kernels, in the reference's memory-pressure
+     cell at pages of 64 (``HOST``: 8 distinct 3-page prefixes replayed
+     twice on a 13-page pool, 2 lanes, 64 host pages, prefetch depth 2),
+     ``Engine.generate`` with the tier on and off: host hits, spills and
+     committed prefetches, a hit rate above the tier-off run's, both
+     drained clean, every uploaded page equal byte for byte to the bytes
+     its spill read, the tokens equal or parted at a near-tie; the copies'
+     microseconds a page and GB/s on pinned memory; ``AsyncEngine`` with
+     the tier on and off under the profiler (no runner missed, the card's
+     idle share); ``host_quant`` on a bf16 pool at 4 layers (host bytes
+     about half, roundtrip error under 0.2); the reference's tier chaos
+     episode at 4 layers under ``AsyncEngine`` (dropped spills, a failed
+     prefetch: every stream finished, drained clean).
   6. qwen3-4b-reduced, deepseek-v2-lite-16b-reduced, mixtral-8x22b-reduced,
-     internvl2-2b-reduced, recurrentgemma-9b-reduced and rwkv6-7b-reduced
-     (``PARITY``) with the same
+     internvl2-2b-reduced, recurrentgemma-9b-reduced, rwkv6-7b-reduced and
+     whisper-small-reduced (``PARITY``) with the same
      weights on the card (kernels) and on the CPU (plain versions): the
      first step's logits, and each request's logits until its stream
      parts, within ``LOGIT_ATOL``; first greedy tokens equal, a later one
@@ -159,8 +190,9 @@ launched fails the run. Launches through a CUDA graph count once a replay
 (the counts its capture made, ``kernels/cuda.py:capture_launches``); the
 ``kernels`` line gives them as ``async_launches``, the packed phase's
 packed runs' as ``packed_launches``, the serve phase's runs' as
-``serve_launches`` and the recurrent phase's as ``recurrent_launches``;
-K1-K4 add their D 256 records to ``shapes``. K1's are also split by the
+``serve_launches``, the recurrent phase's as ``recurrent_launches``, the
+whisper phase's as ``whisper_launches`` and the host phase's as
+``host_launches``; K1-K4 add their D 256 and D 64 records to ``shapes``. K1's are also split by the
 shape that runs them
 (the 4-lane engine's mixed and decode steps, the full-prompt path). The
 line before the last is the JSON ``kernels`` record; the last line is
@@ -2923,16 +2955,16 @@ RECURRENT_RG = ("recurrentgemma-9b", 5, 3000, 512, 16, 3136)
 RECURRENT_RW = ("rwkv6-7b", 6, 0, 512, 16, 3136)
 
 
-def _d256_record(rec_k, name, info):
-    """A kernel's D 256 record: its numbers, the registers and local bytes
-    its instantiation reports."""
+def _d256_record(rec_k, name, info, key="d256", label="D 256"):
+    """A kernel's record at another head_dim (D 256 by default): its
+    numbers, the registers and local bytes its instantiation reports."""
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "flops",
             "max_abs_err", "shape", "library")
     r = {k: rec_k[k] for k in keys if k in rec_k}
-    r.update(key="d256", registers=info["registers"],
+    r.update(key=key, registers=info["registers"],
              local_bytes=info["local_bytes"],
              bound_share=r["bound_ms"] / r["ms"])
-    log(f"  {name} at D 256: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+    log(f"  {name} at {label}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
         f"library {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by "
         f"{r['bound_by']}, {r['bound_share']:.2%} of it); "
         f"{info['registers']} registers, {info['local_bytes']} local bytes "
@@ -4241,9 +4273,729 @@ def sharded_phase(torch, rec, time_ms):
     return list(recs.values()), total
 
 
+# ------------------------------------------------- whisper (enc-dec) ----
+WHISPER = ("whisper-small", 128, 32, 512)   # arch, shared, new, max_len
+
+
+def whisper_kernel_case(torch, rec, time_ms):
+    """K1-K4 at whisper-small's decoder widths (D 64, Hq = Hkv = 12: G 1,
+    pages of 64, 4 lanes of ~1024 cached tokens, a 128-token shared
+    prefix): K1 at the mixed step (one 512-token lane, three decode
+    tokens), pool bytes and scales equal; K3 on a 512-token chunk at
+    [512, 1024) beside 3 decode lanes, held to its plain version beside a
+    control (the newest key masked off); K2 and K4 on a decode of the 4
+    lanes (K4 = K2 bit for bit), each beside a one-key control. Each with
+    its time (cold L2), the plain version's, SDPA's on pre-gathered
+    dequantized K/V, the bound, and the registers and local bytes of its
+    instantiation. Returns {kernel name: [its D 64 records]}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_chunk_prefill as fc
+    from repro_torch.kernels import kv_cache_write as kw
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_gqa_decode as pd
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    B, Hq, Hkv, D, ps, NP = 4, 12, 12, 64, 64, 16
+    rkw = dict(key="d64", label="D 64")
+    out = {}
+    # ---- K1: the mixed step's writes
+    k1 = write_case(torch, time_ms, gen, "d64", B, 512, (512, 1, 1, 1), 512,
+                    NP, True, Hkv=Hkv, D=D, ps=ps)
+    _, vecs, _ = kw.write_plan(B * 512, Hkv, D)
+    out["kv_cache_write"] = [_d256_record(
+        k1, "K1 kv_cache_write", kw.kernel_info(D, True, vecs, dev), **rkw)]
+    # ---- K2 / K4: a decode of the 4 lanes
+    kv, sc, table = paged_pool(torch, gen, B, NP, 2, Hkv, D, ps)
+    cache_len = torch.tensor([1024, 1000, 980, 1010], dtype=torch.int32,
+                             device=dev)
+    q = torch.randn((B, Hq, D), generator=gen, device=dev).to(torch.bfloat16)
+    fits = pd.plan_fits(B, Hq, Hkv, D, ps, True, True)
+    check(fits, "K4's plan at D 64, G 1, 12 kv heads and 4 lanes does not "
+          "fit a block")
+    for r in decode_step(torch, rec, time_ms, "decode_d64", q, kv, sc, table,
+                         cache_len):
+        info = pd.kernel_info(D, True, r["name"].endswith("visits"), dev)
+        out[r["name"]] = [_d256_record(r, f"{r['name']} (4 lanes)", info,
+                                       **rkw)]
+    # ---- K3: a 512-token chunk at [512, 1024) beside 3 decode lanes
+    S = 512
+    qc = torch.randn((B, S, Hq, D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    pos = torch.empty((B, S), dtype=torch.int32, device=dev)
+    pos[0] = torch.arange(512, 1024, device=dev, dtype=torch.int32)
+    for b in range(1, B):
+        pos[b] = cache_len[b] - 1
+    kwc = dict(opt_kv=True, opt_gqa=True)
+    k3 = ops.paged_chunk_prefill(qc, pos, kv, sc, table, **kwc)
+    ref = (qc, pos, kv[0], kv[1], sc[0], sc[1], table)
+    p3 = fc.flash_chunk_prefill_ref(*ref, **kwc)
+    c3 = fc.flash_chunk_prefill_ref(qc, pos - 1, *ref[2:], **kwc)
+    torch.cuda.synchronize()
+    r3, err3 = tol_ratio(k3, p3)
+    rc3, errc3 = tol_ratio(k3, c3)
+    log(f"K3 flash_chunk_prefill at D 64 (G 1, 12 kv heads): max |kernel - "
+        f"plain| {err3:.3e} = {r3:.3f} of the tolerance; control, newest "
+        f"key masked off: {errc3:.3e} = {rc3:.2f}")
+    check(r3 <= 1, "K3 at D 64 differs from its plain version")
+    check(rc3 > 1, "the tolerance passes a one-key mask error in K3 at D 64")
+    rec.setdefault("tolerance", {}).update(k3_d64=r3, k3_d64_control=rc3)
+    qpos = pos.long()
+    last_page = qpos.amax(dim=1) // ps
+    used = torch.cat([table[b, :int(last_page[b]) + 1] for b in range(B)])
+    pages = torch.unique(used).numel()
+    keys = int((qpos + 1).sum().item())
+    chunk_bytes = pages * 2 * ps * Hkv * (D + 4) + 2 * B * S * Hq * D * 2 + \
+        B * S * 4 + B * NP * 4
+    bnd = bound(chunk_bytes, keys * Hq * D * 4, BF16_FLOPS)
+    pt = table.long()
+    kd = (kv[0][pt].float() * sc[0][pt][..., None]).to(torch.bfloat16)
+    vd = (kv[1][pt].float() * sc[1][pt][..., None]).to(torch.bfloat16)
+    kd = kd.reshape(B, NP * ps, Hkv, D).transpose(1, 2).contiguous()
+    vd = vd.reshape(B, NP * ps, Hkv, D).transpose(1, 2).contiguous()
+    cmask = (torch.arange(NP * ps, device=dev)[None, None] <=
+             pos[:, :, None])[:, None]
+    qc4 = qc.transpose(1, 2).contiguous()
+
+    def sdpa_chunk():
+        return F.scaled_dot_product_attention(qc4, kd, vd, attn_mask=cmask)
+    lib_err = (sdpa_chunk().transpose(1, 2).float() - p3.float()).abs() \
+        .max().item()
+    k3r = dict(ms=time_ms(lambda: ops.paged_chunk_prefill(
+                   qc, pos, kv, sc, table, **kwc)),
+               plain_ms=time_ms(lambda: fc.flash_chunk_prefill_ref(
+                   *ref, **kwc), iters=3, warmup=1),
+               library_ms=time_ms(sdpa_chunk), max_abs_err=err3,
+               library="F.scaled_dot_product_attention on pre-gathered "
+                       "dequantized bf16 K/V with a causal position mask "
+                       f"(max |lib - plain| {lib_err:.3e})",
+               shape=f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} ps={ps} NP={NP}",
+               **bnd)
+    out["flash_chunk_prefill"] = [_d256_record(
+        k3r, "K3 flash_chunk_prefill", fc.kernel_info(D, True, ps, dev),
+        **rkw)]
+    rec["d64"] = out
+    del kv, sc, kd, vd
+    torch.cuda.empty_cache()
+    return out
+
+
+def whisper_prompts(cfg, shared, rng):
+    """8 prompts: 4 share a ``shared``-token prefix (the first alone in the
+    first wave of 4 lanes, the other 3 admitted after it, so they hit),
+    4 of random lengths."""
+    import numpy as np
+    prefix = rng.integers(0, cfg.vocab_size, shared)
+    share = [np.concatenate([prefix, rng.integers(0, cfg.vocab_size, n)])
+             for n in (0, 40, 200, 7)]
+    other = [rng.integers(0, cfg.vocab_size, n) for n in (300, 60, 450, 90)]
+    return [share[0]] + other[:3] + share[1:] + other[3:]
+
+
+def _count_encoder(eng):
+    """Count, for the engine's steps, those whose plan holds a first chunk
+    and those whose batch carries ``cross_mask`` (each step must carry it
+    exactly when it holds a first chunk), and the model's ``encode`` calls
+    made from Python (the sync engine's; an async step replays the
+    encoder inside its runner's graph). Returns (the counts, undo)."""
+    n = dict(encodes=0, cross_mask_steps=0, first_chunk_steps=0,
+             mismatched=0)
+    model, build = eng.model, eng._build_step
+
+    def encode(params, frames):
+        check(frames is eng._frames, "the encoder ran on another buffer "
+              "than the engine's zero frames")
+        n["encodes"] += 1
+        return type(model).encode(model, params, frames)
+
+    def counted_build(plan, device_feed=False):
+        sb = build(plan, device_feed)
+        first = any(c.first for c in plan.prefill)
+        n["first_chunk_steps"] += first
+        n["cross_mask_steps"] += "cross_mask" in sb.batch
+        n["mismatched"] += first != ("cross_mask" in sb.batch)
+        return sb
+    model.encode, eng._build_step = encode, counted_build
+
+    def undo():
+        del model.encode
+        eng._build_step = build
+    return n, undo
+
+
+def _whisper_replays(torch, eng, prompts):
+    """Serve ``prompts`` one async step at a time on the calling thread;
+    the first prefill step with a first chunk (the encoder on) and the
+    first without run eagerly and by replay from the same state: logits,
+    pool bytes (the cross K/V leaves included) and lane feed. A prompt
+    longer than the token budget left beside another's first chunk gives
+    the step without one: its second chunk."""
+    import numpy as np
+    from repro_torch.serving import Request
+    for i, p in enumerate(prompts):
+        eng.add_request(Request(req_id=i, prompt=np.asarray(p, np.int32),
+                                max_new_tokens=4 + 3 * i,
+                                arrival_time=float(i)))
+    out = {}
+    while eng.scheduler.has_work:
+        plan = eng.scheduler.schedule_step()
+        if plan.empty:
+            continue
+        sb = eng._build_step(plan, device_feed=True)
+        kind = None if not plan.prefill else \
+            "encoder on" if "cross_mask" in sb.batch else "encoder off"
+        if kind is not None and kind not in out:
+            diff, nbytes, feed, toks = _replay_vs_eager(torch, eng, sb)
+            out[kind] = dict(max_logit_diff=diff, pool_bytes_differ=nbytes,
+                             lane_feed_equal=feed,
+                             rows=int(sb.batch["tokens"].shape[1]))
+        else:
+            toks = eng._dispatch_async(sb)
+        eng._note_executed(sb)
+        eng._postprocess(sb, toks.cpu().numpy(), time.perf_counter())
+    check(set(out) == {"encoder on", "encoder off"},
+          f"whisper replay against eager saw only {sorted(out)} steps")
+    for k, r in out.items():
+        check(r["max_logit_diff"] == 0 and r["pool_bytes_differ"] == 0
+              and r["lane_feed_equal"], f"whisper {k}: the replay differs "
+              f"from its eager body {r}")
+    return out
+
+
+def whisper_runs(torch, rec, spec=WHISPER):
+    """whisper-small at full width and depth (12 encoder and 12 decoder
+    layers, 1500 frames, vocab 51865), coopt with the kernels, 4 lanes:
+    ``Engine.generate`` then ``AsyncEngine(warmup=True)`` on one set of
+    weights, 8 greedy requests (``whisper_prompts``), ``new`` tokens each.
+    Checks: every request finishes with finite logits; at least one prefix
+    hit; the encoder runs exactly on the steps that carry a first chunk;
+    K1, K3 and K4 launch in both engines (through replays in the async
+    one); 1 + 2 x buckets runners and no step misses one; the async tokens
+    equal the sync run's or part at a near-tie; K1, K3 and K4 held to
+    their plain versions on engine-built steps; one encoder-on and one
+    encoder-off prefill step replayed against its eager body. Returns the
+    launches of both runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.coopt import COOPT
+    from repro_torch.models import get_model
+    from repro_torch.serving import Engine, EngineConfig
+    arch, shared, new, max_len = spec
+    cfg = get_config(arch)
+    coopt = COOPT.replace(use_kernel=True)
+    ecfg = EngineConfig(num_lanes=4, max_len=max_len, seed=0)
+    t0, held0 = time.perf_counter(), torch.cuda.memory_allocated()
+    model = get_model(cfg)
+    params = model.init(0, DEV)
+    torch.cuda.synchronize()
+    res = {"layers": (cfg.encoder_layers, cfg.num_layers),
+           "params": model.param_count(), "init_s": time.perf_counter() - t0,
+           "weights_gib": (torch.cuda.memory_allocated() - held0) / 2**30}
+    import numpy as np
+    prompts = whisper_prompts(cfg, shared, np.random.default_rng(24))
+    res["prompt_tokens"] = [len(p) for p in prompts]
+    cross = sum(math.prod(sh) * torch.empty((), dtype=dt).element_size()
+                for k, (sh, dt, _) in model.cache_shape(
+                    ecfg.num_lanes, max_len, coopt).items()
+                if k in model.cross_leaves)
+    res["cross_kv_bytes"] = cross
+    log(f"whisper {arch}: {cfg.encoder_layers} + {cfg.num_layers} layers, "
+        f"{res['params'] / 1e6:.1f} M params in {res['init_s']:.1f} s; "
+        f"prompts {res['prompt_tokens']} (4 share {shared} tokens) + {new} "
+        f"new; cross K/V {cross / 2**20:.1f} MiB for 4 lanes")
+    # ---- sync
+    eng = Engine(cfg, coopt, ecfg, params=params, device=DEV)
+    n_sync, undo = _count_encoder(eng)
+    got, restore = _capture_kernel_inputs(
+        torch, lambda a, kw: int(a[1].max()) > shared and a[0].shape[1] > 1)
+    got1, restore1 = _capture_write_inputs(
+        torch, lambda a: a[2].shape[1] > 1 and int(a[4].max()) >= 0)
+    try:
+        reqs, rows, wall, launches, _ = _sync_recorded(torch, eng, prompts,
+                                                       new)
+    finally:
+        restore()
+        restore1()
+        undo()
+    r = _engine_summary(eng.stats, wall)
+    r.update(launches=launches, prefix_hits=eng.stats.prefix_cache_hits,
+             encoder=dict(n_sync))
+    log(f"whisper sync: {_fmt(r)}, prefix hits {r['prefix_hits']}, encoder "
+        f"{n_sync}, launches {launches}")
+    check(all(len(q.output) == new for q in reqs), "whisper sync: unfinished")
+    check(all(bool(torch.isfinite(row).all()) for seq in rows.values()
+              for _, row in seq), "whisper sync: non-finite logits")
+    check(r["prefix_hits"] > 0, "whisper sync: no prefix hit")
+    check(n_sync["encodes"] == n_sync["cross_mask_steps"]
+          == n_sync["first_chunk_steps"] > 0 and not n_sync["mismatched"],
+          "whisper sync: the encoder did not run exactly on the first-chunk "
+          f"steps {n_sync}")
+    for k in ("kv_cache_write", "flash_chunk_prefill",
+              "paged_pool_decode_visits"):
+        check(launches.get(k, 0) > 0, f"whisper sync: {k} never launched")
+    held = _hold_to_plain(torch, got, "whisper sync")
+    held["kv_cache_write"] = _hold_k1(torch, got1, "whisper sync")
+    del got, got1
+    res["sync"] = r
+    # ---- async
+    aeng = Engine(cfg, coopt, ecfg, params=params, device=DEV)
+    n_async, undo = _count_encoder(aeng)
+    try:
+        fe, streams, warm_s, awall, alaunches, _ = _async_run(
+            torch, aeng, prompts, new)
+    finally:
+        undo()
+    a = _engine_summary(aeng.stats, awall)
+    outs = {i: list(h.req.output) for i, h in enumerate(streams)}
+    nb = len(aeng.scheduler.prefill_buckets)
+    replay = {}
+    for rn in aeng._runners.values():
+        tok = rn.inputs["token" if rn.kind == "decode" else "tokens"]
+        enc = " + encoder" if "cross_mask" in rn.inputs else ""
+        replay[f"{rn.kind} {tok.shape[0]} x {tok.shape[1]}{enc}"] = \
+            _replay_ms(torch, rn)
+    a.update(runners=fe.warmed_shapes, buckets=nb, warmup_s=warm_s,
+             graph_pool_gib=aeng.graph_pool_bytes / 2**30,
+             aot_misses=aeng.aot_misses, launches=alaunches,
+             prefix_hits=aeng.stats.prefix_cache_hits, encoder=dict(n_async),
+             parted_vs_sync=_partings(torch, rows, outs,
+                                      "whisper async vs sync"),
+             replay_ms=replay)
+    log(f"whisper async: {fe.warmed_shapes} runners ({nb} buckets) in "
+        f"{warm_s:.2f} s, graph pool {a['graph_pool_gib']:.3f} GiB, "
+        f"{_fmt(a)}, prefix hits {a['prefix_hits']}, aot_misses "
+        f"{aeng.aot_misses}, encoder {n_async}, launches {alaunches}; replay "
+        "ms " + ", ".join(f"{k} {v:.3f}" for k, v in sorted(replay.items())))
+    check(fe.warmed_shapes == 1 + 2 * nb, f"whisper async: "
+          f"{fe.warmed_shapes} runners, not 1 + 2 x {nb}")
+    check(aeng.aot_misses == 0, "whisper async: a step missed its runner")
+    check(all(len(o) == new for o in outs.values()),
+          "whisper async: unfinished")
+    check(a["prefix_hits"] > 0, "whisper async: no prefix hit")
+    check(n_async["mismatched"] == 0 and n_async["first_chunk_steps"] > 0,
+          "whisper async: a step carried cross_mask without a first chunk "
+          f"or the reverse {n_async}")
+    for k in ("kv_cache_write", "flash_chunk_prefill",
+              "paged_pool_decode_visits"):
+        check(alaunches.get(k, 0) > 0, f"whisper async: {k} never launched")
+    rng = np.random.default_rng(25)
+    a["replay_vs_eager"] = _whisper_replays(
+        torch, aeng, [rng.integers(0, cfg.vocab_size, n) for n in (450, 300)])
+    log(f"whisper replay vs eager: {a['replay_vs_eager']}")
+    res["async"] = a
+    res["vs_plain"] = held
+    rec["whisper"] = res
+    total = dict(launches)
+    for k, v in alaunches.items():
+        total[k] = total.get(k, 0) + v
+    del fe, streams, aeng, eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total, held
+
+
+def whisper_phase(torch, rec, time_ms):
+    """``--only whisper``: K1-K4 at D 64 (``whisper_kernel_case``), then
+    whisper-small through both engines (``whisper_runs``). Returns (the
+    D 64 records, the launches of the engine runs)."""
+    d64 = whisper_kernel_case(torch, rec, time_ms)
+    launches, held = whisper_runs(torch, rec)
+    rec["whisper"]["launches"] = launches
+    rec["whisper"]["vs_plain_max_abs_err"] = {
+        "flash_chunk_prefill": held["flash_chunk_prefill"]["max_abs_err"],
+        "paged_pool_decode_visits":
+            held["paged_pool_decode_visits"]["max_abs_err"],
+        "paged_pool_decode": held["paged_pool_decode_visits"]["k2_err"]}
+    return d64, launches
+
+
+# ------------------------------------------------ the host-DRAM tier ----
+# the reference's memory-pressure cell (tests/test_host_tier.py) at pages
+# of 64: 8 distinct 3-page prefixes with half-page tails, replayed A..H
+# A..H, on a 13-page device pool (12 usable) with 2 lanes: every reuse
+# distance (8 requests, 24 prefix pages) exceeds the pool
+HOST = dict(arch="qwen3-4b", num_pages=13, host_pages=64, prefetch_depth=2,
+            prefix=192, tail=32, new=8, lanes=2, max_len=512)
+
+
+def host_prompts(vocab, prefix, tail, k=8, rounds=2, seed=0):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    heads = [rng.integers(10, vocab, prefix) for _ in range(k)]
+    return [np.concatenate([h, rng.integers(10, vocab, tail)])
+            for _ in range(rounds) for h in heads]
+
+
+def _host_engine(cfg, coopt, params, host_pages, spec=HOST, **kw):
+    from repro_torch.configs import CacheConfig
+    from repro_torch.serving import Engine, EngineConfig
+    cc = CacheConfig(num_pages=spec["num_pages"], host_pages=host_pages,
+                     prefetch_depth=spec["prefetch_depth"], **kw)
+    return Engine(cfg, coopt, EngineConfig(num_lanes=spec["lanes"],
+                                           max_len=spec["max_len"], seed=0,
+                                           cache=cc),
+                  params=params, device=DEV)
+
+
+def _spy_tier(torch, eng):
+    """Keep, on the card, the pool bytes of every page a spill reads (by
+    chain hash, cloned at the spill, before any later step) and of every
+    staging page right after its upload (cloned after the upload's copies,
+    on the same stream). Returns (spilled {hash: [bytes]}, uploaded [(hash,
+    bytes)], [(the bytes a spill read, the host page it returned)])."""
+    mgr = eng.scheduler.manager
+    spill, begin, upload = mgr.spill_sink, mgr.begin_prefetch, \
+        eng._upload_page
+    spilled, uploaded, pages, pending = {}, [], [], {}
+
+    def page_bytes(page):
+        return {k: v.clone() for k, v in eng._read_pool_page(page).items()}
+
+    def spill_page(h, page, shard):
+        spilled.setdefault(h, []).append(page_bytes(page))
+        hp = spill(h, page, shard)
+        if hp is not None:
+            pages.append((spilled[h][-1], hp))
+        return hp
+
+    def begin_prefetch(h, shard):
+        page, payload = begin(h, shard)
+        pending[page] = h
+        return page, payload
+
+    def upload_page(hp, page):
+        upload(hp, page)
+        uploaded.append((pending.pop(page), page_bytes(page)))
+    mgr.spill_sink, mgr.begin_prefetch, eng._upload_page = \
+        spill_page, begin_prefetch, upload_page
+    return spilled, uploaded, pages
+
+
+def _copy_rates(torch, eng, pages=32):
+    """The tier's copies on an idle engine, per page: ``pages`` spills
+    (device to pinned host) then their uploads (host to device) back into
+    the same pages, each direction timed on the host clock around its
+    calls and a synchronize, and under ``_device_trace`` for the card's
+    copy time. A spill into fresh pinned memory pays its allocation; the
+    traced spills run again after the first ones' buffers were freed, on
+    the caching host allocator's blocks (``spill_warm_us_a_page``).
+    Returns µs a page and GB/s both ways, and the bytes a page."""
+    ids = list(range(min(pages, eng.scheduler.manager.num_pages - 1)))
+    pages = len(ids)
+    spill = type(eng)._spill_page.__get__(eng)      # past any spy
+    upload = type(eng)._upload_page.__get__(eng)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hps = [spill(0, p, 0) for p in ids]
+    torch.cuda.synchronize()
+    spill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for hp, p in zip(hps, ids):
+        upload(hp, p)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    nbytes = hps[0].nbytes
+    pinned = all(v.is_pinned() for hp in hps for v in hp.leaves.values())
+    warm = [spill(0, p, 0) for p in ids]      # the blocks stay cached
+    del warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = [spill(0, p, 0) for p in ids]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    del warm
+    torch.cuda.synchronize()
+    _, acts = _device_trace(torch, lambda: [spill(0, p, 0) for p in ids])
+    d2h = sum(e - s for s, e, c, n, _ in acts if c == "gpu_memcpy")
+    _, acts = _device_trace(torch, lambda: [upload(hp, p)
+                                            for hp, p in zip(hps, ids)])
+    h2d = sum(e - s for s, e, c, n, _ in acts if c == "gpu_memcpy")
+    res = dict(pages=pages, bytes_a_page=nbytes, pinned=pinned,
+               spill_us_a_page=spill_s / pages * 1e6,
+               spill_warm_us_a_page=warm_s / pages * 1e6,
+               upload_us_a_page=upload_s / pages * 1e6,
+               spill_gb_s=nbytes * pages / spill_s / 1e9,
+               upload_gb_s=nbytes * pages / upload_s / 1e9,
+               spill_copy_us_a_page=d2h / pages,
+               upload_copy_us_a_page=h2d / pages,
+               spill_copy_gb_s=nbytes * pages / d2h / 1e3 if d2h else None,
+               upload_copy_gb_s=nbytes * pages / h2d / 1e3 if h2d else None)
+    log(f"host tier copies: {nbytes / 2**20:.2f} MiB a page (pinned "
+        f"{pinned}); spill {res['spill_us_a_page']:.1f} us a page on the "
+        f"host clock ({res['spill_gb_s']:.2f} GB/s; on cached pinned blocks "
+        f"{res['spill_warm_us_a_page']:.1f} us), the card's copies "
+        f"{res['spill_copy_us_a_page']:.1f} us; upload "
+        f"{res['upload_us_a_page']:.1f} us a page ({res['upload_gb_s']:.2f} "
+        f"GB/s), the card's copies {res['upload_copy_us_a_page']:.1f} us")
+    check(pinned, "a spilled page's host payload is not pinned")
+    return res
+
+
+def _tier_stats(st):
+    return {k: getattr(st, k) for k in (
+        "prefix_cache_queries", "prefix_cache_hits", "prefix_device_hits",
+        "prefix_host_hits", "spilled_pages", "host_evictions",
+        "host_pages_resident", "prefetch_begun", "prefetch_committed",
+        "prefetch_aborted", "prefetches_planned", "prefetch_held_turns",
+        "prefetch_replans", "preemptions")} | dict(
+            hit_rate=st.prefix_hit_rate(),
+            host_hit_rate=st.prefix_host_hit_rate())
+
+
+def _drained(eng, what):
+    mgr = eng.scheduler.manager
+    audit = mgr.audit()
+    check(audit == [] and mgr.pages_in_use == 0 and mgr.staging_pages == 0
+          and eng._prefetch_flights == [], f"{what}: not drained clean "
+          f"(audit {audit[:3]}, {mgr.pages_in_use} pages in use, "
+          f"{mgr.staging_pages} staging, {len(eng._prefetch_flights)} "
+          "flights)")
+
+
+def host_runs(torch, rec, spec=HOST):
+    """qwen3-4b at full width and depth, coopt with the kernels, in the
+    memory-pressure cell (``HOST``): ``Engine.generate`` with the tier on
+    (spills and uploads spied: every uploaded page must equal, byte for
+    byte, the bytes its spill read) and off; the tier's counts, the hit
+    rate on above off, both drained clean, the tokens on against off equal
+    or parted at a near-tie. The copies' rates on the idle engine. Then
+    ``AsyncEngine(warmup=True)`` with the tier on and off, each served
+    under the profiler: no runner missed, the card's idle share. Returns
+    the launches of the runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.coopt import COOPT
+    from repro_torch.models import get_model
+    cfg = get_config(spec["arch"])
+    coopt = COOPT.replace(use_kernel=True)
+    t0 = time.perf_counter()
+    params = get_model(cfg).init(0, DEV)
+    torch.cuda.synchronize()
+    res = {"init_s": time.perf_counter() - t0, "layers": cfg.num_layers,
+           "spec": dict(spec)}
+    prompts = host_prompts(cfg.vocab_size, spec["prefix"], spec["tail"])
+    new = spec["new"]
+    log(f"host tier {spec['arch']}: {cfg.num_layers} layers, "
+        f"{len(prompts)} prompts of {len(prompts[0])} tokens (8 prefixes "
+        f"of {spec['prefix']} replayed twice) + {new} new, a "
+        f"{spec['num_pages']}-page pool, {spec['host_pages']} host pages")
+    total, marks = {}, res.setdefault("s", {})
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    def mark(what, t=[time.perf_counter()]):
+        now = time.perf_counter()
+        marks[what], t[0] = now - t[0], now
+    # ---- sync, tier on (spied) and off
+    on = _host_engine(cfg, coopt, params, spec["host_pages"], spec)
+    spilled, uploaded, _ = _spy_tier(torch, on)
+    reqs, on_rows, wall, launches, _ = _sync_recorded(torch, on, prompts,
+                                                      new)
+    add(launches)
+    s_on = _engine_summary(on.stats, wall) | _tier_stats(on.stats)
+    same = [all(torch.equal(got[k].view(torch.uint8),
+                            spilled[h][-1][k].view(torch.uint8))
+                for k in got) for h, got in uploaded]
+    s_on.update(uploads_checked=len(same), uploads_equal=sum(same),
+                launches=launches)
+    _drained(on, "host tier on, sync")
+    off = _host_engine(cfg, coopt, params, 0, spec)
+    _, off_rows, owall, olaunches, _ = _sync_recorded(torch, off, prompts,
+                                                      new)
+    add(olaunches)
+    s_off = _engine_summary(off.stats, owall) | _tier_stats(off.stats)
+    _drained(off, "host tier off, sync")
+    outs = {i: list(q.output) for i, q in enumerate(reqs)}
+    s_on["parted_vs_off"] = _partings(torch, off_rows, outs,
+                                      "host tier on vs off")
+    log(f"host tier sync on: {_fmt(s_on)}; {_tier_stats(on.stats)}; "
+        f"{sum(same)} of {len(same)} uploaded pages equal their spilled "
+        f"bytes")
+    log(f"host tier sync off: {_fmt(s_off)}; hit rate "
+        f"{s_off['hit_rate']:.4f}")
+    check(s_on["prefix_host_hits"] > 0 and s_on["spilled_pages"] > 0
+          and s_on["prefetch_committed"] > 0, f"host tier on: the tier did "
+          f"not work {_tier_stats(on.stats)}")
+    check(s_on["hit_rate"] > s_off["hit_rate"], "host tier on: the hit rate "
+          f"{s_on['hit_rate']} is not above the tier off's "
+          f"{s_off['hit_rate']}")
+    check(len(same) == s_on["prefetch_begun"] > 0 and all(same),
+          f"host tier: {len(same) - sum(same)} of {len(same)} uploaded "
+          "pages differ from their spilled bytes")
+    res["sync_on"], res["sync_off"] = s_on, s_off
+    del spilled, uploaded
+    mark("sync")
+    res["copies"] = _copy_rates(torch, on)
+    mark("copies")
+    del on, off
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- async, tier on and off, traced
+    for name, hp in (("async_on", spec["host_pages"]), ("async_off", 0)):
+        eng = _host_engine(cfg, coopt, params, hp, spec)
+        fe, streams, warm_s, awall, alaunches, acts = _async_run(
+            torch, eng, prompts, new, traced=True)
+        add(alaunches)
+        a = _engine_summary(eng.stats, awall) | _tier_stats(eng.stats)
+        a.update(runners=fe.warmed_shapes, aot_misses=eng.aot_misses,
+                 launches=alaunches,
+                 card=_card_share(acts, awall, alaunches,
+                                  f"host tier {name}"))
+        outs = {i: list(h.req.output) for i, h in enumerate(streams)}
+        a["parted_vs_sync_on"] = _partings(torch, on_rows, outs,
+                                           f"host tier {name} vs sync on")
+        log(f"host tier {name}: {fe.warmed_shapes} runners, {_fmt(a)}, "
+            f"aot_misses {eng.aot_misses}, the card idle "
+            f"{a['card']['idle_share']:.2%} of {awall:.2f} s; "
+            f"{_tier_stats(eng.stats)}")
+        check(eng.aot_misses == 0, f"host tier {name}: a step missed its "
+              "runner")
+        check(all(len(o) == new for o in outs.values()),
+              f"host tier {name}: unfinished")
+        if hp:
+            check(a["prefix_host_hits"] > 0 and a["prefetch_committed"] > 0,
+                  f"host tier {name}: the tier did not work")
+        _drained(eng, f"host tier {name}")
+        res[name] = a
+        del fe, streams, eng, acts
+        mark(name)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, total
+
+
+def host_quant_case(torch, rec, spec=HOST, layers=4):
+    """``host_quant`` in ORIGINAL mode (a bf16 pool) at ``layers`` layers of
+    qwen3-4b: the memory-pressure cell with fp8-encoded host pages. Every
+    spilled page is encoded, its host bytes about half the page's (fp8
+    codes plus one f32 scale a vector), each leaf's roundtrip error under
+    the reference's 0.2, and uploads dequantize into the staging pages
+    (the tier's hits > 0)."""
+    from repro_torch.cache import quant
+    from repro_torch.configs import get_config
+    from repro_torch.core.coopt import ORIGINAL
+    cfg = get_config(spec["arch"]).replace(num_layers=layers)
+    coopt = ORIGINAL.replace(use_kernel=True)
+    eng = _host_engine(cfg, coopt, None, spec["host_pages"], spec,
+                       host_quant=True)
+    _, _, pairs = _spy_tier(torch, eng)
+    prompts = host_prompts(cfg.vocab_size, spec["prefix"], spec["tail"])
+    eng.generate(prompts, max_new_tokens=4)
+    torch.cuda.synchronize()
+    check(pairs and all(hp.encoded for _, hp in pairs), "host_quant: a "
+          "spilled page was not encoded")
+    raw = sum(v.numel() * v.element_size() for v in pairs[0][0].values())
+    # each spilled page's values against its decoded host copy, relative
+    # to each vector's largest magnitude (the reference's bound: 0.2)
+    errs, rts = [], []
+    for page, hp in pairs[:8]:
+        for k in hp.leaves:
+            x = page[k].float()
+            y = quant.decode_host_page(hp, k, dtype=torch.float32).to(DEV)
+            errs.append(((y - x).abs() / x.abs().amax(-1, keepdim=True)
+                         .clamp_min(1e-12)).max().item())
+            rts.append(quant.quant_roundtrip_error(page[k]).item())
+    res = dict(layers=layers, spilled=len(pairs), page_bytes=raw,
+               host_bytes=pairs[0][1].nbytes,
+               ratio=pairs[0][1].nbytes / raw, max_decoded_err=max(errs),
+               max_roundtrip_err=max(rts),
+               prefix_host_hits=eng.stats.prefix_host_hits,
+               prefetch_committed=eng.stats.prefetch_committed)
+    log(f"host_quant (ORIGINAL, {layers} layers): {len(pairs)} pages "
+        f"spilled encoded, {res['host_bytes']} host bytes a page for {raw} "
+        f"in the pool ({res['ratio']:.3f}); decoded vs spilled "
+        f"{res['max_decoded_err']:.4f}, quant_roundtrip_error "
+        f"{res['max_roundtrip_err']:.4f} of a vector's largest magnitude; "
+        f"host hits {res['prefix_host_hits']}")
+    check(res["ratio"] < 0.55, f"host_quant: the host page is {res['ratio']}"
+          " of the pool page's bytes")
+    check(res["max_decoded_err"] < 0.2 and res["max_roundtrip_err"] < 0.2,
+          "host_quant: a roundtrip error reaches the reference's 0.2")
+    check(res["prefix_host_hits"] > 0, "host_quant: no host hit")
+    _drained(eng, "host_quant")
+    del eng, pairs
+    torch.cuda.empty_cache()
+    return res
+
+
+def host_chaos_case(torch, rec, layers=4, arch="qwen3-4b"):
+    """The reference's tier chaos episode (tests/test_resilience.py) at
+    ``layers`` layers of qwen3-4b, coopt with the kernels, under
+    ``AsyncEngine``: a 5-page pool, 32 host pages, 6 one-page prefixes
+    replayed twice; spills 2-4 dropped and the first prefetch failed.
+    Every stream ends FINISHED, its tokens equal the fault-free tier run's
+    (sync) or part at a near-tie, no staging page or flight is left and
+    the audit is clean."""
+    import numpy as np
+    from repro_torch.configs import CacheConfig, get_config
+    from repro_torch.core.coopt import COOPT
+    from repro_torch.serving import (AsyncEngine, Engine, EngineConfig,
+                                     FaultInjector, FaultPlan, FinishReason)
+    cfg = get_config(arch).replace(num_layers=layers)
+    coopt = COOPT.replace(use_kernel=True)
+    ecfg = EngineConfig(num_lanes=2, max_len=128,
+                        prefill_buckets=(32, 64, 128),
+                        cache=CacheConfig(num_pages=5, host_pages=32,
+                                          prefetch_depth=2))
+    params = None
+    rng = np.random.default_rng(83)
+    heads = [rng.integers(0, cfg.vocab_size, 64) for _ in range(6)]
+    prompts = [np.concatenate([h, rng.integers(0, cfg.vocab_size, 16)])
+               for _ in range(2) for h in heads]
+    ref = Engine(cfg, coopt, ecfg, device=DEV)
+    params = ref.params
+    _, rows, _, _, _ = _sync_recorded(torch, ref, prompts, 8)
+    check(ref.stats.spilled_pages > 0, "host chaos: the fault-free run did "
+          "not spill")
+    eng = Engine(cfg, coopt, ecfg, params=params, device=DEV)
+    inj = FaultInjector(FaultPlan(seed=83, spill_drop_at=2,
+                                  spill_drop_count=3, prefetch_fail_at=1,
+                                  prefetch_fail_count=1)).install(eng)
+    fe = AsyncEngine(eng, warmup=True)
+    streams = [fe.submit(p, max_new_tokens=8) for p in prompts]
+    fe.run_until_idle()
+    fe.close()
+    outs = {i: list(s.req.output) for i, s in enumerate(streams)}
+    res = dict(spills=inj.spills, spill_drops=inj.injected_spill_drops,
+               prefetches=inj.prefetches,
+               prefetch_fails=inj.injected_prefetch_fails,
+               finished=sum(s.finish_reason is FinishReason.FINISHED
+                            for s in streams),
+               equal=sum(outs[i] == [t for t, _ in rows[i]] for i in outs),
+               parted=_partings(torch, rows, outs, "host chaos vs fault-free"),
+               aot_misses=eng.aot_misses)
+    log(f"host chaos ({layers} layers, async): {res}")
+    check(res["finished"] == len(streams), "host chaos: a stream did not "
+          "finish")
+    check(res["spill_drops"] == 3 and res["prefetch_fails"] == 1,
+          f"host chaos: the faults were not all injected {res}")
+    _drained(eng, "host chaos")
+    del ref, eng, fe, params
+    torch.cuda.empty_cache()
+    return res
+
+
+def host_phase(torch, rec):
+    """``--only host``: the memory-pressure cell on qwen3-4b (``host_runs``),
+    ``host_quant`` on a bf16 pool and the chaos episode at 4 layers.
+    Returns the launches of the engine runs."""
+    res, launches = host_runs(torch, rec)
+    t0 = time.perf_counter()
+    res["host_quant"] = host_quant_case(torch, rec)
+    res["s"]["host_quant"] = time.perf_counter() - t0
+    res["chaos"] = host_chaos_case(torch, rec)
+    res["s"]["chaos"] = time.perf_counter() - t0 - res["s"]["host_quant"]
+    log("host phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                            for k, v in res["s"].items()))
+    res["launches"] = launches
+    rec["host"] = res
+    return launches
+
+
 PARITY = ("qwen3-4b-reduced", "deepseek-v2-lite-16b-reduced",
           "mixtral-8x22b-reduced", "internvl2-2b-reduced",
-          "recurrentgemma-9b-reduced", "rwkv6-7b-reduced")
+          "recurrentgemma-9b-reduced", "rwkv6-7b-reduced",
+          "whisper-small-reduced")
 
 # which path's run each kernel's launch count is read from
 LAUNCH_PATH = {"kv_cache_write": "qwen3-4b", "flash_chunk_prefill": "qwen3-4b",
@@ -4260,7 +5012,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=("kernels", "write", "decode", "latent",
                                        "engine", "mla", "prefill", "async",
                                        "serve", "packed", "recurrent",
-                                       "sharded", "parity"),
+                                       "sharded", "whisper", "host",
+                                       "parity"),
                     help="run one phase (debugging; prints no result line)")
     ap.add_argument("--src", help="import repro_torch from this directory "
                     "instead of ./src (to time another tree's kernels)")
@@ -4395,6 +5148,16 @@ def main(argv=None) -> int:
             state_recs, sharded = sharded_phase(torch, rec, make_timer(torch))
             rec["state_kernels"] = state_recs
             done("sharded", t0)
+        whisper, d64 = {}, {}
+        if only in (None, "whisper"):
+            t0 = time.perf_counter()
+            d64, whisper = whisper_phase(torch, rec, make_timer(torch))
+            done("whisper", t0)
+        host = {}
+        if only in (None, "host"):
+            t0 = time.perf_counter()
+            host = host_phase(torch, rec)
+            done("host", t0)
         if only in (None, "parity"):
             t0 = time.perf_counter()
             for arch in PARITY:
@@ -4409,13 +5172,18 @@ def main(argv=None) -> int:
                 k["packed_launches"] = packed.get(k["name"], 0)
                 k["serve_launches"] = serve.get(k["name"], 0)
                 k["recurrent_launches"] = recurrent.get(k["name"], 0)
-                # K1-K4 at D 256 (recurrentgemma-9b): a record each, with
-                # the launches of the recurrent phase's engine runs
-                if k["name"] in d256:
-                    for r in d256[k["name"]]:
-                        r.update(path="recurrentgemma-9b",
-                                 launches=k["recurrent_launches"])
-                    k["shapes"] = k.get("shapes", []) + d256[k["name"]]
+                k["whisper_launches"] = whisper.get(k["name"], 0)
+                k["host_launches"] = host.get(k["name"], 0)
+                # K1-K4 at D 256 (recurrentgemma-9b) and D 64
+                # (whisper-small): a record each, with the launches of the
+                # recurrent and whisper phases' engine runs
+                for recs, path, n in (
+                        (d256, "recurrentgemma-9b", k["recurrent_launches"]),
+                        (d64, "whisper-small", k["whisper_launches"])):
+                    for r in recs.get(k["name"], []):
+                        r.update(path=path, launches=n)
+                    k["shapes"] = k.get("shapes", []) + recs.get(k["name"],
+                                                                 [])
                 # the packed, serve and recurrent phases' engine-built
                 # inputs held too, and the D 256 cases
                 k["max_abs_err"] = max(
@@ -4423,8 +5191,11 @@ def main(argv=None) -> int:
                      rec["packed"]["vs_plain_max_abs_err"].get(k["name"], 0),
                      rec["serve"]["vs_plain_max_abs_err"].get(k["name"], 0),
                      rec["recurrent"]["vs_plain_max_abs_err"].get(
+                         k["name"], 0),
+                     rec["whisper"]["vs_plain_max_abs_err"].get(
                          k["name"], 0)]
-                    + [r["max_abs_err"] for r in d256.get(k["name"], [])])
+                    + [r["max_abs_err"] for r in d256.get(k["name"], [])
+                       + d64.get(k["name"], [])])
                 check(k["launches"] > 0, f"{k['name']} never launched on "
                       f"its path ({LAUNCH_PATH[k['name']]})")
             check(sorted(k["name"] for k in kernels) == sorted(LAUNCH_PATH),
@@ -4446,6 +5217,10 @@ def main(argv=None) -> int:
                          "paged_pool_decode_visits"):
                 check(recurrent.get(name, 0) > 0,
                       f"{name} never launched at D 256 (recurrentgemma-9b)")
+                check(whisper.get(name, 0) > 0,
+                      f"{name} never launched at D 64 (whisper-small)")
+                check(host.get(name, 0) > 0,
+                      f"{name} never launched with the host tier on")
             by_step = rec["engine"]["k1_launches_by_step"]
             runs = {"qwen3-4b prefill": by_step["prefill"],
                     "qwen3-4b decode": by_step["decode"],
@@ -4472,8 +5247,11 @@ def main(argv=None) -> int:
     # packed phase's packed runs (sync and async, every model), in the
     # serve phase's runs (the launcher's measured passes, mixtral-8x22b and
     # internvl2-2b sync and async) and in the recurrent phase's
-    # (recurrentgemma-9b sync and async); K1-K4 a record at D 256 in
-    # ``shapes`` (K2 two: 4 and 8 lanes) with registers and local bytes;
+    # (recurrentgemma-9b sync and async), the whisper phase's
+    # (whisper-small sync and async) and the host phase's (qwen3-4b with
+    # the host tier, sync and async); K1-K4 a record at D 256 in ``shapes``
+    # (K2 two: 4 and 8 lanes) and one at D 64, with registers and local
+    # bytes;
     # K5, K6 and K7 add their launch's grid (K5/K7: and splits) and their
     # registers and local bytes as the loaded kernels report them; K5 and K7
     # the bound of the pages each reads (``own_bound_ms``) beside the
@@ -4483,7 +5261,8 @@ def main(argv=None) -> int:
              "registers", "local_bytes", "own_bound_ms", "shapes",
              "launch_floor_ms", "host_us", "clean_l2", "async_launches",
              "packed_launches", "serve_launches", "recurrent_launches",
-             "ms_without_state", "state_cost")
+             "whisper_launches", "host_launches", "ms_without_state",
+             "state_cost")
     print(json.dumps({"kernels": [
         {k: x[k] for k in keys + extra if k in keys or k in x}
         for x in kernels]}))

@@ -1,12 +1,12 @@
 """Config registry: ``get_config(arch_id)`` for the architectures ported so far,
 and the assigned input shapes.
 
-The port serves the dense family (qwen3-4b, qwen2.5-14b, yi-34b,
-deepseek-67b, the paper's llama13b-gptq), the MLA family
-(deepseek-v2-lite), the MoE family (mixtral-8x22b), the vlm family
-(internvl2-2b) and the recurrent families griffin (recurrentgemma-9b) and
-rwkv6 (rwkv6-7b); whisper's arch file arrives with its family (see
-ROADMAP.md), and asking for it raises ``KeyError``.
+The port serves every architecture of the JAX package: the dense family
+(qwen3-4b, qwen2.5-14b, yi-34b, deepseek-67b, the paper's llama13b-gptq),
+the MLA family (deepseek-v2-lite), the MoE family (mixtral-8x22b), the vlm
+family (internvl2-2b), the recurrent families griffin (recurrentgemma-9b)
+and rwkv6 (rwkv6-7b), and the encoder-decoder whisper (whisper-small).
+An unknown id raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from repro_torch.configs.shapes import SHAPES, InputShape, get_shape
 _ARCH_MODULES = {
     "yi-34b": "yi_34b",
     "rwkv6-7b": "rwkv6_7b",
+    "whisper-small": "whisper_small",
     "mixtral-8x22b": "mixtral_8x22b",
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "recurrentgemma-9b": "recurrentgemma_9b",
@@ -30,7 +31,7 @@ _ARCH_MODULES = {
     "llama13b-gptq": "llama13b_gptq",
 }
 
-# the assigned architectures ported so far (the paper's model apart)
+# the assigned architectures (the paper's model apart)
 ARCH_IDS = [k for k in _ARCH_MODULES if k != "llama13b-gptq"]
 ALL_IDS = list(_ARCH_MODULES)
 
@@ -42,8 +43,8 @@ def get_config(arch_id: str) -> ModelConfig:
         mod = importlib.import_module(
             f"repro_torch.configs.{_ARCH_MODULES[arch_id]}")
     except KeyError:
-        raise KeyError(f"arch {arch_id!r} is not ported yet; "
-                       f"ported: {sorted(_ARCH_MODULES)}") from None
+        raise KeyError(f"unknown arch {arch_id!r}; "
+                       f"known: {sorted(_ARCH_MODULES)}") from None
     return mod.CONFIG
 
 

@@ -31,7 +31,11 @@ shard-affine placement; ``--mesh`` also serves on ``make_sim_mesh(data=N,
 model=1)``, whose shard context makes the kernels (``--use-kernel``) read
 each range on its own and merge (``kernels.sharded``).
 
-Not ported yet, and refused as the engine refuses it: ``--host-pages`` > 0.
+The host-DRAM KV tier: ``--host-pages N`` keeps up to N device-evicted
+prefix pages in host memory and ``--prefetch-depth`` sets how many queued
+requests a turn scans for prefixes to upload back; with ``--pool-pages``
+small the working set outgrows the device pool and the tier's keys of the
+report (host hits, spills, prefetches) move.
 """
 from __future__ import annotations
 
@@ -267,18 +271,7 @@ def serve_workload(arch: str, mode: str, *, repeats: int = 1,
 
 def _pass_metrics(s, wall: float) -> dict:
     """Stats snapshot for one measured pass (``s`` = ``engine.stats``),
-    with the JAX package's keys in its order. The port has no host-DRAM
-    tier (``--host-pages`` raises), so those keys carry the values the JAX
-    package reports with ``host_pages=0``: no host hits, spills or
-    prefetches."""
-    lat = s.latency_summary()
-    lat.pop("prefix_misses")
-    lat.update(prefix_device_hits=float(s.prefix_cache_hits),
-               prefix_host_hits=0.0,
-               prefix_misses=float(s.prefix_cache_queries
-                                   - s.prefix_cache_hits),
-               spilled_pages=0, prefetch_committed=0)
-    peak = round(s.peak_pages_in_use / max(s.pool_pages, 1), 4)
+    with the JAX package's keys in its order."""
     return {
         "wall_s": round(wall, 4),
         "generated_tokens": s.generated_tokens,
@@ -289,23 +282,26 @@ def _pass_metrics(s, wall: float) -> dict:
         "wall_throughput_tok_s": round(
             s.generated_tokens / max(wall, 1e-9), 2),
         # per-request latency percentiles, measured from SUBMISSION
-        **lat,
+        **s.latency_summary(),
         "packed_steps": s.packed_steps,
         "packed_rows_saved": s.packed_rows_saved,
         # shared-pool health (global refcounted allocator)
         "pool_pages": s.pool_pages,
-        "peak_pool_utilization": peak,
+        "peak_pool_utilization": round(
+            s.peak_pages_in_use / max(s.pool_pages, 1), 4),
         "prefix_hit_rate": round(s.prefix_hit_rate(), 4),
-        "prefix_device_hit_rate": round(s.prefix_hit_rate(), 4),
-        "prefix_host_hit_rate": 0.0,
+        "prefix_device_hit_rate": round(s.prefix_device_hit_rate(), 4),
+        "prefix_host_hit_rate": round(s.prefix_host_hit_rate(), 4),
         "preemptions": s.preemptions,
         "rejected": s.rejected,
-        # host-DRAM KV tier (not ported: off)
-        "host_pages": 0,
-        "host_pages_resident": 0,
-        "host_evictions": 0,
-        "prefetch_aborted": 0,
-        "prefetch_held_turns": 0,
+        # host-DRAM KV tier (all zeros when host_pages=0)
+        "host_pages": s.host_pages,
+        "host_pages_resident": s.host_pages_resident,
+        "spilled_pages": s.spilled_pages,
+        "host_evictions": s.host_evictions,
+        "prefetch_committed": s.prefetch_committed,
+        "prefetch_aborted": s.prefetch_aborted,
+        "prefetch_held_turns": s.prefetch_held_turns,
         # per-shard page-range ownership
         "kv_shards": s.num_shards,
         "shard_peak_utilization": [
@@ -364,7 +360,7 @@ def main(argv=None):
                          "memory pressure")
     ap.add_argument("--host-pages", type=int, default=0,
                     help="host-DRAM KV spill tier capacity in pages "
-                         "(not ported: only 0)")
+                         "(0 = off)")
     ap.add_argument("--prefetch-depth", type=int, default=2,
                     help="queued requests scanned per turn for host->HBM "
                          "prefix prefetch")

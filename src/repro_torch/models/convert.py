@@ -5,7 +5,8 @@ tensors, in the same ``(d_in, d_out)`` layout and the same nesting: a
 transformer's ``{"embed", "segments": [{stacked (L, ...) leaves}],
 "final_norm", "lm_head"}`` (one segment for a dense model, two for a MoE
 model with leading dense layers), griffin's ``{"embed", "rec": {...},
-"attn": {...}, ...}`` and rwkv6's ``{"embed", "layers": {...}, ...}``. Each
+"attn": {...}, ...}``, rwkv6's ``{"embed", "layers": {...}, ...}`` and
+whisper's ``{"embed", "pos_dec", "enc": {...}, "dec": {...}, ...}``. Each
 leaf is checked against the port's ``param_shapes``. A bf16 leaf arrives
 as an ``ml_dtypes.bfloat16`` array, which ``torch.from_numpy`` rejects; it
 goes through float32, which is exact for bf16 -> f32 -> bf16.

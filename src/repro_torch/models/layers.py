@@ -72,6 +72,16 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5):
     return (xf * scale.float()).to(x.dtype)
 
 
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5):
+    """LayerNorm with f32 statistics and an affine bias (whisper)."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
 def linear(x: torch.Tensor, w: torch.Tensor, b=None) -> torch.Tensor:
     y = x @ w
     if b is not None:
@@ -99,6 +109,12 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     bf16: x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 x^3)))."""
     c = torch.tensor(_SQRT_2_OVER_PI, dtype=torch.float32).to(x.dtype)
     return x * (0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * (x * x * x)))))
+
+
+def gelu_mlp(x, w1, b1, w2, b2):
+    """Whisper's MLP: ``gelu`` (the tanh form, ``jax.nn.gelu``'s default)
+    between two biased projections."""
+    return linear(gelu(linear(x, w1, b1)), w2, b2)
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:

@@ -10,8 +10,9 @@ Every model exposes the engine-facing protocol of the JAX package:
 The ``dense``, ``moe``, ``mla`` and ``vlm`` families are ported
 (``TransformerModel``), and so are ``griffin`` (``GriffinModel``) and
 ``rwkv6`` (``RWKV6Model``), whose ``recurrent_leaves`` name the cache leaves
-that carry per-lane recurrent state; any other family raises
-``NotImplementedError``.
+that carry per-lane recurrent state, and ``whisper`` (``WhisperModel``),
+whose ``cross_leaves`` hold the cross-attention K/V a request's first chunk
+fills; any other family raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -28,5 +29,8 @@ def get_model(cfg: ModelConfig):
     if cfg.family == "rwkv6":
         from repro_torch.models.rwkv6 import RWKV6Model
         return RWKV6Model(cfg)
+    if cfg.family == "whisper":
+        from repro_torch.models.whisper import WhisperModel
+        return WhisperModel(cfg)
     from repro_torch.models.transformer import TransformerModel
     return TransformerModel(cfg)

@@ -72,8 +72,28 @@ each read kernel runs once per page range and the partials are merged
 graphs. Without a mesh the shards are the host's placement only and the
 kernels read the whole pool.
 
-Not ported yet (the engine raises ``NotImplementedError``): the host-DRAM
-tier (``CacheConfig.host_pages > 0``).
+whisper (encoder-decoder) keeps its cross-attention K/V in batch-major
+leaves (``xk``, ``xv``, ``xscale``), computed ONCE per request: a prefill
+step that carries a request's first chunk passes ``cross_mask`` (the lanes
+to refill) and the engine's zero ``frames`` (one tensor allocated with the
+engine, as the vlm patches), and the model runs the encoder; a step
+without a first chunk skips the encoder. The async lattice holds one
+prefill runner with the encoder and one without for each bucket. whisper
+does not pack (``pack_prefill`` raises).
+
+The host-DRAM tier (``CacheConfig.host_pages > 0``) rescues prefix pages
+that the device LRU evicts (``_spill_page``, the BlockManager's
+``spill_sink``) and stages them back into reserved pool pages before a
+queued request that matches them is admitted (``_start_prefetch`` /
+``_tick_prefetch``, the scheduler's ``prefetcher`` / ``prefetch_tick``).
+Only the pool leaves (those with a ``pages`` axis) move; batch-major
+leaves never spill. The copies are enqueued on the engine's step stream:
+a spill's device-to-host copy after every step that wrote the page and
+before any later step that may reuse it, an upload's host-to-device copy
+before every step planned after its flight commits. On the card the host
+payloads live in pinned buffers (non-blocking copies), and no host code
+reads a payload before its copy completes; uploads write the staging page
+in place, so captured graphs keep reading the pool's addresses.
 """
 from __future__ import annotations
 
@@ -87,8 +107,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.cache.block_manager import (chain_hash_tokens,
+from repro_torch.cache.block_manager import (OutOfBlocks, PageResidency,
+                                             PrefixMatch, chain_hash_tokens,
                                              extend_chain_hash)
+from repro_torch.cache.quant import (HostPage, dequantize_fp8,
+                                     encode_host_page, select)
 from repro_torch.configs.base import CacheConfig, ModelConfig
 from repro_torch.core.coopt import COOPT, CoOptConfig
 from repro_torch.kernels import ops
@@ -99,6 +122,19 @@ from repro_torch.serving.request import FinishReason, Request, RequestState
 from repro_torch.serving.sampler import SamplingParams, sample
 from repro_torch.serving.scheduler import (PrefillChunk, Scheduler, StepPlan,
                                            bucket_len, chunk_pages, pack_rows)
+
+
+@dataclass
+class _Flight:
+    """One dispatched host-to-device prefetch upload, committed to the
+    prefix table once the scheduler's turn counter reaches ``lands``. The
+    upload is enqueued on the step stream, so it runs before any step
+    planned after the commit; the turn delay models the overlap window, it
+    is not a wait."""
+    hash: int
+    turn: int                      # dispatch turn
+    lands: int                     # first turn the commit may happen
+    ok: bool = True                # fault injection: False -> abort instead
 
 
 @dataclass(frozen=True)
@@ -167,8 +203,23 @@ class EngineStats:
     fresh_pages_allocated: int = 0
     prefix_cache_queries: int = 0
     prefix_cache_hits: int = 0      # pages reused, not recomputed
+                                    # (= device + host hits)
+    prefix_device_hits: int = 0     # hit pages that were device-resident
+    prefix_host_hits: int = 0       # hit pages restored from the host tier
     preemptions: int = 0
     rejected: int = 0
+    # the host-DRAM KV tier
+    host_pages: int = 0             # host tier capacity (0 = tier off)
+    host_pages_resident: int = 0    # spilled pages now held on the host
+    spilled_pages: int = 0          # device evictions rescued to the host
+    host_evictions: int = 0         # pages dropped off the host LRU
+    prefetch_begun: int = 0         # host-to-device uploads dispatched
+    prefetch_committed: int = 0     # ..that landed and re-registered
+    prefetch_aborted: int = 0       # ..that failed or lost a registration
+    prefetches_planned: int = 0     # queued requests planned a prefetch
+    prefetch_held_turns: int = 0    # admission turns gated on an upload
+    prefetch_replans: int = 0       # landed prefixes stolen before
+                                    # admission, fetched again
     # resilience
     shed: int = 0                   # fast-rejected at submit (overload
                                     # watermark; AsyncEngine only)
@@ -226,11 +277,27 @@ class EngineStats:
                 "preemption_limit_rejects":
                     float(self.preemption_limit_rejects),
                 "errors": float(self.errors),
+                "prefix_device_hits": float(self.prefix_device_hits),
+                "prefix_host_hits": float(self.prefix_host_hits),
                 "prefix_misses": float(self.prefix_cache_queries
-                                       - self.prefix_cache_hits)}
+                                       - self.prefix_cache_hits),
+                "spilled_pages": float(self.spilled_pages),
+                "prefetch_committed": float(self.prefetch_committed)}
 
     def prefix_hit_rate(self) -> float:
         return self.prefix_cache_hits / self.prefix_cache_queries \
+            if self.prefix_cache_queries else 0.0
+
+    def prefix_device_hit_rate(self) -> float:
+        return self.prefix_device_hits / self.prefix_cache_queries \
+            if self.prefix_cache_queries else 0.0
+
+    def prefix_host_hit_rate(self) -> float:
+        return self.prefix_host_hits / self.prefix_cache_queries \
+            if self.prefix_cache_queries else 0.0
+
+    def prefix_miss_rate(self) -> float:
+        return 1.0 - self.prefix_hit_rate() \
             if self.prefix_cache_queries else 0.0
 
     def pool_utilization(self) -> float:
@@ -382,8 +449,6 @@ class Engine:
                     f"(pages axes {mesh.shape}); build the config "
                     "from launch.mesh.kv_shard_count(mesh) or leave it at "
                     "the default to derive it")
-        if ccfg.host_pages > 0:
-            raise NotImplementedError("host-DRAM KV tier: not ported yet")
         if engine_cfg.num_shards != ccfg.num_shards:
             engine_cfg = dataclasses.replace(engine_cfg,
                                              num_shards=ccfg.num_shards)
@@ -401,7 +466,8 @@ class Engine:
         self._rec_leaves = tuple(getattr(self.model, "recurrent_leaves", ()))
         # concat-prefill packing works where "length" is the only
         # batch-major leaf (rows decouple from lanes): dense/moe/mla. vlm's
-        # patch stubs and the recurrent families' state are per lane.
+        # patch stubs, whisper's cross K/V and the recurrent families'
+        # state are per lane.
         if engine_cfg.pack_prefill and (
                 model_cfg.family not in ("dense", "moe", "mla")
                 or self._rec_leaves):
@@ -416,6 +482,12 @@ class Engine:
             (engine_cfg.num_lanes, self._patch_offset, model_cfg.d_model),
             dtype=torch.bfloat16, device=self.device)
             if self._patch_offset else None)
+        # whisper: the zero frame embeddings a first-chunk prefill step
+        # encodes, at a fixed address like the vlm patches
+        self._frames = (torch.zeros(
+            (engine_cfg.num_lanes, model_cfg.num_frames, model_cfg.d_model),
+            dtype=torch.bfloat16, device=self.device)
+            if model_cfg.family == "whisper" else None)
         if params is None:
             params = self.model.init(engine_cfg.seed, self.device)
         self.params = params
@@ -457,6 +529,20 @@ class Engine:
         self.stats = EngineStats()
         self.stats.pool_pages = self.scheduler.manager.num_pages
 
+        # the host-DRAM tier: pool leaves are addressed page-wise along
+        # their "pages" axis; batch-major leaves (recurrent state, whisper's
+        # cross K/V) have no page identity and never spill
+        self._pool_axis = {k: axes.index("pages")
+                           for k, (_, _, axes) in shapes.items()
+                           if "pages" in axes}
+        self._prefetch_flights: List[_Flight] = []
+        self._sched_turn = 0
+        if ccfg.host_pages > 0 and self._pool_axis:
+            self.scheduler.manager.spill_sink = self._spill_page
+            self.scheduler.prefetcher = self._start_prefetch
+            self.scheduler.prefetch_tick = self._tick_prefetch
+        self.stats.host_pages = ccfg.host_pages
+
         # async pipeline state: the device-resident per-lane token feed
         # (its last entry takes the dropped samples), the step runners by
         # lattice key and the graphs' shared memory pool
@@ -476,10 +562,15 @@ class Engine:
         JAX package's ``_mask_lanes``; pool writes are slot-disjoint). A
         packed step's rows are not lanes: ``length`` keeps its value (the
         JAX package's ``_prefill_packed_impl``), and its logits are (R, G,
-        V). A vlm prefill step reads the engine's zero patch embeddings."""
+        V). A vlm prefill step reads the engine's zero patch embeddings, a
+        whisper step with ``cross_mask`` its zero frames. A leaf the step
+        left as it was (whisper's cross K/V without a first chunk) is not
+        rewritten."""
         cache = dict(self.cache)
         if self._patches is not None and kind == "prefill":
             batch = dict(batch, patches=self._patches)
+        if self._frames is not None and "cross_mask" in batch:
+            batch = dict(batch, frames=self._frames)
         fn = self.model.decode_step if kind == "decode" else \
             self.model.prefill
         with ops.mesh_ctx_scope(self._kernel_ctx):
@@ -488,9 +579,11 @@ class Engine:
         if kind != "packed":
             for name, ax in self._batch_axis.items():
                 leaf = self.cache[name]
+                if cache[name] is leaf:
+                    continue
                 m = lane_mask.reshape((1,) * ax + (-1,)
                                       + (1,) * (leaf.dim() - ax - 1))
-                leaf.copy_(torch.where(m, cache[name], leaf))
+                leaf.copy_(select(m, cache[name], leaf))
         return logits
 
     def _run_model(self, sb: StepBatch):
@@ -576,6 +669,138 @@ class Engine:
         s.shard_preemptions = tuple(self.scheduler.preemptions_by_shard)
         s.placement_prefix_hits = self.scheduler.placement_prefix_hits
         s.placement_misses = self.scheduler.placement_misses
+        # the host-DRAM tier
+        s.prefix_device_hits = mgr.prefix_device_hits
+        s.prefix_host_hits = mgr.prefix_host_hits
+        s.host_pages = mgr.host_pages
+        s.host_pages_resident = mgr.host_resident_pages
+        s.spilled_pages = mgr.spilled_pages
+        s.host_evictions = mgr.host_evictions
+        s.prefetch_begun = mgr.prefetch_begun
+        s.prefetch_committed = mgr.prefetch_committed
+        s.prefetch_aborted = mgr.prefetch_aborted
+        s.prefetches_planned = self.scheduler.prefetches_planned
+        s.prefetch_held_turns = self.scheduler.prefetch_held_turns
+        s.prefetch_replans = self.scheduler.prefetch_replans
+
+    # ----------------------------------------------- the host-DRAM tier --
+    def _read_pool_page(self, page: int) -> Dict[str, torch.Tensor]:
+        """Page ``page`` of every pool leaf, as views of the pool."""
+        return {k: self.cache[k].select(ax, page)
+                for k, ax in self._pool_axis.items()}
+
+    def _to_host(self, t: torch.Tensor) -> torch.Tensor:
+        """A host copy of ``t``. On the card: into pinned memory, enqueued
+        on the current (step) stream without blocking; the caching host
+        allocator keeps the buffer until the copy has run. On the CPU: a
+        plain copy."""
+        if self.device.type != "cuda":
+            return t.clone()
+        out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        out.copy_(t, non_blocking=True)
+        return out
+
+    def _write_pool_page(self, name: str, page: int,
+                         data: torch.Tensor) -> None:
+        """Write ``data`` into page ``page`` of pool leaf ``name``, IN PLACE
+        (captured graphs read the pool at fixed addresses)."""
+        dst = self.cache[name].select(self._pool_axis[name], page)
+        dst.copy_(data, non_blocking=True)
+
+    def _write_pool_page_q(self, name: str, page: int, q: torch.Tensor,
+                           scale: torch.Tensor) -> None:
+        """An fp8-encoded host leaf (``CacheConfig.host_quant``): upload the
+        codes and scales, dequantize on the device into the staging page."""
+        dst = self.cache[name].select(self._pool_axis[name], page)
+        q = q.to(self.device, non_blocking=True)
+        scale = scale.to(self.device, non_blocking=True)
+        dst.copy_(dequantize_fp8(q, scale, dtype=dst.dtype))
+
+    def _spill_page(self, h: int, page: int, shard: int):
+        """The BlockManager's spill sink: rescue an LRU-evicted prefix page
+        to host memory. Returns the host payload, or None to let the page
+        die (fault injection). ``page`` is a global page id (shards are
+        page ranges of one pool). Safe without a host sync: the copies are
+        enqueued on the step stream now, during the scheduling turn that
+        evicts the page, so they run after every step already enqueued
+        (the last that wrote the page among them) and before any step this
+        turn or later plans onto the page."""
+        if self.faults is not None and not self.faults.on_spill():
+            return None
+        hp = encode_host_page(self._read_pool_page(page),
+                              quantize=self.ccfg.host_quant)
+        return HostPage({k: self._to_host(v) for k, v in hp.leaves.items()},
+                        {k: self._to_host(v) for k, v in hp.scales.items()},
+                        hp.encoded)
+
+    def _upload_page(self, hp: HostPage, page: int) -> None:
+        """Write a host payload into reserved staging page ``page``, in
+        place. Enqueued on the step stream, after the payload's own spill
+        copy, so it needs no host sync either; the page is a staging page
+        (no live request reads it) until its flight commits."""
+        for k in self._pool_axis:
+            if k in hp.scales:
+                self._write_pool_page_q(k, page, hp.leaves[k], hp.scales[k])
+            else:
+                self._write_pool_page(k, page, hp.leaves[k])
+
+    def _start_prefetch(self, req: Request, match: PrefixMatch) -> List[int]:
+        """The scheduler's prefetcher: start host-to-device uploads for the
+        pages of a queued request's matched prefix that are not on the
+        device. Returns the chain hashes whose landing gates the request's
+        admission (an upload already in flight is ridden, not repeated)."""
+        mgr = self.scheduler.manager
+        keys: List[int] = []
+        for mp in match.pages:
+            if mp.residency is PageResidency.DEVICE:
+                continue
+            if mp.residency is PageResidency.IN_FLIGHT:
+                keys.append(mp.hash)      # ride the existing upload
+                continue
+            try:
+                page, payload = mgr.begin_prefetch(mp.hash, match.shard)
+            except OutOfBlocks:
+                break   # no staging page free: admit on what has landed
+            except KeyError:
+                break   # raced off the host store since match_prefix
+            ok, delay = (True, 0) if self.faults is None else \
+                self.faults.on_prefetch()
+            self._upload_page(payload, page)
+            self._prefetch_flights.append(_Flight(
+                hash=mp.hash, turn=self._sched_turn,
+                lands=self._sched_turn + 1 + max(int(delay), 0), ok=ok))
+            keys.append(mp.hash)
+        return keys
+
+    def _tick_prefetch(self) -> None:
+        """The scheduler's prefetch_tick, at the top of every turn: advance
+        the turn clock and settle the flights that landed. A flight
+        dispatched on turn T commits no earlier than turn T+1; its upload
+        was enqueued on the step stream before any step planned after the
+        commit, so such a step reads the staged page."""
+        self._sched_turn += 1
+        if not self._prefetch_flights:
+            return
+        mgr = self.scheduler.manager
+        still: List[_Flight] = []
+        for f in self._prefetch_flights:
+            if self._sched_turn < f.lands:
+                still.append(f)
+                continue
+            if f.ok:
+                mgr.commit_prefetch(f.hash)
+            else:
+                mgr.abort_prefetch(f.hash)
+        self._prefetch_flights = still
+
+    def _abort_prefetch_flights(self) -> None:
+        """Return every in-flight staging page to the free list (the
+        payloads go back to the host store: the upload is abandoned, not
+        lost)."""
+        mgr = self.scheduler.manager
+        for f in self._prefetch_flights:
+            mgr.abort_prefetch(f.hash)
+        self._prefetch_flights = []
 
     def _should_pack(self, plan: StepPlan) -> bool:
         return self.ecfg.pack_prefill and bool(plan.prefill)
@@ -732,6 +957,14 @@ class Engine:
                 batch.update(tokens=tokens, last_pos=last_pos)
                 if self._rec_leaves:
                     batch["pad_mask"] = pad_mask
+                if self._frames is not None:
+                    # cross K/V are computed ONCE per request, on its first
+                    # chunk; a step without one skips the encoder
+                    firsts = np.zeros(B, bool)
+                    for c in plan.prefill:
+                        firsts[c.req.lane] |= c.first
+                    if firsts.any():
+                        batch["cross_mask"] = firsts
             else:
                 batch["token"] = tokens
             if not device_feed:
@@ -966,11 +1199,14 @@ class Engine:
         return toks                   # booked end to end by the caller
 
     # ------------------------------------------------ step-runner warmup --
-    def _dummy_batch(self, kind: str, R: int, S: int) -> Dict[str, np.ndarray]:
+    def _dummy_batch(self, kind: str, R: int, S: int,
+                     whisper_first: bool = True) -> Dict[str, np.ndarray]:
         """A shape-exact stand-in for one async step's batch that touches
         no live pool state: every slot and page is -1, so the write kernel
         stores nothing and no page is read (a recurrent model's dummy steps
-        do write its lanes' state, which a request's first chunk resets)."""
+        do write its lanes' state, which a request's first chunk resets;
+        whisper's run the encoder with an all-False ``cross_mask``, which
+        keeps every lane's cross K/V)."""
         NP = self.scheduler.pages_per_lane
         table = np.full((R, NP), -1, np.int32)
         if kind == "decode":                 # the fused-dmeta schema
@@ -992,17 +1228,24 @@ class Engine:
             batch["last_pos"] = np.zeros(R, np.int32)
             if self._rec_leaves:
                 batch["pad_mask"] = np.zeros((R, S), bool)
+            if self._frames is not None and whisper_first:
+                batch["cross_mask"] = np.zeros(R, bool)
         return batch
 
     def _warmup_lattice(self) -> List[Tuple[str, Dict[str, np.ndarray]]]:
         """Every step shape the async pipeline can dispatch: one decode
-        shape, one prefill shape per bucket and, when packing, every
-        (row bucket x prefill bucket) packed shape."""
+        shape, one prefill shape per bucket (whisper: with and without the
+        first-chunk encoder, told apart by ``cross_mask`` in the runner's
+        key) and, when packing, every (row bucket x prefill bucket) packed
+        shape."""
         B = self.ecfg.num_lanes
         buckets = self.scheduler.prefill_buckets
         lattice = [("decode", self._dummy_batch("decode", B, 1))]
         for S in buckets:
             lattice.append(("prefill", self._dummy_batch("prefill", B, S)))
+            if self._frames is not None:
+                lattice.append(("prefill", self._dummy_batch(
+                    "prefill", B, S, whisper_first=False)))
         if self.ecfg.pack_prefill:
             row_buckets = []
             r = 1
@@ -1094,6 +1337,7 @@ class Engine:
         the pool to zero pages in use."""
         drained = self.scheduler.abort_all(FinishReason.ERROR, exc)
         self.stats.errors += len(drained)
+        self._abort_prefetch_flights()
         self._update_pool_stats()
         return drained
 

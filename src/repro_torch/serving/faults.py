@@ -18,12 +18,10 @@ serving code calls back into it at these hook points:
   * ``on_turn`` (top of ``AsyncEngine._loop_once``) — seeded cancel
     storms: at chosen turns, cancel a deterministic fraction of the open
     streams;
-  * ``on_spill`` / ``on_prefetch`` — the host-DRAM tier's hooks: drop
-    chosen device->host spills, fail chosen host->HBM prefetches or
-    stretch their landing. The port's engine has no host tier yet, so
-    nothing calls them, and ``install`` refuses a plan that sets any of
-    the tier's settings (``HOST_TIER_FAULTS``) rather than run an episode
-    that injects none of them.
+  * ``on_spill`` (``Engine._spill_page``) / ``on_prefetch``
+    (``Engine._start_prefetch``) — the host-DRAM tier's hooks: drop chosen
+    device->host spills, fail chosen host->device prefetches or stretch
+    their landing.
 
 Everything is keyed to deterministic counters (append calls, dispatched
 steps, emissions, loop turns) and a seeded RNG — the same plan against the
@@ -70,12 +68,6 @@ class FaultPlan:
                                           # host link)
 
 
-# the plan's host-DRAM tier settings, each with its default
-HOST_TIER_FAULTS = {"spill_drop_at": None, "spill_drop_count": 1,
-                    "prefetch_fail_at": None, "prefetch_fail_count": 1,
-                    "prefetch_delay_turns": 0}
-
-
 class FaultInjector:
     """Live counters + hook callbacks for one ``FaultPlan`` episode."""
 
@@ -96,14 +88,7 @@ class FaultInjector:
     # ---------------------------------------------------------- install --
     def install(self, engine) -> "FaultInjector":
         """Attach to ``engine``: set ``engine.faults`` and wrap the block
-        manager's ``append_token`` for pool-pressure injection. A plan
-        with a host-DRAM tier setting raises ``NotImplementedError``: the
-        port's engine has no host tier to inject it into."""
-        tier = [k for k, off in HOST_TIER_FAULTS.items()
-                if getattr(self.plan, k) != off]
-        if tier:
-            raise NotImplementedError(
-                f"host-DRAM tier faults {tier}: the engine has no host tier")
+        manager's ``append_token`` for pool-pressure injection."""
         engine.faults = self
         mgr = engine.scheduler.manager
         orig = mgr.append_token

@@ -50,6 +50,15 @@ Single process, two threads: the loop thread owns ALL scheduler, request
 and cache mutation and every launch; the emit worker only waits for events
 and reads the host ring.
 
+Host-DRAM KV tier: its spills and prefetch uploads ride the SAME loop
+thread and the same stream. ``schedule_step`` ticks the engine's prefetch
+flights at the top of every turn and enqueues spill and upload copies
+before the turn's step, so an upload dispatched on turn N runs before any
+step of turn N+1 and the pipeline needs no host sync and no other
+machinery (``Engine._spill_page``, ``_start_prefetch``). A fault drain
+(``abort_all``) and ``close`` abandon the flights still in the air: their
+staging pages return to the free list, their payloads to the host store.
+
 Failure semantics: every stream terminates with a ``FinishReason``,
 delivered AT the terminal event (never at an idle sweep):
 
@@ -499,9 +508,11 @@ class AsyncEngine:
                 self._close_stream(stream.req)
 
     def close(self) -> None:
-        """Stop the emit worker (it exits after the steps queued before)."""
+        """Stop the emit worker (it exits after the steps queued before) and
+        abandon the host tier's prefetch flights still in the air."""
         self._emit_q.put(None)
         self._emitter.join(timeout=5.0)
+        self.engine._abort_prefetch_flights()
 
 
 class WorkerKilled(BaseException):

@@ -53,23 +53,25 @@ def test_active_param_count_agrees(arch):
 
 
 def test_unported_arch_raises():
-    with pytest.raises(KeyError, match="not ported"):
-        get_config("whisper-small")
+    """whisper-small, the last architecture to arrive, equals the JAX
+    package's config field for field (full and reduced); an id neither
+    package knows raises ``KeyError`` in both."""
+    for arch in ("whisper-small", "whisper-small-reduced"):
+        mine, ref = get_config(arch), jget_config(arch)
+        assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+    assert (mine.encoder_layers, mine.num_frames) == (2, 32)
+    for get in (get_config, jget_config):
+        with pytest.raises(KeyError, match="unknown arch"):
+            get("whisper-tiny")
 
 
 def test_registry_exports_agree():
-    """``ARCH_IDS`` is the JAX list less the families not ported yet, each
-    of which still raises; ``ALL_IDS`` adds the paper's model."""
-    ported = [a for a in jconfigs.ARCH_IDS if a in ALL_IDS]
-    assert configs.ARCH_IDS == ported
-    assert set(ported) == {"yi-34b", "rwkv6-7b", "mixtral-8x22b",
-                           "deepseek-v2-lite-16b", "recurrentgemma-9b",
-                           "internvl2-2b", "qwen3-4b", "qwen2.5-14b",
-                           "deepseek-67b"}
-    assert ALL_IDS == [a for a in jconfigs.ALL_IDS if a in ALL_IDS]
-    for arch in set(jconfigs.ALL_IDS) - set(ALL_IDS):
-        with pytest.raises(KeyError, match="not ported"):
-            get_config(arch)
+    """``ARCH_IDS`` is the JAX list, all ten assigned architectures;
+    ``ALL_IDS`` adds the paper's model."""
+    assert configs.ARCH_IDS == jconfigs.ARCH_IDS
+    assert len(configs.ARCH_IDS) == 10 and \
+        "whisper-small" in configs.ARCH_IDS
+    assert ALL_IDS == jconfigs.ALL_IDS
 
 
 @pytest.mark.parametrize("name", sorted(jpaper.PAPER_MODELS))

@@ -67,7 +67,12 @@ _WRITE_CASES = (
     + [(o, 256, 1, 2, 40, "base") for o in (False, True)]
     + [(True, 256, 1, 4, 1, "base"), (True, 256, 1, 4, 512, "base"),
        (True, 256, 1, 2, 40, "none"), (True, 256, 1, 2, 40, "pool_edge"),
-       (True, 256, 1, 2, 40, "values")])
+       (True, 256, 1, 2, 40, "values")]
+    # whisper-small's decoder self-attention: D 64 on 12 kv heads (G 1),
+    # its decode step, a 512-token chunk step, a bf16 pool, the value edges
+    + [(True, 64, 12, 4, 1, "base"), (True, 64, 12, 4, 512, "base"),
+       (False, 64, 12, 2, 40, "base"), (True, 64, 12, 2, 40, "values"),
+       (True, 64, 12, 2, 40, "pool_edge")])
 _EDGE = [1.0625, 1.1875, -1.0625, 432.0, -432.0, 0.0, 3.25, 208.0]
 
 
@@ -189,10 +194,14 @@ _DECODE_CASES = {
     # recurrentgemma-9b (G 16, one kv head, D 256): 4 lanes, and 6, the
     # most whose K4 plan fits a block
     "g16": (4, 32, 64, None), "g16b6": (6, 8, 64, None),
+    # whisper-small (G 1 on 12 kv heads, D 64): 4 lanes sharing a prefix,
+    # and one lane (K2)
+    "w12": (4, 16, 64, None), "w12b1": (1, 16, 64, None),
 }
 # (Hkv, G) of a case; G 4 over 2 KV heads otherwise
 _DECODE_HEADS = {"g5": (8, 5), "g7": (8, 7), "g8": (8, 8), "g1": (40, 1),
-                 "g16": (1, 16), "g16b6": (1, 16)}
+                 "g16": (1, 16), "g16b6": (1, 16), "w12": (12, 1),
+                 "w12b1": (12, 1)}
 
 
 def _decode_tables(case, dev):
@@ -240,7 +249,12 @@ def _decode_tables(case, dev):
     # D 256: G 16 on one kv head, plain and windowed with a sink page
     + [(kv, True, w, s, 256, "g16") for kv in (True, False)
        for w, s in ((0, 0), (2048, 1), (96, 1))]
-    + [(True, True, 96, 1, 256, "b1"), (True, True, 96, 1, 256, "g16b6")])
+    + [(True, True, 96, 1, 256, "b1"), (True, True, 96, 1, 256, "g16b6")]
+    # D 64, G 1 on 12 kv heads (whisper-small), fp8 and bf16 pools, Opt-GQA
+    # off, one lane
+    + [(kv, gqa, 0, 0, 64, "w12") for kv, gqa in
+       ((True, True), (False, True), (True, False))]
+    + [(True, True, 0, 0, 64, "w12b1")])
 def test_decode_kernels(dev, monkeypatch, opt_kv, opt_gqa, window, sink, D,
                         case):
     """K2 vs its plain version within one bf16 ulp; K4 bit-identical to
@@ -409,6 +423,37 @@ def test_chunk_kernel(dev, opt_kv, opt_gqa, window, packed, D, ps, S):
     _assert_close(got, plain)
     if packed:
         assert torch.all(got[0, 36:] == 0)            # pad rows see no key
+
+
+@pytest.mark.parametrize("opt_kv", [True, False])
+@pytest.mark.parametrize("S", [64, 512])
+def test_chunk_kernel_whisper_heads(dev, opt_kv, S):
+    """K3 at whisper-small's decoder widths (D 64, G 1 on 12 kv heads, one
+    query row a head in a tile) on the engine's pages of 64: one chunk lane
+    at [200, 200 + S) beside 3 decode lanes (one token, the padding
+    clamped to it), within one bf16 ulp of its plain version; a control
+    with the newest key of each lane masked off must fall outside it."""
+    B, Hkv, G, D, ps = 4, 12, 1, 64, 64
+    NP = -(-(200 + S) // ps)
+    kv, sc = _pool(dev, B * NP, ps, Hkv, D, opt_kv)
+    table = torch.arange(B * NP, device=dev, dtype=torch.int32).reshape(B, NP)
+    table[1:, :2] = table[0, :2]                  # a shared 128-token prefix
+    pos = torch.empty((B, S), dtype=torch.int32, device=dev)
+    pos[0] = torch.arange(200, 200 + S, device=dev)
+    for b in range(1, B):
+        pos[b] = 150 + 31 * b
+    q = torch.randn((B, S, Hkv * G, D), device=dev).bfloat16()
+    ks, vs = (sc[0], sc[1]) if opt_kv else (None, None)
+    got = ops.paged_chunk_prefill(q, pos, kv, sc, table, opt_kv=opt_kv,
+                                  opt_gqa=True)
+    plain = fc.flash_chunk_prefill_ref(q, pos, kv[0], kv[1], ks, vs, table,
+                                       opt_kv=opt_kv, opt_gqa=True)
+    control = fc.flash_chunk_prefill_ref(q, pos - 1, kv[0], kv[1], ks, vs,
+                                         table, opt_kv=opt_kv, opt_gqa=True)
+    torch.cuda.synchronize()
+    _assert_close(got, plain)
+    diff = (got.float() - control.float()).abs()
+    assert bool((diff > ATOL + RTOL * control.float().abs()).any())
 
 
 def test_launch_counts(dev):
@@ -830,6 +875,38 @@ def test_replay_matches_eager_step(dev, kind):
         eng._note_executed(sb)
         eng._postprocess(sb, toks.cpu().numpy(), time.perf_counter())
     raise AssertionError(f"no {kind} step in 200")
+
+
+@pytest.mark.parametrize("encoder", [True, False], ids=["first", "later"])
+def test_whisper_replay_matches_eager_step(dev, encoder):
+    """whisper-small-reduced's step runners (7: decode, and a prefill
+    runner with the encoder and one without for each of 3 buckets): a
+    prefill step that carries a first chunk (encoder on) and one that does
+    not, each replayed against the eager body from the same state: logits,
+    pool bytes, cross K/V leaves and the lane feed bit-equal."""
+    import time
+    from repro_torch.serving import Request
+    eng = _graph_engine(dev, arch="whisper-small-reduced")
+    assert eng.warmup() == 7
+    for i, p in enumerate(_graph_prompts(6)):
+        eng.add_request(Request(req_id=i, prompt=p, max_new_tokens=8,
+                                arrival_time=float(i)))
+    for _ in range(200):
+        plan = eng.scheduler.schedule_step()
+        assert not plan.empty, "the run ended before the step"
+        sb = eng._build_step(plan, device_feed=True)
+        if plan.prefill and ("cross_mask" in sb.batch) == encoder:
+            (le, pe, fe), (lr, pr, fr) = _replay_against_eager(eng, sb)
+            assert torch.equal(le, lr)
+            for k in pe:
+                assert torch.equal(pe[k].view(torch.uint8),
+                                   pr[k].view(torch.uint8)), k
+            assert torch.equal(fe, fr)
+            return
+        toks = eng._dispatch_async(sb)
+        eng._note_executed(sb)
+        eng._postprocess(sb, toks.cpu().numpy(), time.perf_counter())
+    raise AssertionError("no such step in 200")
 
 
 def test_async_engine_counts_launches_through_replays(dev):

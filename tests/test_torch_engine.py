@@ -128,10 +128,12 @@ def test_generate_matches_jax_engine(weights, jax_run, use_kernel):
 
 
 def test_unported_options_raise(weights):
-    """The option the port does not serve yet (the host-DRAM tier) raises;
-    ``pack_prefill``, ported since, builds an engine that packs, and so do
-    page-range shards and a mesh (tests/test_torch_sharded_*.py); a mesh
-    whose shard count disagrees with the config's is refused."""
+    """Every option of the JAX engine is served: ``pack_prefill`` builds an
+    engine that packs, the host-DRAM tier (``host_pages > 0``) one whose
+    spill sink and prefetch hooks are wired (tests/test_torch_host_tier.py
+    holds it to the JAX engine), and so do page-range shards and a mesh
+    (tests/test_torch_sharded_*.py); a mesh whose shard count disagrees
+    with the config's is refused."""
     _, params = weights
     cfg = get_config(ARCH)
     eng = Engine(cfg, MODES["coopt"], EngineConfig(pack_prefill=True),
@@ -139,10 +141,16 @@ def test_unported_options_raise(weights):
     outs = eng.generate([np.arange(5), np.arange(9)], max_new_tokens=2)
     assert [len(o) for o in outs] == [2, 2]
     assert eng.stats.packed_steps > 0 and eng.stats.packed_rows_saved > 0
-    with pytest.raises(NotImplementedError, match="host-DRAM"):
-        Engine(cfg, MODES["coopt"],
-               EngineConfig(cache=CacheConfig(host_pages=4)), params=params,
-               device="cpu")
+    eng = Engine(cfg, MODES["coopt"],
+                 EngineConfig(cache=CacheConfig(host_pages=4)), params=params,
+                 device="cpu")
+    mgr = eng.scheduler.manager
+    assert mgr.host_tier_enabled and mgr.spill_sink == eng._spill_page
+    assert eng.scheduler.prefetcher == eng._start_prefetch
+    assert eng.scheduler.prefetch_tick == eng._tick_prefetch
+    outs = eng.generate([np.arange(5), np.arange(9)], max_new_tokens=2)
+    assert [len(o) for o in outs] == [2, 2]
+    assert eng.stats.host_pages == 4 and mgr.audit() == []
     from repro_torch.launch.mesh import make_sim_mesh
     with pytest.raises(ValueError, match="disagrees"):
         Engine(cfg, MODES["coopt"],

@@ -33,4 +33,5 @@ def test_guard_sees_the_package():
             "flash_prefill.py", "frontend.py", "faults.py", "pipeline.py",
             "serve.py", "steps.py", "quickstart.py",
             "serve_continuous_batching.py", "mixtral_8x22b.py",
-            "internvl2_2b.py", "sharded.py", "mesh.py"} <= names
+            "internvl2_2b.py", "sharded.py", "mesh.py", "whisper.py",
+            "whisper_small.py", "quant.py"} <= names

@@ -150,8 +150,13 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
         model.init(0)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         model.init_cache(2, 64, MODES["coopt"])
+    # whisper, the last family to arrive, is served and takes the card too
+    whisper = get_model(get_config("whisper-small-reduced"))
+    assert type(whisper).__name__ == "WhisperModel"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        whisper.init_cache(2, 64, MODES["coopt"])
     with pytest.raises(NotImplementedError):
-        get_model(get_config(ARCH).replace(family="whisper"))
+        get_model(get_config(ARCH).replace(family="unknown"))
 
 
 def test_param_init_is_seeded_and_fan_in_scaled():

@@ -1,7 +1,8 @@
 """The port's serving resilience layer on the CPU: the chaos episodes of
-``tests/test_resilience.py`` (without its two host-DRAM tier episodes: the
-port has no host tier yet), seeded ``FaultPlan`` episodes against the
-port's async pipeline, each asserting the three invariants of the layer —
+``tests/test_resilience.py`` (its two host-DRAM tier episodes are twinned
+in ``tests/test_torch_host_tier.py``), seeded ``FaultPlan`` episodes
+against the port's async pipeline, each asserting the three invariants of
+the layer —
 
   1. ``BlockManager.audit()`` is clean after the episode (zero leaked
      pages, zero refcount drift, coherent free/LRU/prefix state);
@@ -455,25 +456,86 @@ def test_token_stream_timeout_raises_timeout_error():
 
 
 # ------------------------------------------------------- host-DRAM tier --
+def _host_tier_kw(host_pages=32):
+    """The JAX chaos suite's tier cell: 4 usable device pages (pages of 64,
+    2 a request), so the shared-prefix replay spills to the host tier and
+    repeats prefetch back."""
+    from repro_torch.configs import CacheConfig
+    return dict(num_lanes=2, max_len=128,
+                cache=CacheConfig(num_pages=5, host_pages=host_pages,
+                                  prefetch_depth=2))
+
+
+def _shared_prefix_prompts(rng, k=6, rounds=2):
+    """k distinct one-page (64-token) prefixes replayed round-robin: every
+    reuse distance exceeds the 4-page device pool."""
+    prefixes = [rng.integers(0, CFG.vocab_size, 64, dtype=np.int32)
+                for _ in range(k)]
+    return [np.concatenate([p, rng.integers(0, CFG.vocab_size, 16,
+                                            dtype=np.int32)])
+            for _ in range(rounds) for p in prefixes]
+
+
+@pytest.fixture(scope="module")
+def tier_baseline():
+    """The fault-free tier run of the shared-prefix prompts (seed 83)."""
+    prompts = _shared_prefix_prompts(np.random.default_rng(83))
+    ref = _engine(**_host_tier_kw())
+    want = ref.generate(prompts, max_new_tokens=8)
+    assert ref.stats.spilled_pages > 0 and ref.stats.prefetch_begun > 0
+    return prompts, want
+
+
+def _record_flights(eng):
+    """Every prefetch flight the engine's prefetcher starts, in order."""
+    seen, start = [], eng.scheduler.prefetcher
+
+    def prefetcher(req, match):
+        before = {id(f) for f in eng._prefetch_flights}
+        keys = start(req, match)
+        seen.extend(f for f in eng._prefetch_flights if id(f) not in before)
+        return keys
+    eng.scheduler.prefetcher = prefetcher
+    return seen
+
+
 @pytest.mark.parametrize("setting", [
-    dict(spill_drop_at=1), dict(spill_drop_count=2),
-    dict(prefetch_fail_at=1), dict(prefetch_fail_count=2),
+    dict(spill_drop_at=1), dict(spill_drop_at=1, spill_drop_count=2),
+    dict(prefetch_fail_at=1), dict(prefetch_fail_at=1, prefetch_fail_count=2),
     dict(prefetch_delay_turns=1)])
-def test_host_tier_fault_plan_is_refused_not_ignored(setting):
-    """The engine has no host tier, so a plan that sets one of the tier's
-    settings would inject nothing: ``install`` raises and leaves the engine
-    as it was."""
-    eng = _engine()
-    append = eng.scheduler.manager.append_token
-    with pytest.raises(NotImplementedError, match=next(iter(setting))):
-        FaultInjector(FaultPlan(**setting)).install(eng)
-    assert eng.faults is None
-    assert eng.scheduler.manager.append_token == append
+def test_host_tier_fault_plan_is_refused_not_ignored(tier_baseline,
+                                                     setting):
+    """Each of the plan's host-DRAM tier settings is installed and INJECTS
+    into the tier's engine (none is ignored): a dropped spill destroys the
+    page (recomputed later), a failed prefetch returns its payload to the
+    host store, a delay holds every flight one more turn. Every request
+    finishes with the fault-free tier run's tokens and the two-tier
+    allocator audits clean with no staging page left."""
+    prompts, want = tier_baseline
+    eng = _engine(**_host_tier_kw())
+    seen = _record_flights(eng)
+    inj = FaultInjector(FaultPlan(**setting)).install(eng)
+    assert eng.faults is inj
+    outs = eng.generate(prompts, max_new_tokens=8)
+    assert outs == want
+    _assert_clean(eng)
+    assert eng.scheduler.manager.staging_pages == 0
+    if "spill_drop_at" in setting:
+        assert inj.injected_spill_drops == setting.get("spill_drop_count", 1)
+        assert eng.stats.spilled_pages == inj.spills - inj.injected_spill_drops
+    if "prefetch_fail_at" in setting:
+        n = setting.get("prefetch_fail_count", 1)
+        assert inj.injected_prefetch_fails == n
+        assert eng.stats.prefetch_aborted >= n
+        assert sum(not f.ok for f in seen) == n
+    if "prefetch_delay_turns" in setting:
+        assert seen and all(f.lands - f.turn == 2 for f in seen)
 
 
 def test_host_tier_hooks_count_like_the_reference():
-    """``on_spill`` / ``on_prefetch`` (no caller until the host tier is
-    ported) answer call for call as the JAX package's hooks do."""
+    """``on_spill`` / ``on_prefetch`` (their callers: ``Engine._spill_page``
+    and ``_start_prefetch``) answer call for call as the JAX package's
+    hooks do."""
     from repro.serving.faults import FaultInjector as JaxInjector
     from repro.serving.faults import FaultPlan as JaxPlan
     kw = dict(spill_drop_at=2, spill_drop_count=3, prefetch_fail_at=3,

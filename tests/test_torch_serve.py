@@ -1,9 +1,10 @@
 """The port's serving launcher (``repro_torch.launch.serve``) against the JAX
 package's on qwen3-4b-reduced: Poisson offsets, the report of
-``serve_workload`` sync, async and async + packing (key sets, counts and
-rates), the async pass's greedy tokens, ``--assert-aot``, page-range
-shards with and without a mesh, the option the port refuses, and
-``main``'s JSON on the CPU.
+``serve_workload`` sync (key sets, counts and rates; the async and async +
+packing cases are in ``tests/test_torch_serve_async.py``, so the two
+longest cases run in separate workers of a ``--dist loadfile`` run),
+``--assert-aot``, page-range shards with and without a mesh, the host-DRAM
+tier, and ``main``'s JSON on the CPU.
 
 The port runs on the JAX engine's weights (``params_from_numpy`` of
 ``init(PRNGKey(seed))``, which the JAX ``ServeRunner`` draws), with its
@@ -130,8 +131,7 @@ def test_poisson_offsets_match_jax():
                                       jserve.poisson_offsets(n, rate, seed))
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_serve_workload_matches_jax(monkeypatch, params, case):
+def check_workload(monkeypatch, params, case):
     """The report has the JAX report's keys in its order (the async ones
     add ``graph_pool_gib``, the memory the step runners' captures reserved:
     0 on the CPU), with every count and rate equal; the async pass's
@@ -160,6 +160,12 @@ def test_serve_workload_matches_jax(monkeypatch, params, case):
                           [rows[s.req.req_id] for s in streams])
 
 
+@pytest.mark.parametrize("case", ["sync"])
+def test_serve_workload_matches_jax(monkeypatch, params, case):
+    """``check_workload`` for the sync pass."""
+    check_workload(monkeypatch, params, case)
+
+
 def test_assert_aot_passes_after_warmup(params):
     """Every step of an async pass finds a runner built by the warmup: 0
     misses, no runner built after it, so ``assert_aot`` passes; a runner
@@ -183,12 +189,41 @@ def test_assert_aot_passes_after_warmup(params):
     assert rep["aot_executables"] == 0 and rep["graph_pool_gib"] == 0
 
 
+# the host-DRAM tier: 6 usable device pages; the warmup pass's prompt
+# pages spill to the host, and the measured pass prefetches them back
+TIER_KW = dict(requests=6, num_lanes=2, max_len=192, max_new_tokens=4,
+               scale=0.25, warmup_pass=True, pool_pages=6)
+TIER_KEYS = ("host_pages", "host_pages_resident", "spilled_pages",
+             "host_evictions", "prefix_host_hit_rate",
+             "prefix_device_hit_rate", "prefix_hit_rate", "prefix_host_hits",
+             "prefix_device_hits", "prefetch_committed", "prefetch_aborted",
+             "prefetch_held_turns", "host_tier_pages")
+
+
 @pytest.mark.parametrize("flags,err", [
     (["--host-pages", "8"], "host-DRAM")])
-def test_unported_options_raise(flags, err):
-    with pytest.raises(NotImplementedError, match=err):
-        serve.main(["--arch", "qwen3-4b", "--reduced", "--device", "cpu",
-                    "--requests", "1"] + flags)
+def test_unported_options_raise(params, capsys, flags, err):
+    """``--host-pages`` (the host-DRAM tier, once refused) serves:
+    ``main`` prints a report with the tier's capacity, and
+    ``serve_workload`` with 8 host pages reports the JAX report's keys in
+    its order, with every tier key equal and the tier spilling, prefetching
+    and hitting."""
+    serve.main(["--arch", "qwen3-4b", "--reduced", "--device", "cpu",
+                "--requests", "2", "--max-new-tokens", "2", "--lanes", "2",
+                "--max-len", "128", "--prefetch-depth", "1"] + flags)
+    out = json.loads(capsys.readouterr().out)
+    assert out["host_pages"] == out["host_tier_pages"] == int(flags[1])
+    assert out["generated_tokens"] == 4
+    kw = dict(TIER_KW, host_pages=int(flags[1]))
+    want = jserve.serve_workload(ARCH, "coopt", **kw)
+    got = serve.serve_workload(ARCH, "coopt", use_kernel=True, device="cpu",
+                               params=params, **kw)
+    assert list(got) == list(want)
+    for k in TIER_KEYS + EQUAL:
+        if k in want:
+            assert got[k] == want[k], k
+    assert got["spilled_pages"] > 0 and got["prefetch_committed"] > 0
+    assert got["prefix_host_hit_rate"] > 0
 
 
 # page-range shards: 4 shards of a 16-page pool (4, 4, 4 and 3 usable)
