@@ -5,7 +5,7 @@
     python3 chip_smoke.py --only kernels   # or write|decode|latent|engine|
                                            # prefill|async|serve|mla|packed|
                                            # recurrent|sharded|whisper|host|
-                                           # parity
+                                           # parity|train
     python3 chip_smoke.py --only decode --src OTHER/src
                                      # K2/K4 of another tree's package
                                      # (--only write: K1; --only latent:
@@ -184,6 +184,27 @@ Phases:
      routes flipped only at a tie (``ROUTE_TIE``), which excuses the
      request's rows from that step on, and a control run of planted
      mis-routes that the check must flag; greedy agreement.
+  7. Training (``--only train``), which runs no hand-written kernel (none
+     has a backward; the wrappers refuse autograd): qwen3-4b at full size
+     (36 layers, 4.41 B parameters) through ``Trainer`` (COOPT, the plain
+     path, per-layer activation checkpointing, AdamW with f32 moments),
+     ``TRAIN``: 8 steps of B 4 x S 512 from ``TrainPipeline(seed=0)``,
+     every loss and grad norm finite, the last loss below the first, no
+     kernel launched; step ms (median of steps 2-8), tokens/s, peak GiB and
+     the model FLOPs' share of the bf16 peak (8 N T + attention); one more
+     step's forward + backward and its AdamW update, each timed alone. The
+     trained params through ``save_checkpoint`` and, the optimizer state
+     freed, ``load_checkpoint`` onto the card, byte for byte; the loaded
+     params served by ``Engine.generate`` (coopt, the kernels: K1, K3 and
+     K4 launched, 4 greedy requests, tokens inside the vocabulary). The
+     seven ``PARITY`` models: one ``make_train_step`` on the card and on
+     the CPU from the same params and batch, the loss within
+     ``TRAIN_LOSS_ATOL``, each leaf's gradient within ``TRAIN_GRAD_RTOL``
+     (relative L2), a control with the labels rolled by one that must
+     break it; a MoE model's card routes held to the CPU's, a flip only at
+     a router near-tie (``TiePin``, ``ROUTE_TIE``). qwen3-4b at 4 layers,
+     4 microbatches against 1 (the JAX test's bounds). ``loss_fn`` under
+     autograd with ``use_kernel=True`` must raise.
 Each kernel's launch count is read from the path that runs it, the counts
 set to 0 just before that path and read just after; a kernel that never
 launched fails the run. Launches through a CUDA graph count once a replay
@@ -4992,6 +5013,532 @@ def host_phase(torch, rec):
     return launches
 
 
+# ---------------------------------------------------------------- train --
+# The training phase (``--only train``). qwen3-4b at full size, COOPT (the
+# reference trainer's mode: no kernel has a backward, so training runs the
+# plain path under autograd), B x S tokens of ``TrainPipeline(seed=0)`` a
+# step, ``TRAIN_STEPS`` steps at the launcher's learning rate.
+TRAIN = ("qwen3-4b", 4, 512, 8, 1e-3)        # arch, batch, seq, steps, lr
+TRAIN_MICRO = (4, 4)                          # layers, microbatches
+# Card against CPU, the same params and batch: the loss within
+# TRAIN_LOSS_ATOL, each leaf's gradient within TRAIN_GRAD_RTOL of the CPU's
+# as a relative L2 error; on whisper the leaves whose gradient crosses the
+# fp8 cast of the cross K/V (the cross K/V projections and the encoder
+# upstream of them: the cotangent is rounded to fp8, as in the JAX
+# package) within FP8_PATH_RTOL. The same bounds as the CPU tests against
+# the JAX package (tests/test_torch_training.py); measured card against CPU
+# on an H100 (PERF.md section 6): 1.04-1.46% for the dense-path models,
+# rwkv6 5.41%, whisper 7.82% (dec/xwk, of the fp8 group).
+TRAIN_LOSS_ATOL = 1e-2
+TRAIN_GRAD_RTOL = {"qwen3-4b-reduced": 0.04,
+                   "deepseek-v2-lite-16b-reduced": 0.04,
+                   "mixtral-8x22b-reduced": 0.04, "internvl2-2b-reduced": 0.04,
+                   "recurrentgemma-9b-reduced": 0.05, "rwkv6-7b-reduced": 0.1,
+                   "whisper-small-reduced": 0.075}
+FP8_PATH_RTOL = 0.2
+# the JAX microbatch test's bounds (tests/test_microbatch.py), which one
+# AdamW step meets whatever the gradient (it moves a param by about lr);
+# the accumulated gradients are held to MICRO_GRAD_RTOL per leaf (relative
+# L2) and the step's grad norm to MICRO_GNORM_RTOL. On the card a quarter
+# of the batch takes other GEMM shapes, which round the bf16 activations
+# otherwise (measured on an H100: 1.086e-2, PERF.md section 6; the CPU's
+# 2.4e-3 in tests/test_torch_train_launch.py): the bound is the card
+# against CPU one of this model, TRAIN_GRAD_RTOL; the controls read 1.77
+# and 3.0
+MICRO_LOSS_ATOL = 5e-3
+MICRO_PARAM_TOL = 2e-2
+MICRO_GRAD_RTOL = 0.04
+MICRO_GNORM_RTOL = 1e-2
+# the full-size run's split of a step: TRAIN_SPLIT more steps, each timed
+# with CUDA events around its forward + backward and its AdamW update
+TRAIN_SPLIT = 5
+
+
+def grad_tol(arch, path):
+    """The relative L2 bound of one leaf's gradient, card against CPU."""
+    if arch.startswith("whisper") and (
+            path[0] in ("enc", "enc_ln", "enc_ln_b")
+            or (path[0] == "dec" and path[1] in ("xwk", "xwv", "xbv"))):
+        return FP8_PATH_RTOL
+    return TRAIN_GRAD_RTOL[arch]
+
+
+def _bits(torch, t):
+    return t.detach().reshape(-1).view(torch.uint8)
+
+
+def _rel_l2(torch, got, want):
+    d = (got.float() - want.float()).norm().item()
+    return d / max(want.float().norm().item(), 1e-30)
+
+
+def _topk_sets(np, probs, k):
+    order = np.argsort(-probs, axis=-1, kind="stable")
+    return np.sort(order[..., :k], -1), -np.sort(-probs, -1)
+
+
+class RouteLog:
+    """Records each MoE ``_route`` call's router probabilities (numpy f32),
+    forward and recompute alike."""
+
+    def __init__(self, torch, moe_mod):
+        self.torch, self.moe, self.calls = torch, moe_mod, []
+
+    def __enter__(self):
+        self.orig = self.moe._route
+        self.moe._route = self
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.orig
+
+    def __call__(self, logits, top_k, capacity, with_aux=False):
+        self.calls.append(self.torch.softmax(
+            logits.detach().float(), -1).cpu().numpy())
+        return self.orig(logits, top_k, capacity, with_aux=with_aux)
+
+
+class TiePin(RouteLog):
+    """A MoE router held to a reference run's routes, as the parity phase
+    holds it: a token whose top-k expert set differs from the reference's
+    (the reference call nearest in value) is a flip. At a near-tie (the
+    reference's k-th and (k+1)-th probabilities within ``tie``, one expert
+    swapped) the two experts' logits are swapped so this run takes the
+    reference's route, and the gap is kept; any other flip is kept as bad.
+    With the ties pinned, both runs route every token alike, so their
+    gradients compare leaf by leaf."""
+
+    def __init__(self, torch, moe_mod, ref_calls, tie):
+        super().__init__(torch, moe_mod)
+        self.ref, self.tie = ref_calls, tie
+        self.pinned, self.bad = [], []
+
+    def __call__(self, logits, top_k, capacity, with_aux=False):
+        import numpy as np
+        torch = self.torch
+        probs = torch.softmax(logits.detach().float(), -1).cpu().numpy()
+        ref = min((r for r in self.ref if r.shape == probs.shape),
+                  key=lambda r: np.abs(r - probs).max())
+        mine, _ = _topk_sets(np, probs, top_k)
+        want, srt = _topk_sets(np, ref, top_k)
+        moved = np.argwhere((mine != want).any(-1))
+        if len(moved):
+            logits = logits.clone()
+        for b, s in moved:
+            gap = float(srt[b, s, top_k - 1] - srt[b, s, top_k])
+            out = sorted(set(mine[b, s]) - set(want[b, s]))
+            inn = sorted(set(want[b, s]) - set(mine[b, s]))
+            if gap > self.tie or len(out) != 1:
+                self.bad.append((gap, int(b), int(s)))
+                continue
+            self.pinned.append(gap)
+            i, j = out[0], inn[0]
+            logits[b, s, [i, j]] = logits[b, s, [j, i]]
+        self.calls.append(probs)
+        return self.orig(logits, top_k, capacity, with_aux=with_aux)
+
+
+def train_full_run(torch, rec, smi):
+    """qwen3-4b at full size through ``Trainer``: TRAIN_STEPS steps on the
+    stream, every loss and grad norm finite, the last loss below the first;
+    step ms (the median of steps 2..), tokens/s, peak GiB and the model
+    FLOPs' share of the bf16 peak. Returns the trainer."""
+    import statistics
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get_config
+    from repro_torch.core.coopt import COOPT
+    from repro_torch.data import TrainPipeline
+    from repro_torch.kernels import cuda
+    from repro_torch.training import Trainer, adamw_update
+    from repro_torch.training.train import step_grads, to_device
+    arch, B, S, steps, lr = TRAIN
+    cfg = get_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, COOPT, lr=lr, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n = tr.model.param_count()
+    pipe = iter(TrainPipeline(cfg.vocab_size, B, S, seed=0))
+    cuda.reset_launches()
+    hist, times = [], []
+    for _ in range(steps):
+        batch = next(pipe)
+        t0 = time.perf_counter()
+        hist.append(tr.step(batch))           # float() of the metrics syncs
+        times.append(time.perf_counter() - t0)
+    launches = dict(cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_s = statistics.median(times[1:])
+    # where a step's time goes: TRAIN_SPLIT more steps as ``Trainer.step``
+    # runs them (``step_grads``, then ``adamw_update``), with CUDA events
+    # before, between and after, and no sync inside: the two parts add up
+    # to the step's device time, beside its host time
+    split = dict(fwd_bwd_ms=[], adamw_ms=[], device_ms=[], host_ms=[])
+    for _ in range(TRAIN_SPLIT):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = to_device(next(pipe), DEV)
+        ev[0].record()
+        _, grads = step_grads(tr.model, tr.params, batch, tr.coopt)
+        ev[1].record()
+        tr.params, tr.opt_state, gnorm = adamw_update(
+            tr.params, tree_util.unflatten(tr.params, grads), tr.opt_state,
+            lr=lr)
+        ev[2].record()
+        float(gnorm)
+        split["host_ms"].append((time.perf_counter() - t0) * 1e3)
+        split["fwd_bwd_ms"].append(ev[0].elapsed_time(ev[1]))
+        split["adamw_ms"].append(ev[1].elapsed_time(ev[2]))
+        split["device_ms"].append(ev[0].elapsed_time(ev[2]))
+        del grads
+    split_med = {k: statistics.median(v) for k, v in split.items()}
+    T = B * S
+    # model FLOPs of one step: every parameter but the embedding table in
+    # a matmul, 2 FLOPs a token forward, 4 backward and 2 for the per-layer
+    # recompute (8 N T); attention's QK^T and PV over the full S x S
+    # (4 B S^2 H D a layer forward, x4 likewise)
+    n_mm = n - cfg.vocab_size * cfg.d_model
+    attn = 16 * cfg.num_layers * B * S * S * cfg.num_heads * cfg.head_dim
+    flops = 8 * n_mm * T + attn
+    share = flops / step_s / BF16_FLOPS
+    res = dict(arch=arch, params=n, batch=B, seq=S, steps=steps, lr=lr,
+               setup_s=setup_s, step_s=times, step_ms=step_s * 1e3,
+               tokens_per_s=T / step_s, peak_gib=peak, model_flops=flops,
+               flop_share=share, card=smi, split=split,
+               split_median=split_med,
+               losses=[h["loss"] for h in hist],
+               grad_norms=[h["grad_norm"] for h in hist],
+               launches={k: v for k, v in launches.items() if v})
+    log(f"train: {arch} full size ({cfg.num_layers} layers, {n / 1e9:.3f} B "
+        f"params), B {B} x S {S}, lr {lr}: losses "
+        f"{[round(x, 4) for x in res['losses']]}, grad norms "
+        f"{[round(x, 3) for x in res['grad_norms']]}")
+    log(f"train: step {res['step_ms']:.1f} ms (median of steps 2-{steps}; "
+        f"all {[round(t * 1e3, 1) for t in times]}), "
+        f"{res['tokens_per_s']:.0f} tokens/s, peak {peak:.2f} GiB, model "
+        f"FLOPs {flops:.3e} a step (8 N T + attention) = {share:.2%} of "
+        f"{BF16_FLOPS:.0e} FLOP/s bf16; {smi}")
+    span = {k: f"{split_med[k]:.1f} ms ({min(v):.1f}-{max(v):.1f})"
+            for k, v in split.items()}
+    log(f"train: {TRAIN_SPLIT} more steps on CUDA events, median (range): "
+        f"forward + backward {span['fwd_bwd_ms']}, AdamW "
+        f"{span['adamw_ms']}, the two {span['device_ms']} on the card, "
+        f"{span['host_ms']} on the host clock; {smi}")
+    check(all(math.isfinite(x) for x in res["losses"] + res["grad_norms"]),
+          "a training loss or grad norm is not finite")
+    check(res["losses"][-1] < res["losses"][0], "the training loss did not "
+          "fall")
+    check(not res["launches"], f"a training step launched a kernel: "
+          f"{res['launches']}")
+    rec["train"] = res
+    return tr
+
+
+def train_ckpt_serve(torch, rec, tr):
+    """The trained params through ``save_checkpoint`` and, with the
+    optimizer state freed, ``load_checkpoint`` onto the card: every leaf
+    equal byte for byte. Then ``Engine.generate`` (coopt, the kernels) on
+    the loaded params: 4 greedy requests, K1, K3 and K4 launched, tokens
+    inside the vocabulary."""
+    import shutil
+    from repro_torch import tree as tree_util
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.core.coopt import COOPT
+    from repro_torch.kernels import cuda
+    from repro_torch.serving import Engine, EngineConfig
+    res = rec["train"]
+    cfg = tr.cfg
+    path = ROOT / "_work" / "train_ckpt"
+    shutil.rmtree(path, ignore_errors=True)
+    params, step = tr.params, int(tr.opt_state.step)
+    tr.opt_state = tr.params = None
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    save_checkpoint(str(path), params, step=step)
+    res["save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = load_checkpoint(str(path), params)
+    torch.cuda.synchronize()
+    res["load_s"] = time.perf_counter() - t0
+    pairs = list(zip(tree_util.leaves(params), tree_util.leaves(loaded)))
+    same = all(a.dtype == b.dtype and a.device == b.device
+               and torch.equal(_bits(torch, a), _bits(torch, b))
+               for a, b in pairs)
+    res["ckpt_leaves"], res["ckpt_bytes_equal"] = len(pairs), same
+    res["ckpt_gib"] = sum(a.numel() * a.element_size()
+                          for a, _ in pairs) / 2**30
+    del params, pairs
+    shutil.rmtree(path, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"train: checkpoint of {res['ckpt_leaves']} leaves, "
+        f"{res['ckpt_gib']:.2f} GiB: saved in {res['save_s']:.1f} s, loaded "
+        f"onto the card in {res['load_s']:.1f} s, byte-equal {same}")
+    check(same, "a checkpoint leaf came back changed")
+    eng = Engine(cfg, COOPT.replace(use_kernel=True),
+                 EngineConfig(num_lanes=4, max_len=1024, seed=0),
+                 params=loaded, device=DEV)
+    prompts = engine_prompts(cfg)[:4]
+    cuda.reset_launches()
+    outs = eng.generate(prompts, max_new_tokens=16)
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    toks = [t for o in outs for t in o]
+    res["serve"] = dict(tokens=[list(map(int, o)) for o in outs],
+                        launches={k: v for k, v in launches.items() if v})
+    log(f"train: the loaded params served: {[len(o) for o in outs]} tokens, "
+        f"launches {res['serve']['launches']}")
+    check(all(len(o) == 16 for o in outs), "serving the loaded params did "
+          "not finish")
+    check(all(0 <= t < cfg.vocab_size for t in toks), "a token outside the "
+          "vocabulary")
+    for k in ("kv_cache_write", "flash_chunk_prefill",
+              "paged_pool_decode_visits"):
+        check(launches[k] > 0, f"{k} never launched serving the loaded "
+              "params")
+    del eng, loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _train_batch(np, cfg, B, S, seed=0):
+    """A host batch of ``TrainPipeline(seed)``, with random bf16-exact
+    patches (vlm) or frames (whisper) from a numpy generator."""
+    from repro_torch.data import TrainPipeline
+    batch = dict(TrainPipeline(cfg.vocab_size, B, S, seed=seed).next_batch())
+    rng = np.random.default_rng(seed + 1)
+    if cfg.family == "vlm":
+        batch["patches"] = rng.normal(0, 1, (B, cfg.num_patches, cfg.d_model))
+    if cfg.family == "whisper":
+        batch["frames"] = rng.normal(0, 1, (B, cfg.num_frames, cfg.d_model))
+    return batch
+
+
+def _on(torch, batch, dev):
+    return {k: torch.as_tensor(v).to(dev, torch.bfloat16)
+            if v.dtype.kind == "f" else torch.as_tensor(v).to(dev)
+            for k, v in batch.items()}
+
+
+def train_parity(torch, rec, archs=None):
+    """One ``make_train_step`` from the same params and batch on the card
+    and on the CPU for each model of ``PARITY``: the loss within
+    TRAIN_LOSS_ATOL, each leaf's gradient within its relative L2 bound, and
+    a control (the card's labels rolled by one) that must break the bound.
+    A MoE model's card routes are held to the CPU's (``TiePin``): a flip
+    only at a router near-tie (``ROUTE_TIE``)."""
+    import numpy as np
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get_config
+    from repro_torch.core.coopt import COOPT
+    from repro_torch.models import get_model
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.training import adamw_init, make_train_step
+    from repro_torch.training import train as train_mod
+    out = {}
+    got = {}
+    inner = train_mod.loss_and_grads
+
+    def capture(*a, **kw):
+        m, g = inner(*a, **kw)
+        got["metrics"], got["grads"] = m, g
+        return m, g
+    for arch in archs or PARITY:
+        cfg = get_config(arch)
+        model = get_model(cfg)
+        p_cpu = model.init(seed=3, device="cpu")
+        p_card = tree_util.tree_map(lambda t: t.to(DEV, copy=True), p_cpu)
+        host = _train_batch(np, cfg, 2, 64)
+        step = make_train_step(cfg, COOPT, lr=1e-3)
+        train_mod.loss_and_grads = capture
+        try:
+            with RouteLog(torch, moe_mod) as ref:
+                _, _, m_cpu = step(p_cpu, adamw_init(p_cpu),
+                                   _on(torch, host, "cpu"))
+            g_cpu = got["grads"]
+            with TiePin(torch, moe_mod, ref.calls, ROUTE_TIE) as pin:
+                _, _, m_card = step(p_card, adamw_init(p_card),
+                                    _on(torch, host, DEV))
+            g_card = got["grads"]
+        finally:
+            train_mod.loss_and_grads = inner
+        rolled = dict(host, labels=np.roll(host["labels"], 1, axis=1))
+        # the control from the step's starting params: the card's copy
+        # moved with its step, so start again from the CPU's
+        p_ctl = tree_util.tree_map(lambda t: t.to(DEV, copy=True),
+                                   model.init(seed=3, device="cpu"))
+        with TiePin(torch, moe_mod, ref.calls, ROUTE_TIE) as pin_c:
+            _, g_ctl = inner(model, p_ctl, _on(torch, rolled, DEV), COOPT)
+        paths = [p for p, _ in tree_util.leaves_with_path(p_cpu)]
+        tols = [grad_tol(arch, p) for p in paths]
+        rel = [_rel_l2(torch, a.cpu(), b) for a, b in zip(g_card, g_cpu)]
+        rel_ctl = [_rel_l2(torch, a.cpu(), b) for a, b in zip(g_ctl, g_cpu)]
+        # the worst leaf of each bound's group, as (leaf, rel L2, bound)
+        groups = {}
+        for p, x, t in zip(paths, rel, tols):
+            if x > groups.get(t, ("", -1.0))[1]:
+                groups[t] = ("/".join(map(str, p)), x)
+        worst = [(name, x, t) for t, (name, x) in sorted(groups.items())]
+        r = dict(loss_card=float(m_card["loss"]), loss_cpu=float(m_cpu["loss"]),
+                 grad_norm_card=float(m_card["grad_norm"]),
+                 grad_norm_cpu=float(m_cpu["grad_norm"]), worst=worst,
+                 over=[w for w in worst if w[1] > w[2]],
+                 control_worst_rel_l2=max(rel_ctl),
+                 control_breaks=any(c > t for c, t in zip(rel_ctl, tols)),
+                 pinned_ties=len(pin.pinned),
+                 widest_pinned_gap=max(pin.pinned, default=0.0),
+                 bad_flips=pin.bad + pin_c.bad)
+        out[arch] = r
+        log(f"train card vs CPU ({arch}): loss {r['loss_card']:.5f} / "
+            f"{r['loss_cpu']:.5f}, grad norm {r['grad_norm_card']:.4f} / "
+            f"{r['grad_norm_cpu']:.4f}, worst leaf rel L2 "
+            + ", ".join(f"{n} {x:.3e} (tol {t})" for n, x, t in worst)
+            + f"; control (labels rolled) {r['control_worst_rel_l2']:.3e}; "
+            f"router ties pinned {r['pinned_ties']} (widest gap "
+            f"{r['widest_pinned_gap']:.2e})")
+        check(not r["bad_flips"], f"{arch}: a MoE route flipped away from a "
+              f"tie: {r['bad_flips'][:4]}")
+        check(abs(r["loss_card"] - r["loss_cpu"]) <= TRAIN_LOSS_ATOL,
+              f"{arch}: card and CPU losses differ")
+        check(not r["over"], f"{arch}: card and CPU gradients differ: "
+              f"{r['over']}")
+        check(r["control_breaks"], f"{arch}: the gradient check missed the "
+              "rolled labels")
+        del p_cpu, p_card, p_ctl, g_cpu, g_card, g_ctl
+    rec.setdefault("train", {})["parity"] = out
+    torch.cuda.empty_cache()
+
+
+def train_micro_case(torch, rec):
+    """qwen3-4b at TRAIN_MICRO layers (full width), the B x S batch in
+    ``num_microbatches`` parts against whole, from the same params: the
+    accumulated gradients within MICRO_GRAD_RTOL of the whole batch's, leaf
+    by leaf (relative L2), and, after one step, the grad norm within
+    MICRO_GNORM_RTOL, the loss within MICRO_LOSS_ATOL and every param within
+    MICRO_PARAM_TOL (atol and rtol). Controls: the first microbatch's
+    gradients alone, and the sum without the division by n, break the
+    gradient bound."""
+    import numpy as np
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get_config
+    from repro_torch.core.coopt import COOPT
+    from repro_torch.models import get_model
+    from repro_torch.training import adamw_init, make_train_step
+    from repro_torch.training.train import loss_and_grads, step_grads
+    arch, B, S = TRAIN[:3]
+    layers, n = TRAIN_MICRO
+    cfg = get_config(arch).replace(num_layers=layers)
+    model = get_model(cfg)
+    p1 = model.init(0, DEV)
+    batch = _on(torch, _train_batch(np, cfg, B, S), DEV)
+    torch.cuda.reset_peak_memory_stats()
+    _, g1 = step_grads(model, p1, batch, COOPT, 1)
+    _, gn = step_grads(model, p1, batch, COOPT, n)
+    rel = [_rel_l2(torch, a, b) for a, b in zip(gn, g1)]
+    worst_leaf = "/".join(map(str, tree_util.leaves_with_path(p1)[
+        int(np.argmax(rel))][0]))
+    ctl_no_div = max(_rel_l2(torch, a * n, b) for a, b in zip(gn, g1))
+    del gn
+    _, g_first = loss_and_grads(model, p1, {k: v[:B // n]
+                                            for k, v in batch.items()}, COOPT)
+    ctl_first = max(_rel_l2(torch, a, b) for a, b in zip(g_first, g1))
+    first_norm = math.sqrt(sum(g.float().square().sum().item()
+                               for g in g_first))
+    del g_first, g1
+    pn = tree_util.tree_map(lambda t: t.clone(), p1)
+    p1, _, m1 = make_train_step(cfg, COOPT, num_microbatches=1)(
+        p1, adamw_init(p1), batch)
+    pn, _, mn = make_train_step(cfg, COOPT, num_microbatches=n)(
+        pn, adamw_init(pn), batch)
+    dl = abs(float(m1["loss"]) - float(mn["loss"]))
+    gn1, gnn = float(m1["grad_norm"]), float(mn["grad_norm"])
+    close = all(torch.allclose(a.float(), b.float(), atol=MICRO_PARAM_TOL,
+                               rtol=MICRO_PARAM_TOL)
+                for a, b in zip(tree_util.leaves(p1), tree_util.leaves(pn)))
+    worst = max((a.float() - b.float()).abs().max().item()
+                for a, b in zip(tree_util.leaves(p1), tree_util.leaves(pn)))
+    res = dict(layers=layers, microbatches=n, worst_grad_leaf=worst_leaf,
+               worst_grad_rel_l2=max(rel),
+               control_first_rel_l2=ctl_first,
+               control_no_div_rel_l2=ctl_no_div, loss_diff=dl,
+               grad_norm_1=gn1, grad_norm_n=gnn,
+               grad_norm_first_microbatch=first_norm, params_close=close,
+               max_param_diff=worst,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    rec["train"]["microbatch"] = res
+    log(f"train: {arch} at {layers} layers, {n} microbatches against 1: "
+        f"worst leaf gradient {worst_leaf} rel L2 {max(rel):.3e} (tol "
+        f"{MICRO_GRAD_RTOL}; "
+        f"controls: the first microbatch alone {ctl_first:.3e}, no division "
+        f"by n {ctl_no_div:.3e}), grad norm "
+        f"{gnn:.5f} / {gn1:.5f} (rtol {MICRO_GNORM_RTOL}; the first "
+        f"microbatch's {first_norm:.5f}), |loss diff| {dl:.2e} (atol "
+        f"{MICRO_LOSS_ATOL}), max |param diff| {worst:.3e}, params within "
+        f"{MICRO_PARAM_TOL}: {close}, peak {res['peak_gib']:.2f} GiB (an f32 "
+        "accumulator a leaf)")
+    check(max(rel) <= MICRO_GRAD_RTOL, "microbatched gradients differ")
+    check(min(ctl_first, ctl_no_div) > MICRO_GRAD_RTOL,
+          "the microbatch gradient check missed a control")
+    check(abs(gnn - gn1) <= MICRO_GNORM_RTOL * gn1,
+          "microbatched grad norm differs")
+    check(dl <= MICRO_LOSS_ATOL, "microbatched loss differs")
+    check(close, "microbatched params differ")
+    del p1, pn
+    torch.cuda.empty_cache()
+
+
+def train_guard_case(torch, rec):
+    """``loss_fn`` under autograd with ``use_kernel=True`` must raise on the
+    card (no gradient flows through a hand-written kernel)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.coopt import COOPT
+    from repro_torch.models import get_model
+    from repro_torch.training import train as train_mod
+    cfg = get_config("qwen3-4b-reduced")
+    model = get_model(cfg)
+    params = model.init(0, DEV)
+    batch = _on(torch, _train_batch(np, cfg, 2, 64), DEV)
+    try:
+        train_mod.loss_and_grads(model, params, batch,
+                                 COOPT.replace(use_kernel=True))
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    rec["train"]["guard"] = raised
+    log(f"train: loss_fn with use_kernel=True under autograd raised: "
+        f"{raised!r}")
+    check(raised is not None and "no gradient" in raised,
+          "a gradient through a hand-written kernel did not raise")
+
+
+def train_phase(torch, rec, smi):
+    """``--only train``: the full-size run, the checkpoint round trip and
+    serving, the card against the CPU, microbatches and the guard."""
+    s = {}
+    t0 = time.perf_counter()
+    tr = train_full_run(torch, rec, smi)
+    s["full"] = time.perf_counter() - t0
+    train_ckpt_serve(torch, rec, tr)
+    s["ckpt_serve"] = time.perf_counter() - t0 - s["full"]
+    del tr
+    t1 = time.perf_counter()
+    train_parity(torch, rec)
+    s["parity"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    train_micro_case(torch, rec)
+    train_guard_case(torch, rec)
+    s["micro_guard"] = time.perf_counter() - t1
+    rec["train"]["s"] = s
+    log("train phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                             for k, v in s.items()))
+
+
 PARITY = ("qwen3-4b-reduced", "deepseek-v2-lite-16b-reduced",
           "mixtral-8x22b-reduced", "internvl2-2b-reduced",
           "recurrentgemma-9b-reduced", "rwkv6-7b-reduced",
@@ -5013,7 +5560,7 @@ def main(argv=None) -> int:
                                        "engine", "mla", "prefill", "async",
                                        "serve", "packed", "recurrent",
                                        "sharded", "whisper", "host",
-                                       "parity"),
+                                       "parity", "train"),
                     help="run one phase (debugging; prints no result line)")
     ap.add_argument("--src", help="import repro_torch from this directory "
                     "instead of ./src (to time another tree's kernels)")
@@ -5163,6 +5710,10 @@ def main(argv=None) -> int:
             for arch in PARITY:
                 parity_phase(torch, rec, arch)
             done("parity", t0)
+        if only in (None, "train"):
+            t0 = time.perf_counter()
+            train_phase(torch, rec, smi)
+            done("train", t0)
         if only is None:
             for k in kernels:
                 k["launches"] = paths[LAUNCH_PATH[k["name"]]][k["name"]]

@@ -9,6 +9,14 @@ wrapper launches its CUDA kernel on CUDA tensors, raises if its library
 does not build, and runs its plain PyTorch version only for CPU tensors;
 nothing here catches an error and falls back.
 
+No gradient flows through a hand-written kernel: its library is bound
+through ``ctypes``, so its outputs carry no ``grad_fn``. Each wrapper that
+can reach one (K1-K8, and the sharded layer through the read wrappers)
+refuses a call under autograd (``torch.is_grad_enabled()`` with a floating
+input that requires grad) on every device, as the JAX package's
+``jax.grad`` refuses ``pallas_call``; training runs the plain path
+(``use_kernel=False``).
+
 Page-range shards: while a ``sharded.ShardCtx`` is installed
 (``set_mesh_ctx``; the engine binds its mesh's around every step body with
 ``mesh_ctx_scope``), every READ wrapper dispatches to ``kernels.sharded``:
@@ -83,6 +91,16 @@ def _gqa_use_visits(share_visits: bool, B: int, Hq: int, Hkv: int, D: int,
         B, Hq, Hkv, D, ps, opt_kv, opt_gqa)
 
 
+def _no_grad_through(name: str, *tensors) -> None:
+    """Raise if autograd would need a gradient through kernel ``name``."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: no gradient flows through the hand-written kernels "
+            "(use_kernel=True); train with use_kernel=False, or call under "
+            "torch.no_grad()")
+
+
 def _i32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int32).contiguous()
 
@@ -97,6 +115,7 @@ def paged_pool_decode(q, kv_pages, scale_pages, cache_len, phys_table,
     the visit-list kernel K4 runs where its plan fits one block's shared
     memory; otherwise the per-lane kernel K2. Under a shard context: the
     sharded read (``sharded.paged_pool_decode``)."""
+    _no_grad_through("paged_pool_decode", q, kv_pages, scale_pages)
     if _MESH_CTX is not None:
         return _sh.paged_pool_decode(
             _MESH_CTX, q, kv_pages, scale_pages, cache_len, phys_table,
@@ -122,6 +141,7 @@ def kv_cache_write(kv_cache, scale_cache, k_new, v_new, slot_idx, *,
                    opt_kv: bool):
     """Engine-layout adapter for the write kernel: scatters into the pool
     (2,P_total,ps,Hkv,D) in place and returns (kv_cache, scale_cache)."""
+    _no_grad_through("kv_cache_write", k_new, v_new, kv_cache, scale_cache)
     _, Pt, ps, Hkv, D = kv_cache.shape
     flat = kv_cache.view(2, Pt * ps, Hkv, D)
     sflat = (scale_cache.view(2, Pt * ps, Hkv)
@@ -142,6 +162,7 @@ def paged_chunk_prefill(q, positions, kv_pages, scale_pages, phys_table, *,
     chunk's own K/V must already be written. ``seg_q``/``page_seg``/
     ``page_base`` are the concat-prefill packing planes; None = unpacked.
     Under a shard context: the sharded read."""
+    _no_grad_through("paged_chunk_prefill", q, kv_pages, scale_pages)
     if _MESH_CTX is not None:
         return _sh.paged_chunk_prefill(
             _MESH_CTX, q, positions, kv_pages, scale_pages, phys_table,
@@ -193,6 +214,8 @@ def paged_latent_decode(q_lat, q_rope, lat_pages, scale_pages, cache_len,
     With ``share_visits`` and 1 < B <= 32 the visit-list kernel K7 runs;
     otherwise the per-lane kernel K5. Returns o_lat (B,H,R) f32. Under a
     shard context: the sharded read."""
+    _no_grad_through("paged_latent_decode", q_lat, q_rope, lat_pages,
+                     scale_pages)
     if _MESH_CTX is not None:
         return _sh.paged_latent_decode(
             _MESH_CTX, q_lat, q_rope, lat_pages, scale_pages, cache_len,
@@ -222,6 +245,8 @@ def latent_chunk_prefill(q_lat, q_rope, positions, lat_pages, scale_pages,
     named by ``phys_table`` (B,NP; -1 = never read). The chunk's own
     latents must already be written. Returns o_lat (B,S,H,R) f32. Under a
     shard context: the sharded read."""
+    _no_grad_through("latent_chunk_prefill", q_lat, q_rope, lat_pages,
+                     scale_pages)
     if _MESH_CTX is not None:
         return _sh.latent_chunk_prefill(
             _MESH_CTX, q_lat, q_rope, positions, lat_pages, scale_pages,
@@ -239,5 +264,6 @@ def latent_chunk_prefill(q_lat, q_rope, positions, lat_pages, scale_pages,
 
 def flash_prefill(q, k, v, *, window: int = 0, q_offset: int = 0):
     """Full-prompt causal attention over in-prompt K/V, no pool (K8)."""
+    _no_grad_through("flash_prefill", q, k, v)
     return _fp.flash_prefill(q.contiguous(), k.contiguous(), v.contiguous(),
                              window=window, q_offset=q_offset)

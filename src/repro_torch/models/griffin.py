@@ -30,6 +30,7 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.coopt import COOPT, CoOptConfig
@@ -253,6 +254,59 @@ class GriffinModel:
         for j in range(self.n_trail):
             h = one_rec(h, 2 * self.n_periods + j)
         return h, torch.stack(new_c), torch.stack(new_h)
+
+    def forward(self, params, batch, coopt: CoOptConfig = COOPT):
+        """Teacher-forced logits (B,S,V) for training, from a zero recurrent
+        state and with in-flight attention only (no pool). Each (rec, rec,
+        attn) period runs under activation checkpointing, as the JAX
+        package's ``jax.checkpoint(period)``; the trailing rec layers do not.
+        Returns (logits, {})."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        h = params["embed"][tokens].to(torch.bfloat16)
+        dev = h.device
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=dev)[None].expand(B, S)
+        c0 = torch.zeros((B, cfg.conv1d_width - 1, cfg.lru_width),
+                         dtype=torch.bfloat16, device=dev)
+        h0 = torch.zeros((B, cfg.lru_width), dtype=torch.float32, device=dev)
+        rec = {k: v.unbind(0) for k, v in params["rec"].items()}
+        attn = {k: v.unbind(0) for k, v in params["attn"].items()}
+
+        def one_rec(hh, pl):
+            a, _, _ = self._rec_block(pl, rmsnorm(hh, pl["ln"], cfg.norm_eps),
+                                      c0, h0)
+            hh = hh + a
+            return hh + self._mlp(pl, rmsnorm(hh, pl["ln_f"], cfg.norm_eps))
+
+        def period(hh, r0, r1, ap):
+            hh = one_rec(one_rec(hh, r0), r1)
+            a, _, _ = self._attn_full(ap, rmsnorm(hh, ap["ln"], cfg.norm_eps),
+                                      positions, coopt)
+            hh = hh + a
+            return hh + self._mlp(ap, rmsnorm(hh, ap["ln_f"], cfg.norm_eps))
+
+        def layer(j):
+            return {k: v[j] for k, v in rec.items()}
+        for p in range(self.n_periods):
+            pa = {k: v[p] for k, v in attn.items()}
+            h = checkpoint(period, h, layer(2 * p), layer(2 * p + 1), pa,
+                           use_reentrant=False, preserve_rng_state=False)
+        for j in range(self.n_trail):
+            h = one_rec(h, layer(2 * self.n_periods + j))
+        h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+        return linear(h, params["lm_head"]), {}
+
+    def input_specs(self, shape) -> Dict[str, Any]:
+        """Step inputs for an ``InputShape``: name -> (shape, dtype)."""
+        B, S = shape.global_batch, shape.seq_len
+        if shape.kind == "decode":
+            return {"token": ((B, 1), torch.int32)}
+        out = {"tokens": ((B, S), torch.int32)}
+        if shape.kind == "train":
+            out["labels"] = ((B, S), torch.int32)
+        return out
 
     def prefill(self, params, batch, cache, coopt: CoOptConfig = COOPT,
                 long_window: int = 0):

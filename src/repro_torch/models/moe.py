@@ -9,22 +9,31 @@ dispatched tokens run through the expert SwiGLU as batched matmuls
 ((B, E, C, d) x (E, d, ff)) and are scattered back with their router
 weights; always-on shared experts are added on top. The JAX package leaves
 these products to XLA outside any Pallas kernel; here they are plain
-PyTorch matmuls. The training-only auxiliary losses (load balance, router
-z-loss, dropped fraction) are not ported: serving never reads them.
+PyTorch matmuls. Training asks for the Switch-style auxiliary terms
+(``MoEAux``: load balance, router z-loss, dropped fraction,
+``with_aux=True``); a serving step computes none of them.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.models.layers import linear, silu, swiglu
 
 
-def _route(logits: torch.Tensor, top_k: int, capacity: int):
+class MoEAux(NamedTuple):
+    load_balance_loss: torch.Tensor
+    router_z_loss: torch.Tensor
+    dropped_fraction: torch.Tensor
+
+
+def _route(logits: torch.Tensor, top_k: int, capacity: int,
+           with_aux: bool = False):
     """logits (B,S,E) -> (idx (B,E,C) token positions, S = empty slot;
-    comb (B,E,C) f32 router weights of the token in each slot)."""
+    comb (B,E,C) f32 router weights of the token in each slot), and with
+    ``with_aux`` the ``MoEAux`` terms as a third element."""
     B, S, E = logits.shape
     dev = logits.device
     probs = torch.softmax(logits.float(), dim=-1)
@@ -53,20 +62,31 @@ def _route(logits: torch.Tensor, top_k: int, capacity: int):
     w_pad = torch.cat([w_tok_e, torch.zeros((B, 1, E), device=dev)], dim=1)
     comb = w_pad[torch.arange(B, device=dev)[:, None, None], idx,
                  torch.arange(E, device=dev)[None, :, None]]   # (B,E,C)
-    return idx, comb
+    if not with_aux:
+        return idx, comb
+    # Switch-style auxiliary terms
+    frac_tokens = mask.mean(dim=1)                             # (B,E)
+    frac_probs = probs.mean(dim=1)                             # (B,E)
+    lb = E * (frac_tokens * frac_probs).sum(dim=-1).mean()
+    z = torch.square(torch.logsumexp(logits.float(), dim=-1)).mean()
+    dropped = 1.0 - keep.sum() / torch.clamp_min(mask.sum(), 1.0)
+    return idx, comb, MoEAux(lb, z, dropped)
 
 
 def moe_ffn(x, wr, wg, wu, wd, *, top_k: int, capacity_factor: float = 1.25,
-            shared: Optional[tuple] = None) -> torch.Tensor:
+            shared: Optional[tuple] = None, with_aux: bool = False):
     """x (B,S,d); wr (d,E); wg/wu (E,d,ff); wd (E,ff,d); shared: optional
     (wg_s, wu_s, wd_s) always-on shared-expert SwiGLU. Returns (B,S,d) in
-    x's dtype."""
+    x's dtype, and with ``with_aux`` (out, ``MoEAux``)."""
     B, S, d = x.shape
     E = wr.shape[-1]
     capacity = max(int(math.ceil(S * top_k / E * capacity_factor)), 1)
     capacity = min(capacity, S)
 
-    idx, comb = _route(linear(x, wr), top_k, capacity)
+    if with_aux:
+        idx, comb, aux = _route(linear(x, wr), top_k, capacity, with_aux=True)
+    else:
+        idx, comb = _route(linear(x, wr), top_k, capacity)
     x_pad = torch.cat([x, torch.zeros((B, 1, d), dtype=x.dtype,
                                       device=x.device)], dim=1)
     rows = torch.arange(B, device=x.device)[:, None, None]
@@ -83,4 +103,4 @@ def moe_ffn(x, wr, wg, wu, wd, *, top_k: int, capacity_factor: float = 1.25,
     out = out[:, :S]
     if shared is not None:
         out = out + swiglu(x, *shared)
-    return out.to(x.dtype)
+    return (out.to(x.dtype), aux) if with_aux else out.to(x.dtype)

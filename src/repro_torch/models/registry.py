@@ -7,6 +7,8 @@ Every model exposes the engine-facing protocol of the JAX package:
   cache_shape(batch, max_len, coopt, num_shards=1, cache_cfg=None) /
   init_cache(..., device)                      — num_shards pads the paged
       pool's pages axis so it splits evenly into page-range shards
+  forward(params, batch, coopt) / input_specs(shape) — teacher-forced
+      logits and aux terms for training (``repro_torch.training``)
 The ``dense``, ``moe``, ``mla`` and ``vlm`` families are ported
 (``TransformerModel``), and so are ``griffin`` (``GriffinModel``) and
 ``rwkv6`` (``RWKV6Model``), whose ``recurrent_leaves`` name the cache leaves

@@ -27,6 +27,7 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.coopt import COOPT, CoOptConfig
@@ -115,37 +116,54 @@ class RWKV6Model:
         return r, k, v, g, w, x[:, -1:]
 
     @staticmethod
-    def _wkv_chunked(r, k, v, w, u, state):
+    def _wkv_chunk(rc, kc, vc, lwc, u, state, tri):
+        """One chunk of ``_wkv_chunked``: (out (B,C,H,D), new state)."""
+        cum = torch.cumsum(lwc, dim=1)            # log prod of w up to t
+        # decay from the chunk start to just BEFORE t: every exponent below
+        # is a true non-positive log-decay, so exp never overflows and
+        # underflow to zero is the exact limit
+        before = cum - lwc                                    # <= 0
+        r_d = rc * torch.exp(before)
+        k_d = kc * torch.exp(cum[:, -1:] - cum)
+        inter = torch.einsum("bchd,bhde->bche", r_d, state)
+        # intra-chunk: exponent(t, s) = cum_{t-1} - cum_s, the decay of k_s
+        # by w_{s+1} .. w_{t-1} (``minimum``: a tie at 0 splits the
+        # gradient, as ``jnp.minimum``'s does)
+        pair = before[:, :, None] - cum[:, None, :]           # (B,C,C,H,D)
+        att = (rc[:, :, None] * kc[:, None]
+               * torch.exp(torch.minimum(pair, pair.new_zeros(())))).sum(-1)
+        att = att.permute(0, 3, 1, 2) * tri                    # (B,H,C,C)
+        intra = torch.einsum("bhts,bshd->bthd", att, vc)
+        # the current token's bonus u
+        bonus = (rc * (u[None, None] * kc)).sum(-1)          # (B,C,H)
+        out = inter + intra + bonus[..., None] * vc
+        state = state * torch.exp(cum[:, -1])[..., None] + \
+            torch.einsum("bchd,bche->bhde", k_d, vc)
+        return out, state
+
+    @staticmethod
+    def _wkv_chunked(r, k, v, w, u, state, remat: bool = False):
         """Chunked linear recurrence. r, k, v, w (B,S,H,D) f32; u (H,D);
         state (B,H,D,D). Returns (out (B,S,H,D), new state). Within a chunk:
-        a decay-weighted quadratic form plus the inherited state's matmul."""
+        a decay-weighted quadratic form plus the inherited state's matmul.
+        ``remat`` recomputes each chunk in the backward (the JAX package's
+        nested ``jax.checkpoint``: the (B,C,C,H,D) pairwise decays are not
+        kept for every chunk)."""
         B, S, H, D = r.shape
         C = _CHUNK if S % _CHUNK == 0 else S
         logw = torch.log(torch.clamp_min(w, 1e-20))
         tri = torch.tril(torch.ones((C, C), device=r.device), -1)
         outs = []
         for c0 in range(0, S, C):
-            rc, kc, vc, lwc = (t[:, c0:c0 + C] for t in (r, k, v, logw))
-            cum = torch.cumsum(lwc, dim=1)        # log prod of w up to t
-            # decay from the chunk start to just BEFORE t: every exponent
-            # below is a true non-positive log-decay, so exp never
-            # overflows and underflow to zero is the exact limit
-            before = cum - lwc                                # <= 0
-            r_d = rc * torch.exp(before)
-            k_d = kc * torch.exp(cum[:, -1:] - cum)
-            inter = torch.einsum("bchd,bhde->bche", r_d, state)
-            # intra-chunk: exponent(t, s) = cum_{t-1} - cum_s, the decay
-            # of k_s by w_{s+1} .. w_{t-1}
-            pair = before[:, :, None] - cum[:, None, :]       # (B,C,C,H,D)
-            att = (rc[:, :, None] * kc[:, None]
-                   * torch.exp(torch.clamp_max(pair, 0.0))).sum(-1)
-            att = att.permute(0, 3, 1, 2) * tri                # (B,H,C,C)
-            intra = torch.einsum("bhts,bshd->bthd", att, vc)
-            # the current token's bonus u
-            bonus = (rc * (u[None, None] * kc)).sum(-1)      # (B,C,H)
-            outs.append(inter + intra + bonus[..., None] * vc)
-            state = state * torch.exp(cum[:, -1])[..., None] + \
-                torch.einsum("bchd,bche->bhde", k_d, vc)
+            args = [t[:, c0:c0 + C] for t in (r, k, v, logw)] + [u, state,
+                                                                  tri]
+            if remat:
+                o, state = checkpoint(RWKV6Model._wkv_chunk, *args,
+                                      use_reentrant=False,
+                                      preserve_rng_state=False)
+            else:
+                o, state = RWKV6Model._wkv_chunk(*args)
+            outs.append(o)
         return torch.cat(outs, dim=1), state
 
     @staticmethod
@@ -155,7 +173,8 @@ class RWKV6Model:
         out = torch.einsum("bhd,bhde->bhe", r, state + u[None, :, :, None] * kv)
         return out, state * w[..., None] + kv
 
-    def _time_mix(self, pl, x, shift, state, valid=None, last_pos=None):
+    def _time_mix(self, pl, x, shift, state, valid=None, last_pos=None,
+                  remat: bool = False):
         """x (B,S,d) -> (out, new shift, new state). ``valid`` (B,S) freezes
         the recurrence on padding (w=1, k=0: the state passes through as if
         the token were never fed)."""
@@ -176,7 +195,7 @@ class RWKV6Model:
                                       u, state)
             o = o[:, None]
         else:
-            o, state = self._wkv_chunked(rf, kf, vf, wf, u, state)
+            o, state = self._wkv_chunked(rf, kf, vf, wf, u, state, remat)
         # group norm over each head, then the gate (Finch: GroupNorm(H))
         mu = o.mean(dim=-1, keepdim=True)
         var = torch.square(o - mu).mean(dim=-1, keepdim=True)
@@ -198,22 +217,37 @@ class RWKV6Model:
             new_shift
 
     # ------------------------------------------------------------- forward --
-    def _run(self, params, tokens, state, valid=None, last_pos=None):
-        """The shared trunk. Returns (normed h (B,S,d), new state dict)."""
+    def _layer(self, pl, h, wkv, shift_t, shift_c, valid=None, last_pos=None,
+               remat: bool = False):
+        """One layer: (h, new wkv, new shift_t, new shift_c)."""
+        eps = self.cfg.norm_eps
+        a, st, s_wkv = self._time_mix(pl, rmsnorm(h, pl["ln1"], eps), shift_t,
+                                      wkv, valid, last_pos, remat)
+        h = h + a
+        f, sc = self._channel_mix(pl, rmsnorm(h, pl["ln2"], eps), shift_c,
+                                  last_pos)
+        return h + f, s_wkv, st, sc
+
+    def _run(self, params, tokens, state, valid=None, last_pos=None,
+             remat: bool = False):
+        """The shared trunk. Returns (normed h (B,S,d), new state dict).
+        ``remat`` (training) runs each layer under activation
+        checkpointing, and each wkv chunk inside it, as the JAX package."""
         cfg = self.cfg
         S = tokens.shape[1]
         h = params["embed"][tokens].to(torch.bfloat16)
-        lay = params["layers"]
+        lay = {k: v.unbind(0) for k, v in params["layers"].items()}
         wkv, sh_t, sh_c = [], [], []
         for i in range(cfg.num_layers):
             pl = {k: v[i] for k, v in lay.items()}
-            x = rmsnorm(h, pl["ln1"], cfg.norm_eps)
-            a, st, s_wkv = self._time_mix(pl, x, state["shift_t"][i],
-                                          state["wkv"][i], valid, last_pos)
-            h = h + a
-            x = rmsnorm(h, pl["ln2"], cfg.norm_eps)
-            f, sc = self._channel_mix(pl, x, state["shift_c"][i], last_pos)
-            h = h + f
+            args = (pl, h, state["wkv"][i], state["shift_t"][i],
+                    state["shift_c"][i], valid, last_pos)
+            if remat:
+                h, s_wkv, st, sc = checkpoint(
+                    self._layer, *args, remat=True, use_reentrant=False,
+                    preserve_rng_state=False)
+            else:
+                h, s_wkv, st, sc = self._layer(*args)
             wkv.append(s_wkv)
             sh_t.append(st)
             sh_c.append(sc)
@@ -222,6 +256,26 @@ class RWKV6Model:
                          shift_t=torch.stack(sh_t), shift_c=torch.stack(sh_c),
                          length=(state["length"] + added).to(torch.int32))
         return rmsnorm(h, params["final_norm"], cfg.norm_eps), new_state
+
+    def forward(self, params, batch, coopt: CoOptConfig = COOPT):
+        """Teacher-forced logits (B,S,V) for training, from a zero state
+        (discarded), each layer under activation checkpointing. Returns
+        (logits, {})."""
+        tokens = batch["tokens"]
+        state = self.init_cache(tokens.shape[0], 0, coopt,
+                                device=tokens.device)
+        h, _ = self._run(params, tokens, state, remat=True)
+        return linear(h, params["lm_head"]), {}
+
+    def input_specs(self, shape) -> Dict[str, Any]:
+        """Step inputs for an ``InputShape``: name -> (shape, dtype)."""
+        B, S = shape.global_batch, shape.seq_len
+        if shape.kind == "decode":
+            return {"token": ((B, 1), torch.int32)}
+        out = {"tokens": ((B, S), torch.int32)}
+        if shape.kind == "train":
+            out["labels"] = ((B, S), torch.int32)
+        return out
 
     def prefill(self, params, batch, cache, coopt: CoOptConfig = COOPT,
                 long_window: int = 0):

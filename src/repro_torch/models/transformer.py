@@ -18,6 +18,8 @@ ps, Hkv)``; mla ``kv (P, ps, R+dr)`` (one latent per token, no K/V axis)
 + ``scale (P, ps, 2)`` (c_kv and k_rope scales).
 
 Step kinds:
+  forward     – teacher-forced logits of a whole sequence (training), each
+                layer under activation checkpointing
   prefill     – chunked (``batch["positions"]`` given: the engine's mixed
                 step, attention over the paged history) or full-prompt
   decode_step – ONE token against the paged cache (Opt-Pa / Opt-KV read path)
@@ -28,6 +30,7 @@ import math
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.coopt import COOPT, CoOptConfig
@@ -324,15 +327,19 @@ class TransformerModel:
             sink_pages=cfg.sink_blocks, page_table=page_table)
         return linear(o.reshape(B, 1, -1), p["wo"])
 
-    def _ffn(self, p, x, kind, coopt: CoOptConfig):
+    def _ffn(self, p, x, kind, coopt: CoOptConfig, with_aux: bool = False):
+        """The layer's FFN; with ``with_aux`` (out, ``moe.MoEAux`` or None
+        for a dense FFN)."""
         cfg = self.cfg
         if kind == "dense":
-            return swiglu(x, p["wg"], p["wu"], p["wd"])
+            out = swiglu(x, p["wg"], p["wu"], p["wd"])
+            return (out, None) if with_aux else out
         shared = ((p["wg_s"], p["wu_s"], p["wd_s"])
                   if cfg.num_shared_experts else None)
         return moe_ffn(x, p["wr"], p["wg_e"], p["wu_e"], p["wd_e"],
                        top_k=cfg.top_k, shared=shared,
-                       capacity_factor=coopt.moe_capacity_factor)
+                       capacity_factor=coopt.moe_capacity_factor,
+                       with_aux=with_aux)
 
     def _write_layer(self, kv_c, sc_c, new_a, new_b, slots, coopt):
         """Write one layer's cache entries (GLOBAL flat slots; < 0 dropped).
@@ -363,6 +370,69 @@ class TransformerModel:
         return pt.to(torch.int32), P_total
 
     # ------------------------------------------------------------ forward --
+    def _train_layer(self, pl, h, positions, coopt, kind):
+        """One layer of the teacher-forced forward: (h, aux (3,))."""
+        eps = self.cfg.norm_eps
+        a, _, _ = self._attention_full(pl, rmsnorm(h, pl["ln1"], eps),
+                                       positions, coopt)
+        h = h + a
+        f, aux = self._ffn(pl, rmsnorm(h, pl["ln2"], eps), kind, coopt,
+                           with_aux=True)
+        aux = h.new_zeros(3, dtype=torch.float32) if aux is None \
+            else torch.stack(list(aux))
+        return h + f, aux
+
+    def forward(self, params, batch, coopt: CoOptConfig = COOPT):
+        """Teacher-forced logits aligned with ``batch["labels"]`` (see
+        ``input_specs``): (B,S,V); vlm: the patches of ``batch["patches"]``
+        lead the sequence and the logits are the text positions' (B,S_text,
+        V). Each layer runs under activation checkpointing (recomputed in
+        the backward), as the JAX package's ``jax.checkpoint`` body. Returns
+        (logits, aux): the MoE terms summed over layers (zeros for a dense
+        model)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        h = params["embed"][tokens].to(torch.bfloat16)
+        off = 0
+        if cfg.family == "vlm" and "patches" in batch:
+            h = torch.cat([batch["patches"].to(torch.bfloat16), h], dim=1)
+            off = cfg.num_patches
+        B, S, _ = h.shape
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=h.device)[None].expand(B, S)
+        aux = torch.zeros(3, dtype=torch.float32, device=h.device)
+        for seg, (count, kind) in zip(params["segments"], self._segments()):
+            # one unbind a leaf: the backward stacks the layers' gradients
+            # once instead of adding a leaf-sized tensor per layer
+            views = {k: v.unbind(0) for k, v in seg.items()}
+            for j in range(count):
+                pl = {k: v[j] for k, v in views.items()}
+                h, a = checkpoint(self._train_layer, pl, h, positions, coopt,
+                                  kind, use_reentrant=False,
+                                  preserve_rng_state=False)
+                aux = aux + a
+        h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+        if off:
+            # as for text alone: logits[i] predicts text token i+1
+            h = h[:, off:]
+        return linear(h, params["lm_head"]), {
+            "load_balance": aux[0], "router_z": aux[1], "dropped": aux[2]}
+
+    def input_specs(self, shape) -> Dict[str, Any]:
+        """Step inputs for an ``InputShape``: name -> (shape, dtype)."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        if shape.kind == "decode":
+            return {"token": ((B, 1), torch.int32)}
+        st = S - cfg.num_patches if cfg.family == "vlm" else S
+        out = {"tokens": ((B, st), torch.int32)}
+        if cfg.family == "vlm":
+            out["patches"] = ((B, cfg.num_patches, cfg.d_model),
+                              torch.bfloat16)
+        if shape.kind == "train":
+            out["labels"] = ((B, st), torch.int32)
+        return out
+
     def prefill(self, params, batch, cache, coopt: CoOptConfig = COOPT,
                 long_window: int = 0):
         """Prompt forward + cache population. Returns (last-token logits

@@ -26,8 +26,11 @@ F, H, D)`` + ``xscale (L, 2, B, F, H)`` (batch-major: returned as new
 tensors where a step fills them; the engine writes them into its
 persistent leaves under the lane mask) and ``length``.
 
-The teacher-forced ``forward`` of the JAX package (training) is not
-ported (ROADMAP item 16).
+``forward`` is the teacher-forced training path: the encoder, the cross
+K/V (fp8 under Opt-KV, as in the JAX package), and the decoder's causal
+self-attention over its in-flight K/V (the pool writes of the JAX
+package's body are dead there and skipped), each encoder and decoder layer
+under activation checkpointing.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ import math
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.cache.quant import dequantize_fp8, quantize_fp8, select
 from repro_torch.configs.base import ModelConfig
@@ -120,50 +124,64 @@ class WhisperModel:
                          device=device)[:, None] * inv[None]
         return torch.cat([torch.sin(t), torch.cos(t)], dim=-1)
 
-    def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
-        """frames (B, F, d) stub embeddings -> encoder states (B, F, d)."""
+    def _enc_layer(self, pl, h):
         cfg = self.cfg
-        B, F, d = frames.shape
+        B, F, _ = h.shape
         H, D = cfg.num_heads, cfg.head_dim
+        x = layernorm(h, pl["ln1"], pl["ln1_b"], cfg.norm_eps)
+        q = linear(x, pl["wq"], pl["bq"]).reshape(B, F, H, D)
+        k = linear(x, pl["wk"]).reshape(B, F, H, D)
+        v = linear(x, pl["wv"], pl["bv"]).reshape(B, F, H, D)
+        o = causal_attention(q, k, v, causal=False)
+        h = h + linear(o.reshape(B, F, H * D), pl["wo"], pl["bo"])
+        x = layernorm(h, pl["ln2"], pl["ln2_b"], cfg.norm_eps)
+        return h + gelu_mlp(x, pl["w1"], pl["b1"], pl["w2"], pl["b2"])
+
+    def encode(self, params, frames: torch.Tensor,
+               remat: bool = False) -> torch.Tensor:
+        """frames (B, F, d) stub embeddings -> encoder states (B, F, d).
+        ``remat`` (training) runs each layer under activation
+        checkpointing."""
+        cfg = self.cfg
+        _, F, d = frames.shape
         h = frames.to(torch.bfloat16) + \
             self._sinusoids(F, d, frames.device).to(torch.bfloat16)[None]
-        enc = params["enc"]
+        enc = {k: v.unbind(0) for k, v in params["enc"].items()}
         for i in range(cfg.encoder_layers):
             pl = {k: v[i] for k, v in enc.items()}
-            x = layernorm(h, pl["ln1"], pl["ln1_b"], cfg.norm_eps)
-            q = linear(x, pl["wq"], pl["bq"]).reshape(B, F, H, D)
-            k = linear(x, pl["wk"]).reshape(B, F, H, D)
-            v = linear(x, pl["wv"], pl["bv"]).reshape(B, F, H, D)
-            o = causal_attention(q, k, v, causal=False)
-            h = h + linear(o.reshape(B, F, H * D), pl["wo"], pl["bo"])
-            x = layernorm(h, pl["ln2"], pl["ln2_b"], cfg.norm_eps)
-            h = h + gelu_mlp(x, pl["w1"], pl["b1"], pl["w2"], pl["b2"])
+            if remat:
+                h = checkpoint(self._enc_layer, pl, h, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                h = self._enc_layer(pl, h)
         return layernorm(h, params["enc_ln"], params["enc_ln_b"],
                          cfg.norm_eps)
 
     # ---------------------------------------------------------- cross-attn --
-    def _fill_cross(self, params, enc, coopt: CoOptConfig):
-        """Per-layer cross-attention K/V of the encoder states: fp8 with a
-        per-vector scale under Opt-KV (``xscale`` (L, 2, B, F, H)), else
-        bf16. Returns {leaf: tensor}."""
+    def _cross_kv(self, pl, enc, coopt: CoOptConfig):
+        """One layer's cross-attention K/V of the encoder states: (k, v,
+        scale (2, B, F, H)) fp8 under Opt-KV, else (k, v, None) bf16."""
         cfg = self.cfg
         B, F, _ = enc.shape
         H, D = cfg.num_heads, cfg.head_dim
-        dec = params["dec"]
-        ks, vs, sks, svs = [], [], [], []
-        for i in range(cfg.num_layers):
-            k = linear(enc, dec["xwk"][i]).reshape(B, F, H, D)
-            v = linear(enc, dec["xwv"][i], dec["xbv"][i]).reshape(B, F, H, D)
-            if coopt.opt_kv:
-                (k, sk), (v, sv) = quantize_fp8(k), quantize_fp8(v)
-                sks.append(sk)
-                svs.append(sv)
-            ks.append(k)
-            vs.append(v)
-        out = {"xk": torch.stack(ks), "xv": torch.stack(vs)}
+        k = linear(enc, pl["xwk"]).reshape(B, F, H, D)
+        v = linear(enc, pl["xwv"], pl["xbv"]).reshape(B, F, H, D)
+        if not coopt.opt_kv:
+            return k, v, None
+        (k, sk), (v, sv) = quantize_fp8(k), quantize_fp8(v)
+        return k, v, torch.stack([sk, sv])
+
+    def _fill_cross(self, params, enc, coopt: CoOptConfig):
+        """Every layer's cross K/V, stacked: ``xk``/``xv`` (L, B, F, H, D)
+        and, under Opt-KV, ``xscale`` (L, 2, B, F, H). Returns {leaf:
+        tensor}."""
+        dec = {k: params["dec"][k].unbind(0) for k in ("xwk", "xwv", "xbv")}
+        per = [self._cross_kv({k: v[i] for k, v in dec.items()}, enc, coopt)
+               for i in range(self.cfg.num_layers)]
+        out = {"xk": torch.stack([p[0] for p in per]),
+               "xv": torch.stack([p[1] for p in per])}
         if coopt.opt_kv:
-            out["xscale"] = torch.stack([torch.stack(sks),
-                                         torch.stack(svs)], dim=1)
+            out["xscale"] = torch.stack([p[2] for p in per])
         return out
 
     def _cross_attn(self, pl, x, xk, xv, xsc, coopt: CoOptConfig):
@@ -200,44 +218,78 @@ class WhisperModel:
         page_table = page_table.to(torch.int32)
         new_len = (cache["length"] + S if cache_len is None
                    else cache_len).to(torch.int32)
-        dec = params["dec"]
+        dec = {k: v.unbind(0) for k, v in params["dec"].items()}
         for i in range(cfg.num_layers):
             pl = {k: v[i] for k, v in dec.items()}
             kv_c = cache["kv"][i]
             sc_c = cache["scale"][i] if coopt.opt_kv else None
             xsc = cache["xscale"][i] if coopt.opt_kv else None
-            x = layernorm(h, pl["ln1"], pl["ln1_b"], cfg.norm_eps)
-            q = linear(x, pl["wq"], pl["bq"]).reshape(B, S, H, D)
-            k = linear(x, pl["wk"]).reshape(B, S, H, D)
-            v = linear(x, pl["wv"], pl["bv"]).reshape(B, S, H, D)
-            write_kv(kv_c, sc_c, k, v, slots, coopt)
-            if chunk_attn:
-                # a chunk attends the lane's whole cached history (prefix
-                # hits, earlier chunks, this one) with true positions: the
-                # engine's ragged step path
-                o = paged_chunk_attention(q, kv_c, sc_c, positions,
-                                          page_table, coopt,
-                                          window=long_window,
-                                          sink_pages=cfg.sink_blocks)
-            elif S == 1:
-                o = paged_decode_attention(
-                    q[:, 0], kv_c, sc_c, new_len, coopt=coopt,
-                    window=long_window, sink_pages=cfg.sink_blocks,
-                    page_table=page_table)[:, None]
-            else:
-                o = causal_attention(q, k, v)
-            h = h + linear(o.reshape(B, S, H * D).to(h.dtype), pl["wo"],
-                           pl["bo"])
-            x = layernorm(h, pl["lnx"], pl["lnx_b"], cfg.norm_eps)
-            h = h + self._cross_attn(pl, x, cache["xk"][i], cache["xv"][i],
-                                     xsc, coopt)
-            x = layernorm(h, pl["ln2"], pl["ln2_b"], cfg.norm_eps)
-            h = h + gelu_mlp(x, pl["w1"], pl["b1"], pl["w2"], pl["b2"])
+
+            def self_attn(q, k, v):
+                write_kv(kv_c, sc_c, k, v, slots, coopt)
+                if chunk_attn:
+                    # a chunk attends the lane's whole cached history
+                    # (prefix hits, earlier chunks, this one) with true
+                    # positions: the engine's ragged step path
+                    return paged_chunk_attention(
+                        q, kv_c, sc_c, positions, page_table, coopt,
+                        window=long_window, sink_pages=cfg.sink_blocks)
+                if S == 1:
+                    return paged_decode_attention(
+                        q[:, 0], kv_c, sc_c, new_len, coopt=coopt,
+                        window=long_window, sink_pages=cfg.sink_blocks,
+                        page_table=page_table)[:, None]
+                return causal_attention(q, k, v)
+            h = self._dec_layer(pl, h, self_attn, cache["xk"][i],
+                                cache["xv"][i], xsc, coopt)
         cache["length"] = new_len
         return layernorm(h, params["final_norm"], params["final_norm_b"],
                          cfg.norm_eps)
 
+    def _dec_layer(self, pl, h, self_attn, xk, xv, xsc, coopt: CoOptConfig):
+        """One decoder layer; ``self_attn(q, k, v)`` -> (B,S,H,D)."""
+        cfg = self.cfg
+        B, S, _ = h.shape
+        H, D = cfg.num_heads, cfg.head_dim
+        x = layernorm(h, pl["ln1"], pl["ln1_b"], cfg.norm_eps)
+        q = linear(x, pl["wq"], pl["bq"]).reshape(B, S, H, D)
+        k = linear(x, pl["wk"]).reshape(B, S, H, D)
+        v = linear(x, pl["wv"], pl["bv"]).reshape(B, S, H, D)
+        o = self_attn(q, k, v)
+        h = h + linear(o.reshape(B, S, H * D).to(h.dtype), pl["wo"],
+                       pl["bo"])
+        x = layernorm(h, pl["lnx"], pl["lnx_b"], cfg.norm_eps)
+        h = h + self._cross_attn(pl, x, xk, xv, xsc, coopt)
+        x = layernorm(h, pl["ln2"], pl["ln2_b"], cfg.norm_eps)
+        return h + gelu_mlp(x, pl["w1"], pl["b1"], pl["w2"], pl["b2"])
+
     # ------------------------------------------------------------- forward --
+    def forward(self, params, batch, coopt: CoOptConfig = COOPT):
+        """Teacher-forced decoder logits over the text tokens (B,S,V) for
+        training: ``batch["frames"]`` through the encoder, the cross K/V
+        (fp8 under Opt-KV), then the decoder with causal self-attention
+        over its in-flight K/V. Returns (logits, {})."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        S = tokens.shape[1]
+        enc = self.encode(params, batch["frames"], remat=True)
+        dec = {k: v.unbind(0) for k, v in params["dec"].items()}
+        layers = [{k: v[i] for k, v in dec.items()}
+                  for i in range(cfg.num_layers)]
+        # per layer, not stacked: the gradient reaches the fp8 K/V in their
+        # own dtype (as in the JAX package), and fp8 tensors do not add
+        cross = [self._cross_kv(pl, enc, coopt) for pl in layers]
+        positions = torch.arange(S, device=tokens.device)
+        h = params["embed"][tokens].to(torch.bfloat16) + \
+            params["pos_dec"][positions][None].to(torch.bfloat16)
+        for pl, (xk, xv, xsc) in zip(layers, cross):
+            h = checkpoint(self._dec_layer, pl, h, causal_attention, xk, xv,
+                           xsc, coopt, use_reentrant=False,
+                           preserve_rng_state=False)
+        h = layernorm(h, params["final_norm"], params["final_norm_b"],
+                      cfg.norm_eps)
+        return linear(h, params["lm_head"]), {}
+
     def prefill(self, params, batch, cache, coopt: CoOptConfig = COOPT,
                 long_window: int = 0):
         """Prompt prefill, monolithic (the whole right-padded prompt) or a

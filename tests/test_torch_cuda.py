@@ -1342,3 +1342,80 @@ def test_latent_kernels_return_state_on_shards(dev, n):
                                                       lt, **kw),
                       2 ** -12, 2 ** -16)
         assert all(torch.equal(a, b) for a, b in zip(k7, k5))
+
+
+# ------------------------------------------------------------- training --
+def _train_case():
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data import TrainPipeline
+    from repro_torch.models import get_model
+    cfg = get_config("qwen3-4b-reduced")
+    batch = TrainPipeline(cfg.vocab_size, 2, 64, seed=0).next_batch()
+    return cfg, get_model(cfg), {k: torch.from_numpy(np.ascontiguousarray(v))
+                                 for k, v in batch.items()}
+
+
+def test_train_step_card_against_cpu(dev):
+    """One ``make_train_step`` on qwen3-4b-reduced from the same params and
+    batch on the card and on the CPU: the loss within 1e-2, each leaf's
+    gradient within 4% relative L2 (tests/test_torch_training.py's bound
+    for this model), the updated params within 2e-2."""
+    from repro_torch import tree as tree_util
+    from repro_torch.core.coopt import COOPT
+    from repro_torch.training import adamw_init, make_train_step
+    from repro_torch.training.train import loss_and_grads
+    cfg, model, batch = _train_case()
+    p_cpu = model.init(0, "cpu")
+    p_card = tree_util.tree_map(lambda t: t.to(dev), p_cpu)
+    gb = {k: v.to(dev) for k, v in batch.items()}
+    m_cpu, g_cpu = loss_and_grads(model, p_cpu, batch, COOPT)
+    m_card, g_card = loss_and_grads(model, p_card, gb, COOPT)
+    assert abs(float(m_card["loss"]) - float(m_cpu["loss"])) < 1e-2
+    for a, b in zip(g_card, g_cpu):
+        rel = (a.cpu().float() - b.float()).norm() / b.float().norm()
+        assert rel <= 0.04
+    step = make_train_step(cfg, COOPT, lr=1e-3)
+    p_cpu, _, _ = step(p_cpu, adamw_init(p_cpu), batch)
+    p_card, _, _ = step(p_card, adamw_init(p_card), gb)
+    for a, b in zip(tree_util.leaves(p_card), tree_util.leaves(p_cpu)):
+        torch.testing.assert_close(a.cpu().float(), b.float(), atol=2e-2,
+                                   rtol=2e-2)
+
+
+def test_gradient_through_a_kernel_raises_on_the_card(dev):
+    """``use_kernel=True`` under autograd raises on the card (K8's wrapper
+    before its launch); under ``torch.no_grad()`` the same forward runs."""
+    from repro_torch.core.coopt import COOPT
+    from repro_torch.training.train import loss_and_grads
+    cuda.build_all()
+    _, model, batch = _train_case()
+    params = model.init(0, dev)
+    gb = {k: v.to(dev) for k, v in batch.items()}
+    kern = COOPT.replace(use_kernel=True)
+    cuda.reset_launches()
+    with pytest.raises(RuntimeError, match="no gradient flows"):
+        loss_and_grads(model, params, gb, kern)
+    assert cuda.LAUNCHES["flash_prefill"] == 0
+    with torch.no_grad():
+        logits, _ = model.forward(params, gb, kern)
+    assert cuda.LAUNCHES["flash_prefill"] == 2 and \
+        torch.isfinite(logits.float()).all()
+
+
+def test_checkpoint_roundtrip_of_card_tensors(dev, tmp_path):
+    """Params and AdamW state on the card through ``save_checkpoint`` and
+    ``load_checkpoint``: every leaf back on the card, byte for byte."""
+    from repro_torch import tree as tree_util
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.training import adamw_init
+    _, model, _ = _train_case()
+    params = model.init(0, dev)
+    tree = {"params": params, "opt": adamw_init(params),
+            "fp8": torch.randn(64, device=dev).to(torch.float8_e4m3fn)}
+    save_checkpoint(str(tmp_path), tree, step=5)
+    out = load_checkpoint(str(tmp_path), tree)
+    for a, b in zip(tree_util.leaves(tree), tree_util.leaves(out)):
+        assert b.device == a.device and b.dtype == a.dtype
+        assert torch.equal(a.reshape(-1).view(torch.uint8),
+                           b.reshape(-1).view(torch.uint8))

@@ -34,4 +34,5 @@ def test_guard_sees_the_package():
             "serve.py", "steps.py", "quickstart.py",
             "serve_continuous_batching.py", "mixtral_8x22b.py",
             "internvl2_2b.py", "sharded.py", "mesh.py", "whisper.py",
-            "whisper_small.py", "quant.py"} <= names
+            "whisper_small.py", "quant.py", "optimizer.py", "train.py",
+            "ckpt.py", "train_small.py", "tree.py"} <= names

@@ -3,8 +3,10 @@ package's on qwen3-4b-reduced: Poisson offsets, the report of
 ``serve_workload`` sync (key sets, counts and rates; the async and async +
 packing cases are in ``tests/test_torch_serve_async.py``, so the two
 longest cases run in separate workers of a ``--dist loadfile`` run),
-``--assert-aot``, page-range shards with and without a mesh, the host-DRAM
-tier, and ``main``'s JSON on the CPU.
+``--assert-aot``, the host-DRAM tier, and ``main``'s JSON on the CPU (the
+sharded workloads, with and without a mesh, are in
+``tests/test_torch_serve_sharded.py``, so they run in a worker of their
+own under ``--dist loadfile``).
 
 The port runs on the JAX engine's weights (``params_from_numpy`` of
 ``init(PRNGKey(seed))``, which the JAX ``ServeRunner`` draws), with its
@@ -224,29 +226,6 @@ def test_unported_options_raise(params, capsys, flags, err):
             assert got[k] == want[k], k
     assert got["spilled_pages"] > 0 and got["prefetch_committed"] > 0
     assert got["prefix_host_hit_rate"] > 0
-
-
-# page-range shards: 4 shards of a 16-page pool (4, 4, 4 and 3 usable)
-SHARD_KW = dict(KW, pool_pages=16, num_shards=4)
-
-
-@pytest.mark.parametrize("mesh", [False, True], ids=["shards", "mesh"])
-def test_serve_workload_sharded_matches_jax(params, mesh):
-    """``--shards 4`` (host placement) and ``--mesh`` (the 4-shard mesh:
-    the kernels' plain versions read each shard's page range and merge)
-    report the JAX package's keys, and its counts, with ``num_shards=4``:
-    the per-shard peaks, preemptions and placements included."""
-    from repro_torch.launch.mesh import make_sim_mesh
-    want = jserve.serve_workload(ARCH, "coopt", **SHARD_KW)
-    got = serve.serve_workload(
-        ARCH, "coopt", use_kernel=True, device="cpu", params=params,
-        mesh=make_sim_mesh(data=4, model=1) if mesh else None, **SHARD_KW)
-    assert list(got) == list(want)
-    for k in EQUAL:
-        if k in want:
-            assert got[k] == want[k], k
-    assert got["kv_shards"] == 4 and len(got["shard_peak_utilization"]) == 4
-    assert got["placement_prefix_hits"] > 0
 
 
 def test_main_serves_shards_and_mesh_on_cpu(capsys):
