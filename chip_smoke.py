@@ -5,7 +5,7 @@
     python3 chip_smoke.py --only kernels   # or write|decode|latent|engine|
                                            # prefill|async|serve|mla|packed|
                                            # recurrent|sharded|whisper|host|
-                                           # parity|train
+                                           # parity|train|launch
     python3 chip_smoke.py --only decode --src OTHER/src
                                      # K2/K4 of another tree's package
                                      # (--only write: K1; --only latent:
@@ -205,6 +205,20 @@ Phases:
      a router near-tie (``TiePin``, ``ROUTE_TIE``). qwen3-4b at 4 layers,
      4 microbatches against 1 (the JAX test's bounds). ``loss_fn`` under
      autograd with ``use_kernel=True`` must raise.
+  8. The launch tools (``--only launch``): ``launch.dryrun`` of all 40
+     (arch x shape) cells on the meta device in ``DRY_WORKERS`` processes
+     (39 ok, whisper-small x long_500k skipped; a line a cell: FLOPs,
+     bytes to move, argument and temp bytes, whether it fits one card),
+     and beside it ``LAUNCH_CELLS``, qwen3-4b and deepseek-v2-lite-16b x
+     long_500k at full size through ``launch.steps.make_step`` on the
+     card: K1 and K2 (window 8192 over an 8192-page lane table), or the
+     latent write and K5, launched; each K1 call's written rows equal to
+     the plain write's, byte for byte, and each K2 / K5 call held to its
+     plain version on the inputs the step gave it, each beside a control
+     that must fail; the step's logits within ``LAUNCH_LOGIT_ATOL`` of the
+     plain step's, and a plain step with one layer's attention moved by
+     one tolerance unit beyond it; the peak memory beside the dry run's;
+     ``inspect_cell``'s top kernels and roofline terms.
 Each kernel's launch count is read from the path that runs it, the counts
 set to 0 just before that path and read just after; a kernel that never
 launched fails the run. Launches through a CUDA graph count once a replay
@@ -212,8 +226,8 @@ launched fails the run. Launches through a CUDA graph count once a replay
 ``kernels`` line gives them as ``async_launches``, the packed phase's
 packed runs' as ``packed_launches``, the serve phase's runs' as
 ``serve_launches``, the recurrent phase's as ``recurrent_launches``, the
-whisper phase's as ``whisper_launches`` and the host phase's as
-``host_launches``; K1-K4 add their D 256 and D 64 records to ``shapes``. K1's are also split by the
+whisper phase's as ``whisper_launches``, the host phase's as
+``host_launches`` and the launch phase's as ``launch_launches``; K1-K4 add their D 256 and D 64 records to ``shapes``. K1's are also split by the
 shape that runs them
 (the 4-lane engine's mixed and decode steps, the full-prompt path). The
 line before the last is the JSON ``kernels`` record; the last line is
@@ -224,6 +238,7 @@ with ``--src``) and the nvcc (ptxas) log to ``chiprun_out/build.log``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -271,6 +286,15 @@ NEAR_TIE = 0.1
 # and the narrowest gap of the parity phase's planted mis-routes; PERF.md
 # keeps both readings.
 ROUTE_TIE = 2 ** -9
+# The launch phase's full-size steps (36 and 27 layers of random weights)
+# with the kernels against the same steps on the plain path: their logits
+# differed by at most 0.2090 (qwen3-4b) and 0.2188 (deepseek-v2-lite-16b,
+# routes pinned at router near-ties) on an H100 80GB HBM3 at 700 W, and
+# the plain step with one layer's attention output moved by one tolerance
+# unit of its read kernel differed from itself by 0.2622 and 0.5762. The
+# bound lies between: the kernel step must stay under it, that control
+# must not.
+LAUNCH_LOGIT_ATOL = 0.25
 
 OUT = ROOT / "chiprun_out"
 DEV = "cuda"                     # the phases' device (a CPU rehearsal sets "cpu")
@@ -5539,6 +5563,448 @@ def train_phase(torch, rec, smi):
                                              for k, v in s.items()))
 
 
+# The launch phase (``--only launch``): the dry run of every (arch x shape)
+# cell on the meta device (``launch.dryrun``) in ``DRY_WORKERS`` processes
+# of one torch thread, the longest cells first, and meanwhile the
+# ``LAUNCH_CELLS`` through ``launch.steps.make_step`` on the card at full
+# size with random weights (``seed`` 0) and a cache of seq_len - 1 random
+# tokens: every call of K1 inside the real step held to the plain write
+# (the rows it wrote, fp8 bytes and f32 scales, equal to what
+# ``kv_cache_write_ref`` writes from the same inputs; a control, the rows
+# one slot before, must differ), every call of the read kernel held to
+# its plain version on the same inputs (K2 within ``ATTN_*``, K5 within
+# ``LAT_*``, beside a control with each lane's newest key masked off that
+# must fail), the step with the kernels against the same step with
+# ``use_kernel=False`` (a MoE model's routes pinned at router near-ties,
+# ``TiePin``): logits within ``LAUNCH_LOGIT_ATOL``, and the plain step
+# with one layer's attention moved by one tolerance unit beyond it
+# (through 36 or 27 layers of random weights a one-ulp difference grows
+# past the reduced models' ``LOGIT_ATOL``), the peak memory against the
+# dry run's, and ``launch.inspect_cell``'s trace: the top kernels and the
+# roofline terms. The two cells' dry runs are the pool's first.
+LAUNCH_CELLS = (("qwen3-4b", "long_500k",
+                 ("kv_cache_write", "paged_pool_decode")),
+                ("deepseek-v2-lite-16b", "long_500k",
+                 ("paged_latent_decode",)))
+DRY_WORKERS = 7        # of the card machine's 8 cores: one for the cells
+# the cells' dry-run cost, longest first (meta steps, measured on the CPU):
+# train, then prefill, decode, long_500k; deeper models first within a kind
+_KIND_ORDER = {"train_4k": 0, "prefill_32k": 1, "decode_32k": 2,
+               "long_500k": 3}
+
+
+def _dry_cell(cell):
+    """One cell's dry run in a worker process (``spawn``): its record and
+    wall seconds; an error is a record too."""
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    try:
+        r = dryrun.run_one(*cell, verbose=False)
+    except Exception as e:          # recorded, and fails the phase
+        r = {"arch": cell[0], "shape": cell[1], "status": "error",
+             "error": f"{type(e).__name__}: {e}"}
+    r["wall_s"] = time.perf_counter() - t0
+    return r
+
+
+def dry_run_start(first):
+    """Start every (arch x shape) cell's dry run in a pool of
+    ``DRY_WORKERS`` processes: the cells ``first``, then the longest
+    first. Returns (the pool, the pending result by cell, the start
+    time)."""
+    import multiprocessing as mp
+    from repro_torch.configs import ARCH_IDS, SHAPES, get_config
+    rest = [(a, s) for a in ARCH_IDS for s in SHAPES if (a, s) not in first]
+    order = list(first) + sorted(rest, key=lambda c: (
+        _KIND_ORDER[c[1]], -get_config(c[0]).num_layers))
+    pool = mp.get_context("spawn").Pool(DRY_WORKERS)
+    pending = {c: pool.apply_async(_dry_cell, (c,)) for c in order}
+    return pool, pending, time.perf_counter()
+
+
+def dry_run_finish(rec, smi, pending, t0):
+    """The dry run's records: one line a cell, 39 ok and whisper-small x
+    long_500k skipped, none failing. Returns them by (arch, shape)."""
+    from repro_torch.configs import ARCH_IDS, SHAPES
+    got = {c: p.get() for c, p in pending.items()}
+    wall = time.perf_counter() - t0
+    recs = [dict(got[a, s], card=smi) for a in ARCH_IDS for s in SHAPES]
+    for r in recs:
+        if r["status"] != "ok":
+            log(f"  dry {r['arch']} x {r['shape']}: {r['status']} "
+                f"({r.get('reason') or r.get('error')})")
+            continue
+        m = r["memory"]
+        part = f", microbatches {r['microbatches_counted']} of " \
+            f"{r['microbatches']} run" if "microbatches_counted" in r else ""
+        log(f"  dry {r['arch']} x {r['shape']} ({r['kind']}): ok, "
+            f"{r['cost']['flops']:.4e} FLOPs, {r['cost']['min_bytes']:.4e}"
+            f" B to move, arguments {m['argument_bytes'] / 2**30:.3f} GiB, "
+            f"temp {m['temp_bytes'] / 2**30:.3f} GiB, "
+            f"{'fits' if r['fits_h100_80gib'] else 'does not fit'} one "
+            f"card ({r['wall_s']:.1f} s{part})")
+    n = {s: sum(r["status"] == s for r in recs)
+         for s in ("ok", "skipped", "error")}
+    fit = [f"{r['arch']} x {r['shape']}" for r in recs
+           if r.get("fits_h100_80gib")]
+    cpu = sum(r["wall_s"] for r in recs)
+    log(f"dry run: {n['ok']} ok, {n['skipped']} skipped, {n['error']} "
+        f"failed in {wall:.1f} s ({DRY_WORKERS} workers, {cpu:.1f} s of "
+        f"cells, the longest {max(r['wall_s'] for r in recs):.1f} s); "
+        f"{len(fit)} fit one card: {', '.join(fit)}")
+    rec["launch"]["dry"] = recs
+    rec["launch"]["dry_s"] = wall
+    check(n == {"ok": 39, "skipped": 1, "error": 0},
+          f"the dry run gave {n}, not 39 ok and 1 skipped")
+    return {(r["arch"], r["shape"]): r for r in recs}
+
+
+def _read_plain(torch, name, args, kw, control):
+    """The plain version of read wrapper ``name``'s call (``args``, ``kw``)
+    and, with ``control``, the same with each lane's newest key masked off;
+    with the kernel's tolerance (rtol, atol), the call's cache lengths and
+    physical table."""
+    from repro_torch.kernels import paged_gqa_decode as pd
+    from repro_torch.kernels import paged_latent_decode as ld
+    if name == "paged_pool_decode":
+        q, kv, sc, cl, phys, logt = args
+        base = {k: kw[k] for k in ("opt_kv", "opt_gqa", "window",
+                                   "sink_pages")}
+        ref = (q, kv[0], kv[1], sc[0], sc[1])
+        fn, tol = pd.paged_pool_decode_ref, (ATTN_RTOL, ATTN_ATOL)
+    else:
+        ql, qr, lat, sc, cl, phys, logt = args
+        base = {k: kw[k] for k in ("sm_scale", "opt_kv", "window",
+                                   "sink_pages")}
+        ref = (ql, qr, lat, sc)
+        fn, tol = ld.paged_latent_decode_ref, (LAT_RTOL, LAT_ATOL)
+    plain = fn(*ref, cl.int(), phys.int(), logt.int(), **base)
+    ctl = fn(*ref, cl.int() - 1, phys.int(), logt.int(), **base) \
+        if control else None
+    return plain, ctl, tol, cl, phys
+
+
+def _hold_reads(torch, name, what):
+    """Wrap the read wrapper ``name`` (``paged_pool_decode`` or
+    ``paged_latent_decode`` of ``kernels.ops``) until ``restore()``: every
+    call the step makes runs the kernel, then its plain version on the
+    same inputs (the layer's pool as the step left it), and the largest
+    share of the kernel's tolerance is kept; the first call also runs a
+    control (each lane's newest key masked off) that must fail it.
+    Returns (the summary, restore)."""
+    from repro_torch.kernels import ops
+    saved = getattr(ops, name)
+    held = dict(calls=0, ratio=0.0, max_abs_err=0.0)
+
+    def wrapper(*args, **kw):
+        out = saved(*args, **kw)
+        first = held["calls"] == 0
+        plain, ctl, tol, cl, phys = _read_plain(torch, name, args, kw,
+                                                first)
+        r, err = tol_ratio(out, plain, *tol)
+        held.update(calls=held["calls"] + 1, ratio=max(held["ratio"], r),
+                    max_abs_err=max(held["max_abs_err"], err))
+        if first:
+            rc, errc = tol_ratio(out, ctl, *tol)
+            held.update(control_ratio=rc, control_err=errc,
+                        cache_len=cl.tolist(), window=kw["window"],
+                        live_slots=int((phys >= 0).sum()),
+                        slots=phys.shape[1])
+        return out
+
+    def restore():
+        setattr(ops, name, saved)
+        log(f"{what}: {name} on each of the step's {held['calls']} calls "
+            f"against its plain version on the same inputs (cache_len "
+            f"{held.get('cache_len')}, window {held.get('window')}, "
+            f"{held.get('live_slots')} of {held.get('slots')} table slots "
+            f"live): max |kernel - plain| {held['max_abs_err']:.3e} = "
+            f"{held['ratio']:.3f} of the tolerance; control, newest key "
+            f"masked off: {held.get('control_err', 0):.3e} = "
+            f"{held.get('control_ratio', 0):.2f}")
+    setattr(ops, name, wrapper)
+    return held, restore
+
+
+def _hold_writes(torch, what):
+    """Wrap ``kernels.ops.kv_cache_write`` (K1) until ``restore()``: after
+    every call the step makes, the rows it wrote (K and V, fp8 bytes and
+    f32 scales) must equal, byte for byte, what the plain version
+    (``kv_cache_write_ref``) writes from the same inputs into fresh rows;
+    a control, the rows one slot before each written one (random pages),
+    must differ. Returns (the summary, restore)."""
+    from repro_torch.kernels import kv_cache_write as kw
+    from repro_torch.kernels import ops
+    saved = ops.kv_cache_write
+    held = dict(calls=0, equal=0, control_equal=0, rows=0, slots=[])
+
+    def wrapper(kv_cache, scale_cache, k_new, v_new, slot_idx, *, opt_kv):
+        out = saved(kv_cache, scale_cache, k_new, v_new, slot_idx,
+                    opt_kv=opt_kv)
+        _, Pt, ps, Hkv, D = kv_cache.shape
+        flat = kv_cache.view(2, Pt * ps, Hkv, D)
+        keep = (slot_idx >= 0) & (slot_idx < Pt * ps)
+        slots = slot_idx[keep].long()
+        n = slots.numel()
+        local = torch.full_like(slot_idx, -1)
+        local[keep] = torch.arange(n, dtype=local.dtype,
+                                   device=local.device)
+        ref = torch.zeros((2, n, Hkv, D), dtype=kv_cache.dtype,
+                          device=kv_cache.device)
+        rsc = torch.zeros((2, n, Hkv), dtype=torch.float32,
+                          device=kv_cache.device) if opt_kv else None
+        kw.kv_cache_write_ref(k_new, v_new, local, ref[0], ref[1],
+                              *((rsc[0], rsc[1]) if opt_kv else
+                                (None, None)), opt_kv=opt_kv)
+
+        def same(rows):
+            eq = torch.equal(flat[:, rows].view(torch.uint8),
+                             ref.view(torch.uint8))
+            if opt_kv:
+                eq = eq and torch.equal(
+                    scale_cache.view(2, Pt * ps, Hkv)[:, rows], rsc)
+            return eq
+        before = torch.where(slots > 0, slots - 1, slots + 1)
+        held.update(calls=held["calls"] + 1, rows=held["rows"] + n,
+                    equal=held["equal"] + same(slots),
+                    control_equal=held["control_equal"] + same(before))
+        if held["calls"] == 1:
+            held["slots"] = slots.tolist()
+        return out
+
+    def restore():
+        ops.kv_cache_write = saved
+        log(f"{what}: kv_cache_write on each of the step's {held['calls']} "
+            f"calls ({held['rows']} rows, slots {held['slots']} of "
+            f"{held.get('pool_slots')}) against the plain write: "
+            f"{held['equal']} of {held['calls']} equal byte for byte; "
+            f"control, the rows one slot before: {held['control_equal']} "
+            f"equal")
+    ops.kv_cache_write = wrapper
+    return held, restore
+
+
+def _one_tolerance_control(torch, plain, args, read, want):
+    """The plain step again with its first layer's attention output moved
+    by one tolerance unit of the read kernel (a relative ``ATTN_RTOL`` or
+    ``LAT_RTOL``): how far a difference the kernel check admits at one
+    layer moves this model's logits. Returns max |logits - want|."""
+    from repro_torch.core import opt_pa
+    from repro_torch.launch import inspect_cell
+    from repro_torch.models import mla
+    mod, name = (opt_pa, "_windowed") if read == "paged_pool_decode" \
+        else (mla, "_expand_o")
+    rtol = ATTN_RTOL if read == "paged_pool_decode" else LAT_RTOL
+    saved, calls = getattr(mod, name), []
+
+    def moved(*a, **kw):
+        if not calls and name == "_expand_o":
+            a = (a[0] * (1 + rtol),) + a[1:]
+        out = saved(*a, **kw)
+        if not calls and name == "_windowed":
+            out = out * (1 + rtol)
+        calls.append(1)
+        return out
+    setattr(mod, name, moved)
+    try:
+        with torch.no_grad():
+            got, _ = plain.fn(*inspect_cell.fresh(plain, args))
+    finally:
+        setattr(mod, name, saved)
+    check(len(calls) > 0, f"the one-tolerance control never reached {name}")
+    return (got.float() - want.float()).abs().max().item()
+
+
+def _read_in_trace(step, read, held, r, what):
+    """The read kernel's card time a call in ``inspect``'s trace beside
+    the least time its call's bytes take: the live pages it reads once
+    (K2: fp8 K and V and their f32 scales; K5: the fp8 latent row and its
+    two f32 scales a token), its queries read and its output written."""
+    import re
+    cfg, ps = step.cfg, step.coopt.page_size
+    tokens = held["live_slots"] * ps
+    if read == "paged_pool_decode":
+        name = "decode_kernel"
+        moved = tokens * cfg.num_kv_heads * (2 * cfg.head_dim + 8) \
+            + 2 * 2 * cfg.num_heads * cfg.head_dim
+    else:
+        name = "latent_decode_kernel"
+        R, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+        moved = tokens * (R + dr + 8) + 4 * cfg.num_heads * (2 * R + dr)
+    pat = re.compile(rf"(?<![A-Za-z_]){name}<")
+    hits = [k for k in r["top"] if pat.search(k["name"])]
+    check(len(hits) == 1, f"{what}: {name} is not among the trace's top "
+          f"{len(r['top'])} activities")
+    ms = hits[0]["ms"] / hits[0]["calls"]
+    bnd = bound(moved, 0, BF16_FLOPS)
+    log(f"{what}: {read} in the trace: {hits[0]['calls']} calls, {ms:.4f} "
+        f"ms a call; its bytes ({moved / 1e6:.2f} MB: {tokens} tokens of "
+        f"pages) take {bnd['bound_ms']:.4f} ms, {bnd['bound_ms'] / ms:.2%} "
+        f"of the call")
+    return dict(calls=hits[0]["calls"], ms=ms, bytes=moved,
+                bound_ms=bnd["bound_ms"], bound_share=bnd["bound_ms"] / ms)
+
+
+def launch_cell(torch, rec, arch, shape, kernels, dry, smi):
+    """One cell through ``make_step`` on the card (see ``LAUNCH_CELLS``):
+    the kernel step with each call of its read kernel held to the plain
+    version on the same inputs, its launches, the plain step (greedy
+    tokens equal or parted at a near-tie; the logits' difference beside
+    the one-tolerance control's), the peak memory beside the dry run's and
+    ``inspect_cell``'s report. Returns the launches of the kernel step."""
+    from repro_torch.core.coopt import COOPT
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import inspect_cell
+    from repro_torch.launch.steps import make_step
+    from repro_torch.models import moe as moe_mod
+    what = f"launch {arch} x {shape}"
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    step = make_step(arch, shape, COOPT.replace(use_kernel=True), device=DEV)
+    plain = make_step(arch, shape, COOPT, device=DEV)
+    args = step.init_args(seed=0)
+    torch.cuda.synchronize()
+    arg_bytes = torch.cuda.memory_allocated() - base
+    init_s = time.perf_counter() - t0
+    read = kernels[-1]
+    held, restore = _hold_reads(torch, read, what)
+    writes = "kv_cache_write" in kernels
+    if writes:
+        held_w, restore_w = _hold_writes(torch, what)
+        held_w["pool_slots"] = args[2]["kv"].shape[2] * \
+            args[2]["kv"].shape[3]
+    routes = RouteLog(torch, moe_mod) if step.cfg.num_experts else \
+        contextlib.nullcontext()
+    cuda.reset_launches()
+    try:
+        with torch.no_grad(), routes:
+            logits, _ = step.fn(*inspect_cell.fresh(step, args))
+        torch.cuda.synchronize()
+    finally:
+        restore()
+        if writes:
+            restore_w()
+    launches = {k: n for k, n in cuda.LAUNCHES.items() if n}
+    log(f"{what}: {step.kind}, long_window {step.long_window}, arguments "
+        f"{arg_bytes / 2**30:.3f} GiB on the card (dry run "
+        f"{dry['memory']['argument_bytes'] / 2**30:.3f}), built in "
+        f"{init_s:.1f} s; launches {launches}")
+    for k in kernels:
+        check(launches.get(k, 0) > 0, f"{what}: {k} never launched")
+    check(held["calls"] == launches.get(read, 0) == step.cfg.num_layers,
+          f"{what}: {held['calls']} held calls of {read}, "
+          f"{launches.get(read, 0)} launches, {step.cfg.num_layers} layers")
+    check(held["ratio"] <= 1, f"{what}: {read} differs from its plain "
+          "version on the step's inputs")
+    check(held["control_ratio"] > 1, f"{what}: the tolerance passes a "
+          "one-key mask error")
+    if writes:
+        n = step.cfg.num_layers
+        check(held_w["calls"] == launches["kv_cache_write"] == n,
+              f"{what}: {held_w['calls']} held calls of kv_cache_write, "
+              f"{launches['kv_cache_write']} launches, {n} layers")
+        check(held_w["equal"] == n, f"{what}: kv_cache_write wrote other "
+              "bytes than the plain write")
+        check(held_w["control_equal"] == 0, f"{what}: the write check "
+              "passes rows one slot off")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # a MoE model's plain step takes the kernel step's route where the
+    # two part at a router near-tie (``TiePin``, ``ROUTE_TIE``)
+    pin = TiePin(torch, moe_mod, routes.calls, ROUTE_TIE) \
+        if step.cfg.num_experts else contextlib.nullcontext()
+    with torch.no_grad(), pin:
+        want, _ = plain.fn(*inspect_cell.fresh(plain, args))
+    torch.cuda.synchronize()
+    peak_plain = torch.cuda.max_memory_allocated() - base
+    g, w = logits.float(), want.float()
+    err = (g - w).abs().max().item()
+    scale = w.abs().max().item()
+    pin2 = TiePin(torch, moe_mod, pin.calls, ROUTE_TIE) \
+        if step.cfg.num_experts else contextlib.nullcontext()
+    with pin2:
+        moved = _one_tolerance_control(torch, plain, args, read, want)
+    if step.cfg.num_experts:
+        log(f"{what}: MoE routes of the plain step pinned to the kernel "
+            f"step's at {len(pin.pinned)} near-ties (gaps "
+            f"{[f'{x:.2e}' for x in pin.pinned]}), {len(pin.bad)} other "
+            f"flips; the control's {len(pin2.pinned)} and {len(pin2.bad)}")
+        check(not pin.bad, f"{what}: a MoE route flips off a router "
+              f"near-tie: {pin.bad}")
+    check(bool(torch.isfinite(g).all()), f"{what}: non-finite logits")
+    parted = (g.argmax(-1) != w.argmax(-1)).nonzero().flatten().tolist()
+    top2 = w.topk(2, dim=-1).values
+    gaps = [float(top2[i, 0] - top2[i, 1]) for i in parted]
+    log(f"{what}: logits (B {g.shape[0]}, V {g.shape[1]}, |logit| max "
+        f"{scale:.2f}) against the plain step's: max |kernel - plain| "
+        f"{err:.4f} (bound {LAUNCH_LOGIT_ATOL}); control, the plain step "
+        f"with one layer's attention output moved by one tolerance unit: "
+        f"{moved:.4f}; greedy parted at {parted} (the plain step's best two "
+        f"{[f'{x:.4f}' for x in gaps]} apart)")
+    check(err <= LAUNCH_LOGIT_ATOL, f"{what}: the kernel step's logits "
+          f"differ from the plain step's by {err:.4f}")
+    check(moved > LAUNCH_LOGIT_ATOL, f"{what}: the logit bound passes a "
+          f"one-tolerance move of one layer's attention ({moved:.4f})")
+    r = inspect_cell.inspect(step, args, dry, top=12, card_line=smi)
+    inspect_cell.report(r, log)
+    read_rec = _read_in_trace(step, read, held, r, what)
+    peak_kernel = r["peak_bytes"] - base
+    dry_total = dry["memory"]["argument_bytes"] + dry["memory"]["temp_bytes"]
+    log(f"{what}: peak {peak_kernel / 2**30:.3f} GiB with the kernels, "
+        f"{peak_plain / 2**30:.3f} GiB plain, against the dry run's "
+        f"{dry_total / 2**30:.3f} GiB (arguments + temp, plain path); the "
+        f"card's {torch.cuda.get_device_properties(0).total_memory / 2**30:.3f}"
+        f" GiB")
+    out = dict(arch=arch, shape=shape, kind=step.kind, dry=dry,
+               launches=launches,
+               arg_bytes=arg_bytes, init_s=init_s, peak_kernel=peak_kernel,
+               peak_plain=peak_plain, dry_bytes=dry_total,
+               logits_max_abs_err=err, logits_max=scale,
+               logit_bound=LAUNCH_LOGIT_ATOL,
+               one_tolerance_control=moved, parted=parted, gaps=gaps,
+               held=held, held_writes=held_w if writes else None,
+               read=read_rec,
+               inspect=r)
+    rec["launch"]["cells"].append(out)
+    del args, logits, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def launch_phase(torch, rec, smi):
+    """``--only launch``: the dry run of every cell in worker processes,
+    and meanwhile the ``LAUNCH_CELLS`` on the card, each once the pool has
+    its record. Returns the launches by kernel summed over the cells'
+    kernel steps."""
+    rec["launch"] = {"cells": []}
+    t0 = time.perf_counter()
+    pool, pending, t_pool = dry_run_start(
+        [(a, s) for a, s, _ in LAUNCH_CELLS])
+    total = {}
+    try:
+        for arch, shape, kernels in LAUNCH_CELLS:
+            dry = dict(pending[arch, shape].get(), card=smi)
+            check(dry["status"] == "ok" and dry["fits_h100_80gib"],
+                  f"{arch} x {shape}: the dry run says it does not fit "
+                  f"({dry.get('error')})")
+            for k, n in launch_cell(torch, rec, arch, shape, kernels, dry,
+                                    smi).items():
+                total[k] = total.get(k, 0) + n
+        rec["launch"]["card_s"] = time.perf_counter() - t0
+        dry_run_finish(rec, smi, pending, t_pool)
+    finally:
+        pool.terminate()
+        pool.join()
+    log(f"launch phase: the card's cells {rec['launch']['card_s']:.1f} s "
+        f"beside the dry run's {DRY_WORKERS} workers, the dry run "
+        f"{rec['launch']['dry_s']:.1f} s")
+    return total
+
+
 PARITY = ("qwen3-4b-reduced", "deepseek-v2-lite-16b-reduced",
           "mixtral-8x22b-reduced", "internvl2-2b-reduced",
           "recurrentgemma-9b-reduced", "rwkv6-7b-reduced",
@@ -5560,7 +6026,7 @@ def main(argv=None) -> int:
                                        "engine", "mla", "prefill", "async",
                                        "serve", "packed", "recurrent",
                                        "sharded", "whisper", "host",
-                                       "parity", "train"),
+                                       "parity", "train", "launch"),
                     help="run one phase (debugging; prints no result line)")
     ap.add_argument("--src", help="import repro_torch from this directory "
                     "instead of ./src (to time another tree's kernels)")
@@ -5714,6 +6180,11 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             train_phase(torch, rec, smi)
             done("train", t0)
+        launch = {}
+        if only in (None, "launch"):
+            t0 = time.perf_counter()
+            launch = launch_phase(torch, rec, smi)
+            done("launch", t0)
         if only is None:
             for k in kernels:
                 k["launches"] = paths[LAUNCH_PATH[k["name"]]][k["name"]]
@@ -5725,6 +6196,7 @@ def main(argv=None) -> int:
                 k["recurrent_launches"] = recurrent.get(k["name"], 0)
                 k["whisper_launches"] = whisper.get(k["name"], 0)
                 k["host_launches"] = host.get(k["name"], 0)
+                k["launch_launches"] = launch.get(k["name"], 0)
                 # K1-K4 at D 256 (recurrentgemma-9b) and D 64
                 # (whisper-small): a record each, with the launches of the
                 # recurrent and whisper phases' engine runs
@@ -5812,7 +6284,8 @@ def main(argv=None) -> int:
              "registers", "local_bytes", "own_bound_ms", "shapes",
              "launch_floor_ms", "host_us", "clean_l2", "async_launches",
              "packed_launches", "serve_launches", "recurrent_launches",
-             "whisper_launches", "host_launches", "ms_without_state",
+             "whisper_launches", "host_launches", "launch_launches",
+             "ms_without_state",
              "state_cost")
     print(json.dumps({"kernels": [
         {k: x[k] for k in keys + extra if k in keys or k in x}

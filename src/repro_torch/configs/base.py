@@ -104,9 +104,13 @@ class CacheConfig:
     ``num_pages`` is the requested device pool size in pages (0 = derive it
     from ``num_lanes * pages(max_len)``); the last device page is reserved
     as the SkipSet write sentinel. ``page_size == 0`` inherits
-    ``CoOptConfig.page_size``. ``host_pages > 0`` would turn on the
-    host-DRAM spill tier, which this port does not serve yet (the engine
-    raises ``NotImplementedError``). ``num_shards`` splits the pool into
+    ``CoOptConfig.page_size``. ``host_pages > 0`` turns on the host-DRAM
+    spill tier: LRU-evicted registered prefix pages are spilled to that many
+    host pages instead of destroyed and prefetched back on a prefix hit
+    (``Engine._spill_page``, ``Engine._upload_page``); ``prefetch_depth``
+    bounds how many queued requests the scheduler scans for prefetchable
+    prefixes a turn; ``host_quant`` fp8-encodes bf16 pool pages on spill.
+    ``num_shards`` splits the pool into
     that many contiguous page ranges, the pool padded so they are equal
     (``cache.block_manager.padded_pool_pages``); a request's pages stay in one
     range, and under a ``launch.mesh`` mesh the kernels read each range as

@@ -12,7 +12,9 @@ one card splits.
 ``make_sim_mesh`` is the counterpart of the JAX package's simulated CPU
 mesh, the one its own tests shard the pool on. The JAX package's
 ``make_production_mesh`` and its TPU v5e constants describe TPU hardware and
-have no counterpart here.
+have no counterpart here; the card's own constants below (an H100 SXM's
+published dense bf16 rate and HBM rate, and the device memory a step may
+fill) set ``launch.inspect_cell``'s roofline terms and the dry run's fit.
 """
 from __future__ import annotations
 
@@ -23,6 +25,13 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.opt_kv import PAGES_AXES
+
+PEAK_FLOPS_BF16 = 989e12        # FLOP/s, H100 SXM dense bf16 tensor cores
+HBM_BW = 3.35e12                # B/s, H100 SXM HBM3
+# what one 80 GiB card gives a step: the 85,017,493,504 bytes (79.18 GiB)
+# an H100 80GB HBM3 reports as ``total_memory``, less ~0.7 GiB of CUDA
+# context and allocator slack
+H100_USABLE_BYTES = int(78.5 * 2**30)
 
 
 @dataclass(frozen=True)

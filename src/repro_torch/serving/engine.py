@@ -250,6 +250,8 @@ class EngineStats:
 
     @staticmethod
     def _pct(xs: List[float], q: float) -> float:
+        # host-side Python lists of times, no device value
+        # coopt: allow[COOPT001]
         return float(np.percentile(np.asarray(xs), q)) if xs else 0.0
 
     def ttft(self, q: float = 50.0) -> float:
@@ -768,6 +770,8 @@ class Engine:
             self._upload_page(payload, page)
             self._prefetch_flights.append(_Flight(
                 hash=mp.hash, turn=self._sched_turn,
+                # the injected delay is a host int of the fault plan
+                # coopt: allow[COOPT001]
                 lands=self._sched_turn + 1 + max(int(delay), 0), ok=ok))
             keys.append(mp.hash)
         return keys

@@ -1419,3 +1419,53 @@ def test_checkpoint_roundtrip_of_card_tensors(dev, tmp_path):
         assert b.device == a.device and b.dtype == a.dtype
         assert torch.equal(a.reshape(-1).view(torch.uint8),
                            b.reshape(-1).view(torch.uint8))
+
+
+# ------------------------------------------------- launch: make_step, inspect
+@pytest.mark.parametrize("arch", ["qwen3-4b-reduced",
+                                  "deepseek-v2-lite-16b-reduced"])
+def test_make_step_decode_on_the_card(dev, arch):
+    """make_step's long_500k decode step at a reduced size on the card:
+    its kernels launch (K1 and K2, or K5 for MLA) and its logits match the
+    same step with ``use_kernel=False`` within the port's logit bound."""
+    from repro_torch.configs import InputShape
+    from repro_torch.core.coopt import COOPT
+    from repro_torch.launch.inspect_cell import fresh
+    from repro_torch.launch.steps import make_step
+    shape = InputShape("long_500k", 16384, 1, "decode")
+    step = make_step(arch, shape, COOPT.replace(use_kernel=True), device=dev)
+    plain = make_step(arch, shape, COOPT, device=dev)
+    args = step.init_args(seed=0)
+    cuda.reset_launches()
+    with torch.no_grad():
+        got, _ = step.fn(*fresh(step, args))
+    launched = {k for k, n in cuda.LAUNCHES.items() if n}
+    with torch.no_grad():
+        want, _ = plain.fn(*fresh(plain, args))
+    read = "paged_latent_decode" if "deepseek" in arch else \
+        "paged_pool_decode"
+    assert read in launched
+    assert torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= 0.125
+
+
+def test_inspect_cell_reports_kernels_and_terms(dev):
+    """``inspect_cell.inspect`` on a reduced cell: the trace's top card
+    activities hold the decode kernel, the roofline terms come from the
+    dry run, the peak memory is at least the arguments' bytes."""
+    from repro_torch.configs import InputShape
+    from repro_torch.core.coopt import COOPT
+    from repro_torch.launch import dryrun, inspect_cell
+    from repro_torch.launch.steps import make_step
+    shape = InputShape("long_500k", 16384, 1, "decode")
+    coopt = COOPT.replace(use_kernel=True)
+    dry = dryrun.run_one("qwen3-4b-reduced", shape, coopt=coopt,
+                         verbose=False)
+    step = make_step("qwen3-4b-reduced", shape, coopt, device=dev)
+    r = inspect_cell.inspect(step, step.init_args(seed=0), dry, top=40)
+    names = " ".join(k["name"] for k in r["top"])
+    assert "decode_kernel" in names and "kv_write_kernel" in names
+    assert r["step_ms"] > 0 and r["busy_ms"] > 0
+    assert r["C_s"] == dry["cost"]["flops"] / 989e12
+    assert r["M_s"] == dry["cost"]["min_bytes"] / 3.35e12
+    assert r["peak_bytes"] >= dry["memory"]["argument_bytes"]

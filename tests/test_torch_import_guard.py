@@ -36,3 +36,10 @@ def test_guard_sees_the_package():
             "internvl2_2b.py", "sharded.py", "mesh.py", "whisper.py",
             "whisper_small.py", "quant.py", "optimizer.py", "train.py",
             "ckpt.py", "train_small.py", "tree.py"} <= names
+    rel = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in FILES
+           if p.name != "chip_smoke.py"}
+    assert {"launch/dryrun.py", "launch/inspect_cell.py", "launch/steps.py",
+            "analysis/__init__.py", "analysis/__main__.py",
+            "analysis/core.py", "analysis/host_sync.py",
+            "analysis/mesh_ctx.py", "analysis/capture_safety.py",
+            "analysis/page_guard.py", "analysis/exceptions.py"} <= rel

@@ -9,8 +9,10 @@ boundaries, the prefix gate) through the twins of
 cells. griffin also runs at head_dim 256, its full-size width, so its local
 attention reaches K1-K4 (their plain versions here) at D 256.
 
-Not twinned: ``test_preempt_and_resume_token_identical[rwkv6-7b]``, which
-fails in the JAX package itself; the griffin cell is twinned."""
+``test_preempt_and_resume_token_identical`` runs both families: the rwkv6
+cell fails in the JAX package itself (its resumed request parts from the
+unconstrained run), so each family's tight engine is held to its own
+roomy run, not to the JAX engine."""
 import functools
 
 import numpy as np
@@ -558,17 +560,18 @@ def test_snapshot_cache_is_capped_and_gates_the_match():
     assert eng.stats.prefix_cache_hits == hits
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("mode,use_kernel", ENGINE_MODES)
-def test_preempt_and_resume_token_identical(mode, use_kernel):
-    """griffin: an over-subscribed pool completes through preemption with
-    tokens identical to an unconstrained run (the resumed request's state
-    zeroed or restored at re-admission)."""
-    cfg, _ = _cfgs(GRIFFIN)
+def test_preempt_and_resume_token_identical(mode, use_kernel, arch):
+    """griffin and rwkv6: an over-subscribed pool completes through
+    preemption with tokens identical to an unconstrained run (the resumed
+    request's state zeroed or restored at re-admission)."""
+    cfg, _ = _cfgs(arch)
     prompts = [_prompt(cfg, 50, seed=3 + i) for i in range(2)]
-    tight = _engine(GRIFFIN, mode, use_kernel, num_lanes=2, max_len=128,
+    tight = _engine(arch, mode, use_kernel, num_lanes=2, max_len=128,
                     prefill_buckets=(16, 32, 64, 128))
     out_t = tight.generate(prompts, max_new_tokens=20)
-    roomy = _engine(GRIFFIN, mode, use_kernel, num_lanes=2, max_len=256,
+    roomy = _engine(arch, mode, use_kernel, num_lanes=2, max_len=256,
                     prefill_buckets=(16, 32, 64, 128, 256))
     out_r = roomy.generate(prompts, max_new_tokens=20)
     assert tight.stats.preemptions > 0 and roomy.stats.preemptions == 0

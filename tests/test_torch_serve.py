@@ -1,8 +1,9 @@
 """The port's serving launcher (``repro_torch.launch.serve``) against the JAX
 package's on qwen3-4b-reduced: Poisson offsets, the report of
-``serve_workload`` sync (key sets, counts and rates; the async and async +
-packing cases are in ``tests/test_torch_serve_async.py``, so the two
-longest cases run in separate workers of a ``--dist loadfile`` run),
+``serve_workload`` (key sets, counts and rates; ``check_workload``, whose
+sync case is in ``tests/test_torch_serve_sync.py`` and async and async +
+packing cases in ``tests/test_torch_serve_async.py``, so the three longest
+cases run in other workers of a ``--dist loadfile`` run than the rest),
 ``--assert-aot``, the host-DRAM tier, and ``main``'s JSON on the CPU (the
 sharded workloads, with and without a mesh, are in
 ``tests/test_torch_serve_sharded.py``, so they run in a worker of their
@@ -160,12 +161,6 @@ def check_workload(monkeypatch, params, case):
         assert all(len(o) == KW["max_new_tokens"] for o in outs)
         _same_or_near_tie(outs, [s.req.output for s in jrun[0].last_streams],
                           [rows[s.req.req_id] for s in streams])
-
-
-@pytest.mark.parametrize("case", ["sync"])
-def test_serve_workload_matches_jax(monkeypatch, params, case):
-    """``check_workload`` for the sync pass."""
-    check_workload(monkeypatch, params, case)
 
 
 def test_assert_aot_passes_after_warmup(params):
