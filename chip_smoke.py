@@ -1830,6 +1830,18 @@ def _partings(torch, rows, outs, what):
     return parted
 
 
+def _leaf_parts(leaf):
+    """A cache leaf's tensors: a ShardedPool's shards, else the leaf."""
+    return getattr(leaf, "shards", (leaf,))
+
+
+def _leaf_clone(leaf):
+    """A copy of a cache leaf (a ShardedPool shard by shard)."""
+    if hasattr(leaf, "shards"):
+        return type(leaf)([t.clone() for t in leaf.shards], leaf.pages_dim)
+    return leaf.clone()
+
+
 def _record_steps(eng):
     """Record every step the async pipeline dispatches, in order: (kind,
     its host inputs, each sample's request index and index into the
@@ -1844,7 +1856,8 @@ def _record_steps(eng):
 
     def recorded(sb, slot=None):
         if not steps:
-            state.update(cache={k: v.clone() for k, v in eng.cache.items()},
+            state.update(cache={k: _leaf_clone(v)
+                                for k, v in eng.cache.items()},
                          lane_tok=eng.lane_tok.clone())
         # the resets and restores _build_step enqueued for this step
         lanes = {c.req.lane for c in sb.plan.prefill if c.first}
@@ -1870,7 +1883,8 @@ def _eager_rows(torch, eng, recorded, max_new):
     emission)."""
     steps, state = recorded
     for k, v in state["cache"].items():
-        eng.cache[k].copy_(v)
+        for dst, src in zip(_leaf_parts(eng.cache[k]), _leaf_parts(v)):
+            dst.copy_(src)
     eng.lane_tok.copy_(state["lane_tok"])
     rows = {}
     for kind, host, samples, resets in steps:
@@ -4058,41 +4072,55 @@ SHARD_LAT_RTOL, SHARD_LAT_ATOL = 2 ** -11, 2 ** -10
 
 
 def sharded_reads(torch, rec, time_ms, gqa, lat):
-    """``kernels.sharded``'s four reads at 4 shards against the unsharded
-    kernels on the same pool and GLOBAL tables (the rule above, beside its
-    control), the visit-planned shards against the per-lane ones, and the
-    time of the 4 launches and their merge beside the one unsharded
+    """``kernels.sharded``'s four reads at 4 shards, each a pool of its own
+    holding a copy of its range of the one pool, against the unsharded
+    kernels on that pool and the same GLOBAL tables (the rule above, beside
+    its control), the visit-planned shards against the per-lane ones, and
+    the time of the 4 launches and their merge beside the one unsharded
     launch."""
+    from repro_torch.launch.mesh import make_sim_mesh
+    from repro_torch.core.opt_kv import ShardedPool
     from repro_torch.kernels import ops, sharded
-    ctx = sharded.ShardCtx(num_shards=4)
+    ctx = sharded.make_ctx(make_sim_mesh(data=4, devices=[DEV] * 4))
     g, la = gqa, lat
     P = g["kv"].shape[1]
     lo = P - P // 4
+    # each shard a pool of its own (copies of the one pool's ranges)
+    pools = {k: (None if t is None else ShardedPool.split(
+        t, ctx.devices, 1 if k in ("kv", "sc") else 0))
+        for k, t in (("kv", g["kv"]), ("sc", g["sc"]), ("lat", la["lat"]),
+                     ("lsc", la["sc"]))}
+
+    def pool(c, k, t):                 # the shards under a context
+        return t if c is None else pools[k]
 
     def drop(t):                       # the last shard's pages dropped
         return torch.where(t >= lo, -1, t)
     cases = {
         "paged_pool_decode": ((SHARD_RTOL, SHARD_ATOL),
-                              lambda v, d: ops.paged_pool_decode(
-            g["q"], g["kv"], g["sc"], g["cache_len"], d(g["phys"]), g["log"],
-            **g["kw"], share_visits=v)),
+                              lambda c, v, d: ops.paged_pool_decode(
+            g["q"], pool(c, "kv", g["kv"]), pool(c, "sc", g["sc"]),
+            g["cache_len"], d(g["phys"]), g["log"], **g["kw"],
+            share_visits=v)),
         "flash_chunk_prefill": ((SHARD_RTOL, SHARD_ATOL),
-                                lambda v, d: ops.paged_chunk_prefill(
-            g["qc"], g["pos"], g["kv"], g["sc"], d(g["table"]), **g["kw"])),
+                                lambda c, v, d: ops.paged_chunk_prefill(
+            g["qc"], g["pos"], pool(c, "kv", g["kv"]),
+            pool(c, "sc", g["sc"]), d(g["table"]), **g["kw"])),
         "paged_latent_decode": ((SHARD_LAT_RTOL, SHARD_LAT_ATOL),
-                                lambda v, d: ops.paged_latent_decode(
-            la["ql"], la["qr"], la["lat"], la["sc"], la["cache_len"],
-            d(la["phys"]), la["log"], **la["kw"], share_visits=v)),
+                                lambda c, v, d: ops.paged_latent_decode(
+            la["ql"], la["qr"], pool(c, "lat", la["lat"]),
+            pool(c, "lsc", la["sc"]), la["cache_len"], d(la["phys"]),
+            la["log"], **la["kw"], share_visits=v)),
         "latent_chunk_prefill": ((SHARD_LAT_RTOL, SHARD_LAT_ATOL),
-                                 lambda v, d: ops.latent_chunk_prefill(
-            la["qlc"], la["qrc"], la["pos"], la["lat"], la["sc"],
-            d(la["table"]), **la["kw"])),
+                                 lambda c, v, d: ops.latent_chunk_prefill(
+            la["qlc"], la["qrc"], la["pos"], pool(c, "lat", la["lat"]),
+            pool(c, "lsc", la["sc"]), d(la["table"]), **la["kw"])),
     }
     out = {}
     for name, (tol, fn) in cases.items():
         def run(c, v=False, d=lambda t: t):
             with ops.mesh_ctx_scope(c):
-                return fn(v, d)
+                return fn(c, v, d)
         one, four, four_v = run(None), run(ctx), run(ctx, True)
         ctl = run(None, d=drop)
         torch.cuda.synchronize()
@@ -4137,20 +4165,291 @@ def _in_shard_tables(eng):
     return seen
 
 
+SHARD_WRITE_CONTROLS = 32      # shard writes that also run the drop control
+
+
+def _hold_shard_writes(torch):
+    """Wrap ``kernels.sharded``'s two writes until ``restore()``: after each
+    call, every shard's tensor (and its scales) must equal, byte for byte,
+    its copy from before the call with the PLAIN GLOBAL write of the same
+    inputs applied over the shard's range: each global slot in [first,
+    first + n) written at line slot - first, every other slot dropped, by a
+    mask (K1's path: ``kv_cache_write_ref``; the latent write: its
+    quantizer and a masked scatter). On a call that drops a slot, a
+    control that puts the dropped slots on the shard's last line (what the
+    global latent write does with them, ``ops.latent_pool_write`` with no
+    context; for K1's path, its plain write with those slots moved there)
+    must fail that check on each mid-pool shard it runs on: the first
+    ``SHARD_WRITE_CONTROLS`` shards whose write drops a slot and keeps none
+    on the last line. Returns (the summary, restore)."""
+    from repro_torch.cache.quant import quantize_latent
+    from repro_torch.kernels import kv_cache_write as kw
+    from repro_torch.kernels import ops, sharded
+    saved = (sharded.kv_pool_write, sharded.latent_pool_write)
+    held = dict(kv_calls=0, kv_equal=0, lat_calls=0, lat_equal=0,
+                control_calls=0, control_failed=0)
+
+    def masks(slots, first, n):
+        local = slots.reshape(-1).long() - first
+        own = (local >= 0) & (local < n) & (slots.reshape(-1) >= 0)
+        return local, own
+
+    def same(a, b):
+        return a is None or torch.equal(a.view(torch.uint8),
+                                        b.view(torch.uint8))
+
+    def control_due():
+        return held["control_calls"] < SHARD_WRITE_CONTROLS
+
+    def control(passed):
+        # one shard's control: it must not pass the write check
+        held.update(control_calls=held["control_calls"] + 1,
+                    control_failed=held["control_failed"] + (not passed))
+
+    def drops_to_last(local, own, n):
+        # a slot is dropped here and no kept slot writes the last line, so
+        # the control's last line must differ from the reference's
+        return not bool(own.all()) and not bool((local[own] == n - 1).any())
+
+    def kv_write(ctx, kv_cache, scale_cache, k_new, v_new, slot_idx, *,
+                 opt_kv):
+        before = [t.clone() for t in kv_cache.shards]
+        sbefore = ([t.clone() for t in scale_cache.shards]
+                   if scale_cache is not None else None)
+        out = saved[0](ctx, kv_cache, scale_cache, k_new, v_new, slot_idx,
+                       opt_kv=opt_kv)
+        _, _, ps, H, D = kv_cache.shape
+        n = kv_cache.pages_per_shard * ps
+
+        def plain(s, slots):
+            kv = before[s].clone()
+            sc = sbefore[s].clone() if sbefore else None
+            f = kv.view(2, n, H, D)
+            fs = sc.view(2, n, H) if sc is not None else (None, None)
+            kw.kv_cache_write_ref(k_new.to(kv.device), v_new.to(kv.device),
+                                  slots.to(torch.int32).view(
+                                      slot_idx.shape), f[0], f[1], fs[0],
+                                  fs[1], opt_kv=opt_kv)
+            return kv, sc
+        ok = True
+        for s, dev in enumerate(ctx.devices):
+            local, own = masks(slot_idx.to(dev), s * n, n)
+            ref, rsc = plain(s, torch.where(own, local, -1))
+            ok &= same(kv_cache.shards[s], ref)
+            ok &= same(None if rsc is None else scale_cache.shards[s], rsc)
+            if s < ctx.num_shards - 1 and control_due() and \
+                    drops_to_last(local, own, n):
+                ctl, csc = plain(s, torch.where(own, local, n - 1))
+                control(same(ctl, ref) and same(csc, rsc))
+        held.update(kv_calls=held["kv_calls"] + 1,
+                    kv_equal=held["kv_equal"] + ok)
+        return out
+
+    def lat_write(ctx, lat_cache, scale_cache, latent, slot_idx, *, opt_kv,
+                  lora_rank):
+        before = [t.clone() for t in lat_cache.shards]
+        sbefore = ([t.clone() for t in scale_cache.shards]
+                   if scale_cache is not None else None)
+        out = saved[1](ctx, lat_cache, scale_cache, latent, slot_idx,
+                       opt_kv=opt_kv, lora_rank=lora_rank)
+        _, ps, W = lat_cache.shape
+        n = lat_cache.pages_per_shard * ps
+        new = latent.reshape(-1, W)
+        vals, scl = quantize_latent(new, lora_rank) if opt_kv else \
+            (new.to(lat_cache.dtype), None)
+        ok = True
+        for s, dev in enumerate(ctx.devices):
+            local, own = masks(slot_idx.to(dev), s * n, n)
+            ref = before[s].clone().view(n, W)
+            ref[local[own]] = vals.to(dev)[own]
+            rsc = None
+            if opt_kv:
+                rsc = sbefore[s].clone().view(n, 2)
+                rsc[local[own]] = scl.to(dev)[own]
+            ok &= same(lat_cache.shards[s].view(n, W), ref)
+            ok &= same(None if rsc is None else
+                       scale_cache.shards[s].view(n, 2), rsc)
+            if s < ctx.num_shards - 1 and control_due() and \
+                    drops_to_last(local, own, n):
+                ctl = before[s].clone()
+                csc = sbefore[s].clone() if sbefore else None
+                with ops.mesh_ctx_scope(None):      # the global rule
+                    ops.latent_pool_write(
+                        ctl, csc, latent.to(dev),
+                        torch.where(own, local, n).view(slot_idx.shape),
+                        opt_kv=opt_kv, lora_rank=lora_rank)
+                control(same(ctl.view(n, W), ref) and same(
+                    None if csc is None else csc.view(n, 2), rsc))
+        held.update(lat_calls=held["lat_calls"] + 1,
+                    lat_equal=held["lat_equal"] + ok)
+        return out
+
+    def restore():
+        sharded.kv_pool_write, sharded.latent_pool_write = saved
+    sharded.kv_pool_write, sharded.latent_pool_write = kv_write, lat_write
+    return held, restore
+
+
+def _pool_bytes(eng):
+    """(the bytes of the engine's pool leaves, of the same leaves padded
+    for one shard, of them padded for the engine's shards) from the
+    model's ``cache_shape``."""
+    def nbytes(shapes):
+        return sum(math.prod(sh) * dt.itemsize
+                   for k, (sh, dt, axes) in shapes.items() if "pages" in axes)
+    B, M = eng.ecfg.num_lanes, eng.ecfg.max_len
+    cc = eng.ccfg
+    held = sum(eng.cache[k].nbytes for k in eng._pool_axis)
+    return (held, nbytes(eng.model.cache_shape(B, M, eng.coopt,
+                                               cache_cfg=cc.replace(
+                                                   num_shards=1))),
+            nbytes(eng.model.cache_shape(B, M, eng.coopt, cache_cfg=cc)))
+
+
+def _check_shard_pools(torch, eng, arch):
+    """Every pool leaf of a 4-shard mesh engine is four tensors of their
+    own, each on its shard's device (distinct allocations, none a view of
+    another), holding exactly its page range; their bytes add up to the
+    pool padded for the shards. Returns the bytes."""
+    from repro_torch.core.opt_kv import ShardedPool
+    ctx = eng._kernel_ctx
+    for k, ax in eng._pool_axis.items():
+        leaf = eng.cache[k]
+        check(isinstance(leaf, ShardedPool) and leaf.num_shards == 4,
+              f"{arch}: pool leaf {k} is not 4 shards of their own")
+        whole = eng.model.cache_shape(eng.ecfg.num_lanes, eng.ecfg.max_len,
+                                      eng.coopt, cache_cfg=eng.ccfg)[k][0]
+        check(tuple(leaf.shape) == tuple(whole) and all(
+            t.device == d and t.untyped_storage().nbytes() == t.nbytes
+            and t.shape[ax] == whole[ax] // 4
+            for t, d in zip(leaf.shards, ctx.devices))
+              and len({t.data_ptr() for t in leaf.shards}) == 4,
+              f"{arch}: pool leaf {k}'s shards are not its page ranges on "
+              "the mesh's devices")
+    held, one, padded = _pool_bytes(eng)
+    check(held == padded, f"{arch}: the shards hold {held} bytes, the "
+          f"padded pool {padded}")
+    devs = [str(d) for d in ctx.devices]
+    log(f"{arch}: every pool leaf is 4 tensors on {devs}, {held} bytes in "
+        f"all = the pool padded for 4 shards ({padded}; {one} unsharded)")
+    return dict(bytes=held, padded_bytes=padded, unsharded_bytes=one)
+
+
+def _check_shard_peak(torch, eng, arch, peak_ref, peak, pools):
+    """The sharded sync run's peak device memory (over the engine's build
+    and run, the weights aside) is no more than the unsharded run's plus
+    the pools' padding and the merge's temporaries at the largest read:
+    the n shards' partials and the f32 sums, (n + 2) x lanes x the largest
+    prefill bucket x heads x value width x 4 bytes, and the write checks'
+    copies of one layer's shards (2 x pool / layers). A copy of the whole
+    pool would add its bytes."""
+    cfg, n = eng.cfg, eng._kernel_ctx.num_shards
+    width = cfg.kv_lora_rank if cfg.family == "mla" else cfg.head_dim
+    merge = ((n + 2) * eng.ecfg.num_lanes * max(eng.ecfg.prefill_buckets)
+             * cfg.num_heads * width * 4)
+    copies = 2 * pools["bytes"] // cfg.num_layers
+    pad = pools["padded_bytes"] - pools["unsharded_bytes"]
+    limit = peak_ref + pad + merge + copies
+    check(peak <= limit, f"{arch}: the sharded run's peak {peak} bytes is "
+          f"above the unsharded run's {peak_ref} plus padding, merge and "
+          f"checks ({pad} + {merge} + {copies})")
+    log(f"{arch}: peak device memory of the sharded sync run {peak} bytes "
+        f"against the unsharded run's {peak_ref} (+{peak - peak_ref}; limit "
+        f"+{pad + merge + copies}: padding {pad}, merge {merge}, write "
+        f"checks {copies}; the pool is {pools['bytes']})")
+    return dict(peak=peak, unsharded_peak=peak_ref, padding=pad,
+                merge_slack=merge, check_copies=copies)
+
+
+def _check_held_writes(held, launches, arch, mla):
+    """``_hold_shard_writes``'s summary: every write call of the run held
+    (K1's calls a quarter of its launches), every control failed."""
+    calls = held["lat_calls"] if mla else held["kv_calls"]
+    equal = held["lat_equal"] if mla else held["kv_equal"]
+    check(calls > 0 and equal == calls, f"{arch}: {calls - equal} of "
+          f"{calls} shard-local writes differ from the plain global write")
+    if not mla:
+        check(4 * calls == launches.get("kv_cache_write", 0),
+              f"{arch}: {calls} writes held, "
+              f"{launches.get('kv_cache_write', 0)} K1 launches")
+    check(held["control_calls"] > 0
+          and held["control_failed"] == held["control_calls"],
+          f"{arch}: the drop-to-last-line control passed the write check "
+          f"{held['control_calls'] - held['control_failed']} of "
+          f"{held['control_calls']} times")
+    log(f"{arch}: {equal} of {calls} {'latent' if mla else 'K1'} writes "
+        f"(4 shards each) equal byte for byte to the plain global write "
+        f"over each shard's range; control, the dropped slots put on a "
+        f"mid-pool shard's last line: failed the check on "
+        f"{held['control_failed']} of {held['control_calls']} shard writes")
+    return dict(held)
+
+
+def _distinct_card_run(torch, cfg, coopt, ecfg, params, prompts, max_new,
+                       rows, arch):
+    """Where the machine has 2 or more cards: the sync run again with shard
+    s on card s % count, traced; its tokens and logits must equal the
+    one-card mesh run's (``rows``) bit for bit, and ``AsyncEngine`` must
+    refuse the engine. Returns the card count used (0 with one card), the
+    peer copies' time a step."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        return dict(cards=0)
+    from repro_torch.launch.mesh import make_sim_mesh
+    from repro_torch.serving import AsyncEngine, Engine
+    devs = [torch.device("cuda", s % count) for s in range(4)]
+    eng = Engine(cfg, coopt, ecfg, params=params, device=DEV,
+                 mesh=make_sim_mesh(data=4, devices=devs))
+    _, rows_d, wall, _, acts = _sync_recorded(torch, eng, prompts, max_new,
+                                              traced=True)
+    for i, seq in rows.items():
+        mine = rows_d.get(i, [])
+        check(len(mine) == len(seq) and all(
+            a == b and torch.equal(x, y.to(x.device))
+            for (a, x), (b, y) in zip(seq, mine)),
+              f"{arch}: shards on {min(count, 4)} cards part from the "
+              f"one-card mesh at request {i}")
+    peer = [(e - b) for b, e, cat, name, _ in acts
+            if cat == "gpu_memcpy" and "PtoP" in name]
+    steps = _engine_summary(eng.stats, wall)["steps"]
+    refused = False
+    try:
+        AsyncEngine(eng, warmup=False)
+    except ValueError:
+        refused = True
+    check(refused, f"{arch}: AsyncEngine took a mesh across cards")
+    out = dict(cards=min(count, 4), steps=steps, peer_copies=len(peer),
+               peer_copy_us=sum(peer), peer_copy_us_per_step=sum(peer) / steps)
+    log(f"{arch}: shards on {out['cards']} cards: tokens and logits equal "
+        f"the one-card mesh bit for bit; {len(peer)} peer copies, "
+        f"{out['peer_copy_us_per_step']:.1f} us of card time a step")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 SHARDED_ENGINE = ("qwen3-4b", 36, 32)            # arch, layers, new tokens
 SHARDED_MLA = ("deepseek-v2-lite-16b", 4, 16)
 
 
 def sharded_engine_runs(torch, rec, spec, mla=False):
-    """One model at full width with ``mesh=make_sim_mesh(data=4)``: the
-    unsharded ``Engine.generate``, then the mesh's sync engine and
+    """One model at full width on a 4-shard mesh on one card
+    (``make_sim_mesh(data=4, devices=[DEV] * 4)``): the unsharded
+    ``Engine.generate``, then the mesh's sync engine and
     ``AsyncEngine(warmup=True)`` on the same weights and requests; every
-    lane's page table inside its shard at every step; the kernels launched
-    per shard (the state instantiations, 4 a layer in each replay of a
-    captured step); tokens held to the unsharded run's (a MoE model's like
-    for like, ``_moe_partings``); then a one-lane engine at 4 layers
-    (the per-lane decode kernel per shard). Returns the launches of the
-    sharded runs."""
+    pool leaf four tensors of their own (``_check_shard_pools``) and the
+    sync run's peak memory against the unsharded run's
+    (``_check_shard_peak``); every write of the sharded sync run held byte
+    for byte to the plain global write over each shard's range, beside its
+    drop control (``_hold_shard_writes``); every lane's page table inside
+    its shard at every step; the kernels launched per shard (the state
+    instantiations, 4 a layer in each replay of a captured step); tokens
+    held to the unsharded run's (a MoE model's like for like,
+    ``_moe_partings``); with 2 or more cards, the sync run with the shards
+    spread over them, bit for bit (``_distinct_card_run``); then a
+    one-lane engine at 4 layers (the per-lane decode kernel per shard).
+    Returns the launches of the sharded runs."""
     from repro_torch.configs import get_config
     from repro_torch.core.coopt import COOPT
     from repro_torch.launch.mesh import make_sim_mesh
@@ -4162,26 +4461,45 @@ def sharded_engine_runs(torch, rec, spec, mla=False):
     ecfg = EngineConfig(num_lanes=4, max_len=1024, seed=0)
     prompts = engine_prompts(cfg)
     params = get_model(cfg).init(0, DEV)
-    mesh = make_sim_mesh(data=4, device=DEV)
+    mesh = make_sim_mesh(data=4, devices=[DEV] * 4)
     res, total = {}, {}
 
     def add(launches):
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
+
+    def fresh_peak():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+    base = fresh_peak()
     ref = Engine(cfg, coopt, ecfg, params=params, device=DEV)
     lay_ref = _record_layouts(ref)
     _, rows, wall, _, _ = _sync_recorded(torch, ref, prompts, max_new)
+    peak_ref = torch.cuda.max_memory_allocated() - base
     res["unsharded_sync"] = _engine_summary(ref.stats, wall)
     del ref
+    base = fresh_peak()
     eng = Engine(cfg, coopt, ecfg, params=params, device=DEV, mesh=mesh)
     check(eng._kernel_ctx is not None and eng._kernel_ctx.num_shards == 4
           and eng.ccfg.num_shards == 4, "the mesh gave no 4-shard context")
+    res["pools"] = _check_shard_pools(torch, eng, arch)
     tables = _in_shard_tables(eng)
     checked = eng._build_step
     lay = _record_layouts(eng)
-    reqs, rows_s, wall, launches, _ = _sync_recorded(torch, eng, prompts,
-                                                     max_new)
+    held_w, restore_w = _hold_shard_writes(torch)
+    try:
+        reqs, rows_s, wall, launches, _ = _sync_recorded(torch, eng, prompts,
+                                                         max_new)
+    finally:
+        restore_w()
     add(launches)
+    res["peak"] = _check_shard_peak(torch, eng, arch, peak_ref,
+                                    torch.cuda.max_memory_allocated() - base,
+                                    res["pools"])
+    res["writes"] = _check_held_writes(held_w, launches, arch, mla)
     res["sharded_sync"] = dict(_engine_summary(eng.stats, wall),
                                launches=launches,
                                shard_pages=list(eng.stats.shard_pages),
@@ -4242,6 +4560,8 @@ def sharded_engine_runs(torch, rec, spec, mla=False):
                                 aot_misses=eng.aot_misses)
     check(eng.aot_misses == 0, f"{arch}: an async step found no runner")
     res["steps_in_shard"] = len(tables)
+    res["distinct_cards"] = _distinct_card_run(
+        torch, cfg, coopt, ecfg, params, prompts, max_new, rows_s, arch)
     for name in (decode_k, chunk_k):
         check(total.get(name, 0) > 0, f"{name} never launched on the "
               f"sharded {arch} engines")
@@ -4284,10 +4604,11 @@ def sharded_phase(torch, rec, time_ms):
     """``--only sharded``: K2-K7 with ``return_state`` against their plain
     versions on 1, 2 and 4 shard-local tables (qwen3-4b's widths, K2-K4
     again at recurrentgemma-9b's D 256 windowed, deepseek-v2-lite's), the
-    sharded reads at 4 shards against the unsharded kernels, then qwen3-4b
-    at full width and depth and deepseek-v2-lite-16b at 4 layers on a
-    4-shard mesh, sync and async. Returns (the state instantiations'
-    records, the launches of the sharded engine runs)."""
+    sharded reads at 4 shards (each a pool of its own) against the
+    unsharded kernels, the line ``{"distinct_cards": N}`` (0 with one
+    card), then qwen3-4b at full width and depth and deepseek-v2-lite-16b
+    at 4 layers on a 4-shard mesh, sync and async. Returns (the state
+    instantiations' records, the launches of the sharded engine runs)."""
     dev = torch.device(DEV)
     cl = torch.tensor([1024, 1000, 980, 1010], dtype=torch.int32, device=dev)
     pos = torch.empty((4, 512), dtype=torch.int32, device=dev)
@@ -4311,6 +4632,10 @@ def sharded_phase(torch, rec, time_ms):
     sharded_reads(torch, rec, time_ms, gqa, lat)
     del gqa, lat
     torch.cuda.empty_cache()
+    count = torch.cuda.device_count()
+    # with one card the distinct-card runs do not run; say so
+    cards = min(count, 4) if count >= 2 else 0
+    print(json.dumps({"distinct_cards": cards}), flush=True)
     total = sharded_engine_runs(torch, rec, SHARDED_ENGINE)
     for k, v in sharded_engine_runs(torch, rec, SHARDED_MLA,
                                     mla=True).items():

@@ -17,9 +17,10 @@ Design (paper §2 "allocator mismatch" + Opt-KV Eq. 5 + Opt-Pa §3.3):
 
 * **Page-range sharding** — the pool's ``pages`` axis is split into
   ``num_shards`` contiguous page ranges (the ``(pod, data)`` extent of a
-  ``launch.mesh`` mesh; on one card ``kernels.sharded`` reads each range as
-  a view of the one pool). Shard s owns ``shard_page_ranges(num_pages,
-  num_shards)[s]`` and keeps its OWN free list, LRU and prefix-hash table.
+  ``launch.mesh`` mesh; with the kernels each range is then a pool of its
+  own on its shard's device, ``core.opt_kv.ShardedPool``). Shard s owns
+  ``shard_page_ranges(num_pages, num_shards)[s]`` and keeps its OWN free
+  list, LRU and prefix-hash table.
   A sequence is pinned to one shard at ``allocate`` time and only ever
   draws pages from that shard's range, so its page table never leaves its
   shard. ``OutOfBlocks`` carries the pressured shard so the scheduler can

@@ -35,8 +35,8 @@ from repro_torch.core.coopt import CoOptConfig
 # The mesh axes the pool's pages axis is split over (the port's
 # ``launch.mesh`` meshes carry them by name): ``launch.mesh.kv_shard_count``
 # takes its extent from them, ``BlockManager.shard_page_ranges`` is the
-# host's copy of the split, and ``kernels.sharded`` runs one kernel per
-# page range.
+# host's copy of the split, and ``kernels.sharded`` runs each kernel once
+# per page range, on the shard's own pool (``ShardedPool``).
 PAGES_AXES = ("pod", "data")
 
 
@@ -69,6 +69,108 @@ def global_to_local_pages(phys_table: torch.Tensor, first_page: int,
     local = phys_table - first_page
     owned = (phys_table >= 0) & (local >= 0) & (local < num_local)
     return torch.where(owned, local, -1).to(torch.int32)
+
+
+def global_to_local_slots(slot_idx: torch.Tensor, first_slot: int,
+                          num_local: int) -> torch.Tensor:
+    """The flat-slot form of ``global_to_local_pages``: GLOBAL flat slots
+    (page * ps + offset) inside ``[first_slot, first_slot + num_local)``
+    become local slots; every other slot (another shard's, or a negative
+    SkipSet slot) becomes ``num_local``, one PAST the shard's last line, so
+    a scatter that drops out-of-range slots discards it. Never -1, which
+    would wrap onto the shard's last line: live data on every shard but the
+    last. int32, on the slots' device."""
+    local = slot_idx - first_slot
+    owned = (slot_idx >= 0) & (local >= 0) & (local < num_local)
+    return torch.where(owned, local, num_local).to(torch.int32)
+
+
+# ------------------------------------------------------- sharded pools --
+class ShardedPool:
+    """One pool leaf as page-range shards, each a tensor of its own (on its
+    mesh device): shard s holds the global pages ``[s * per, (s + 1) *
+    per)`` along axis ``pages_dim``. The models hand it to the kernel
+    wrappers unchanged (``kernels.sharded`` reads and writes each shard on
+    its device); indexing a leading axis (a layer) indexes every shard, and
+    ``shape`` is the whole pool's."""
+    __slots__ = ("shards", "pages_dim")
+
+    def __init__(self, shards, pages_dim: int):
+        self.shards = tuple(shards)
+        self.pages_dim = pages_dim
+
+    @classmethod
+    def split(cls, pool: torch.Tensor, devices, pages_dim: int):
+        """A copy of ``pool`` as ``len(devices)`` shards, shard s a new
+        tensor on ``devices[s]`` (built from an existing pool; the engine
+        allocates its shards directly, ``alloc_cache``)."""
+        n = len(devices)
+        if pool.shape[pages_dim] % n:
+            raise ValueError(f"{pool.shape[pages_dim]} pages do not split "
+                             f"into {n} equal shards")
+        return cls([c.to(d, memory_format=torch.contiguous_format,
+                         copy=True)
+                    for c, d in zip(pool.chunk(n, pages_dim), devices)],
+                   pages_dim)
+
+    @property
+    def num_shards(self) -> int:
+        return len(self.shards)
+
+    @property
+    def pages_per_shard(self) -> int:
+        return self.shards[0].shape[self.pages_dim]
+
+    @property
+    def shape(self) -> torch.Size:
+        sh = list(self.shards[0].shape)
+        sh[self.pages_dim] *= len(self.shards)
+        return torch.Size(sh)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards[0].dtype
+
+    @property
+    def requires_grad(self) -> bool:
+        return any(s.requires_grad for s in self.shards)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(s.nbytes for s in self.shards)
+
+    def __getitem__(self, i: int) -> "ShardedPool":
+        if self.pages_dim == 0:
+            raise IndexError("a ShardedPool indexes its leading axes only; "
+                             "address a page with page()")
+        return ShardedPool([s[i] for s in self.shards], self.pages_dim - 1)
+
+    def page(self, page: int) -> torch.Tensor:
+        """Global page ``page``: a view into the shard that holds it."""
+        s, local = divmod(int(page), self.pages_per_shard)
+        return self.shards[s].select(self.pages_dim, local)
+
+
+def alloc_cache(shapes, device, shard_devices=None):
+    """Zero leaves for a model's ``cache_shape``. With ``shard_devices``
+    (one device a page-range shard, in shard order) every leaf with a
+    ``pages`` axis is a ``ShardedPool`` of one zero tensor a shard, each
+    on its device and holding its page range; no whole pool is
+    allocated. The batch-major leaves stay on ``device``."""
+    out = {}
+    for k, (sh, dt, axes) in shapes.items():
+        if shard_devices and "pages" in axes:
+            ax, n = axes.index("pages"), len(shard_devices)
+            if sh[ax] % n:
+                raise ValueError(f"{sh[ax]} pages do not split into {n} "
+                                 "equal shards (core.opt_kv.pool_layout "
+                                 "pads them)")
+            part = sh[:ax] + (sh[ax] // n,) + sh[ax + 1:]
+            out[k] = ShardedPool([torch.zeros(part, dtype=dt, device=d)
+                                  for d in shard_devices], ax)
+        else:
+            out[k] = torch.zeros(sh, dtype=dt, device=device)
+    return out
 
 
 # ------------------------------------------------------- identity layout --

@@ -19,11 +19,12 @@ input that requires grad) on every device, as the JAX package's
 
 Page-range shards: while a ``sharded.ShardCtx`` is installed
 (``set_mesh_ctx``; the engine binds its mesh's around every step body with
-``mesh_ctx_scope``), every READ wrapper dispatches to ``kernels.sharded``:
-the same kernels run once per shard on that shard's page range, and their
-(o, m, l) partials are merged. Writes stay the global ones. With no
-context (no mesh, or a mesh whose pages axes have extent 1) the unsharded
-kernels run unchanged.
+``mesh_ctx_scope``), the pool leaves are ``core.opt_kv.ShardedPool``s and
+every pool wrapper dispatches to ``kernels.sharded``: the same kernels run
+once per shard, on that shard's pool and device; the writes are
+shard-local and the reads' (o, m, l) partials are merged on the
+controller. With no context (no mesh, or a mesh whose pages axes have
+extent 1) the unsharded kernels run unchanged on the one pool.
 """
 from __future__ import annotations
 
@@ -47,10 +48,11 @@ from repro_torch.kernels import visits as _vs
 _MESH_CTX: Optional["_sh.ShardCtx"] = None
 
 
-def make_mesh_ctx(mesh) -> Optional["_sh.ShardCtx"]:
-    """The ShardCtx of ``mesh`` (None when its pages axes have extent 1: an
-    unsharded mesh takes the unsharded path)."""
-    return _sh.make_ctx(mesh)
+def make_mesh_ctx(mesh, device=None) -> Optional["_sh.ShardCtx"]:
+    """The ShardCtx of ``mesh``, its shards on the mesh's devices or else
+    all on ``device`` (None when its pages axes have extent 1: an unsharded
+    mesh takes the unsharded path)."""
+    return _sh.make_ctx(mesh, device)
 
 
 def set_mesh_ctx(ctx: Optional["_sh.ShardCtx"]) -> None:
@@ -140,8 +142,13 @@ def paged_pool_decode(q, kv_pages, scale_pages, cache_len, phys_table,
 def kv_cache_write(kv_cache, scale_cache, k_new, v_new, slot_idx, *,
                    opt_kv: bool):
     """Engine-layout adapter for the write kernel: scatters into the pool
-    (2,P_total,ps,Hkv,D) in place and returns (kv_cache, scale_cache)."""
+    (2,P_total,ps,Hkv,D) in place and returns (kv_cache, scale_cache).
+    Under a shard context: the shard-local write
+    (``sharded.kv_pool_write``)."""
     _no_grad_through("kv_cache_write", k_new, v_new, kv_cache, scale_cache)
+    if _MESH_CTX is not None:
+        return _sh.kv_pool_write(_MESH_CTX, kv_cache, scale_cache, k_new,
+                                 v_new, slot_idx, opt_kv=opt_kv)
     _, Pt, ps, Hkv, D = kv_cache.shape
     flat = kv_cache.view(2, Pt * ps, Hkv, D)
     sflat = (scale_cache.view(2, Pt * ps, Hkv)
@@ -189,7 +196,13 @@ def latent_pool_write(lat_cache, scale_cache, latent, slot_idx, *,
     (which it drops): the BlockManager never allocates that line, and a
     scatter of fixed shape needs no host sync, so a CUDA graph can capture
     it. A plain scatter: the JAX package has no kernel here either.
+    Under a shard context: the shard-local write, which drops those slots
+    instead (``sharded.latent_pool_write``: a shard's last line is live).
     Returns (lat_cache, scale_cache)."""
+    if _MESH_CTX is not None:
+        return _sh.latent_pool_write(_MESH_CTX, lat_cache, scale_cache,
+                                     latent, slot_idx, opt_kv=opt_kv,
+                                     lora_rank=lora_rank)
     Pt, ps, W = lat_cache.shape
     flat = lat_cache.view(Pt * ps, W)
     slots = slot_idx.reshape(-1).long()

@@ -28,8 +28,9 @@ same workload through the overlapped host/device pipeline —
 
 Page-range shards: ``--shards N`` splits the pool into N page ranges with
 shard-affine placement; ``--mesh`` also serves on ``make_sim_mesh(data=N,
-model=1)``, whose shard context makes the kernels (``--use-kernel``) read
-each range on its own and merge (``kernels.sharded``).
+model=1)``: with the kernels (``--use-kernel``) each range is a pool of its
+own on the serving device, written shard-locally, and each read runs per
+shard and merges (``kernels.sharded``).
 
 The host-DRAM KV tier: ``--host-pages N`` keeps up to N device-evicted
 prefix pages in host memory and ``--prefetch-depth`` sets how many queued
@@ -331,8 +332,9 @@ def main(argv=None):
                          "extent; see launch.mesh.kv_shard_count)")
     ap.add_argument("--mesh", action="store_true",
                     help="serve on a simulated (data=--shards, model=1) "
-                         "mesh: with --use-kernel the kernels read each "
-                         "shard's page range and merge (kernels.sharded)")
+                         "mesh: with --use-kernel each page range is a "
+                         "pool of its own on the device, written and read "
+                         "per shard, the reads merged (kernels.sharded)")
     ap.add_argument("--async", dest="use_async", action="store_true",
                     help="AsyncEngine: overlapped host/device pipeline "
                          "with a step runner (CUDA graph) a step shape")

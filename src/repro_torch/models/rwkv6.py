@@ -31,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.coopt import COOPT, CoOptConfig
+from repro_torch.core.opt_kv import alloc_cache
 from repro_torch.models.layers import (init_tree, linear, rmsnorm, silu,
                                        tree_count)
 from repro_torch.models.transformer import check_device
@@ -321,11 +322,12 @@ class RWKV6Model:
         }
 
     def init_cache(self, batch: int, max_len: int, coopt: CoOptConfig,
-                   num_shards: int = 1, cache_cfg=None, device="cuda"):
-        device = check_device(device)
-        return {k: torch.zeros(sh, dtype=dt, device=device)
-                for k, (sh, dt, _) in
-                self.cache_shape(batch, max_len, coopt).items()}
+                   num_shards: int = 1, cache_cfg=None, device="cuda",
+                   shard_devices=None):
+        """Zero state leaves on ``device``. rwkv6 has no pool, so
+        ``num_shards`` and ``shard_devices`` change none of its leaves."""
+        return alloc_cache(self.cache_shape(batch, max_len, coopt),
+                           check_device(device), shard_devices)
 
 
 def _take(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:

@@ -34,8 +34,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.coopt import COOPT, CoOptConfig
-from repro_torch.core.opt_kv import (identity_page_table, identity_slots,
-                                     pool_layout, write_kv)
+from repro_torch.core.opt_kv import (alloc_cache, identity_page_table,
+                                     identity_slots, pool_layout, write_kv)
 from repro_torch.core.opt_pa import (paged_chunk_attention,
                                      paged_decode_attention)
 from repro_torch.models import mla as mla_mod
@@ -210,12 +210,15 @@ class TransformerModel:
         return out
 
     def init_cache(self, batch: int, max_len: int, coopt: CoOptConfig,
-                   num_shards: int = 1, cache_cfg=None, device="cuda"):
-        device = check_device(device)
-        return {k: torch.zeros(sh, dtype=dt, device=device)
-                for k, (sh, dt, _) in
-                self.cache_shape(batch, max_len, coopt, num_shards=num_shards,
-                                 cache_cfg=cache_cfg).items()}
+                   num_shards: int = 1, cache_cfg=None, device="cuda",
+                   shard_devices=None):
+        """Zero cache leaves on ``device``; with ``shard_devices`` (a mesh's,
+        one device a shard) each pool leaf is a ``ShardedPool``, its page
+        ranges on those devices (``core.opt_kv.alloc_cache``)."""
+        return alloc_cache(
+            self.cache_shape(batch, max_len, coopt, num_shards=num_shards,
+                             cache_cfg=cache_cfg),
+            check_device(device), shard_devices)
 
     # -------------------------------------------------------------- layers --
     def _qkv(self, p, x, positions):

@@ -65,12 +65,17 @@ Page-range shards (``CacheConfig.num_shards``, or ``EngineConfig.num_shards``):
 the pool is padded to split evenly into that many page ranges and the
 scheduler pins each request to one (shard-affine placement, per-shard
 preemption). With a ``launch.mesh`` mesh (``Engine(mesh=...)``) the shard
-count comes from its ``(pod, data)`` extent and, with the kernels, every
-step body runs under the mesh's shard context (``ops.mesh_ctx_scope``):
-each read kernel runs once per page range and the partials are merged
-(``kernels.sharded``), in both engines and inside the async step's CUDA
-graphs. Without a mesh the shards are the host's placement only and the
-kernels read the whole pool.
+count comes from its ``(pod, data)`` extent and, with the kernels, each
+page range is a pool of its own on the mesh's device for that shard
+(every pool leaf a ``core.opt_kv.ShardedPool``) and every step body runs
+under the mesh's shard context (``ops.mesh_ctx_scope``): writes are
+shard-local, each read kernel runs on its shard's device and the partials
+are merged on the engine's device, the controller, which keeps the weights
+and the batch-major leaves (``kernels.sharded``). Both engines serve a mesh
+on one device (the async one inside its CUDA graphs); a mesh across
+several cards is served by the sync engine. Without a mesh, or off the
+kernel path, the shards are the host's placement only and the one pool is
+read whole.
 
 whisper (encoder-decoder) keeps its cross-attention K/V in batch-major
 leaves (``xk``, ``xv``, ``xscale``), computed ONCE per request: a prefill
@@ -114,7 +119,9 @@ from repro_torch.cache.quant import (HostPage, dequantize_fp8,
                                      encode_host_page, select)
 from repro_torch.configs.base import CacheConfig, ModelConfig
 from repro_torch.core.coopt import COOPT, CoOptConfig
+from repro_torch.core.opt_kv import ShardedPool
 from repro_torch.kernels import ops
+from repro_torch.kernels.sharded import canonical_device, cards
 from repro_torch.kernels.visits import sharing_stats
 from repro_torch.models import get_model
 from repro_torch.models.transformer import check_device
@@ -428,18 +435,26 @@ class Engine:
         random init from ``engine_cfg.seed``). ``mesh``: a ``launch.mesh``
         mesh; the pool's shard count is DERIVED from its pages axes
         (``kv_shard_count``): a default ``num_shards`` of 1 takes it, and a
-        conflicting explicit value raises. With ``coopt.use_kernel`` the
-        read kernels then run once per page range (``kernels.sharded``)."""
+        conflicting explicit value raises. With ``coopt.use_kernel`` each
+        page range is then a pool of its own on the mesh's device for it
+        (all on ``device`` where the mesh names none; its first device must
+        be ``device``, the controller) and the kernels run per shard
+        (``kernels.sharded``)."""
         self.device = check_device(device)
         self.cfg = model_cfg
         self.coopt = coopt
         ccfg = engine_cfg.cache_config(coopt.page_size)
         if mesh is not None:
             from repro_torch.launch.mesh import kv_shard_count
-            if mesh.device is not None and \
-                    mesh.device.type != self.device.type:
-                raise ValueError(f"the mesh is on {mesh.device}, the "
-                                 f"engine on {self.device}")
+            for d in mesh.devices or ():
+                if d.type != self.device.type:
+                    raise ValueError(f"the mesh is on {d}, the engine on "
+                                     f"{self.device}")
+            if mesh.devices and canonical_device(mesh.devices[0]) != \
+                    canonical_device(self.device):
+                raise ValueError(f"the mesh's first shard is on "
+                                 f"{mesh.devices[0]}; the controller (the "
+                                 f"engine's device) is {self.device}")
             ns = kv_shard_count(mesh)
             if ccfg.num_shards == 1:
                 # config built before the mesh: derive the shard count
@@ -456,11 +471,11 @@ class Engine:
                                              num_shards=ccfg.num_shards)
         self.ccfg = ccfg
         self.ecfg = engine_cfg
-        # the page-range shard context of the read kernels (None without a
+        # the page-range shard context of the kernels (None without a
         # mesh, for an unsharded mesh, or off the kernel path: the
-        # unsharded code path)
-        self._kernel_ctx = (ops.make_mesh_ctx(mesh) if coopt.use_kernel
-                            else None)
+        # unsharded code path on one pool)
+        self._kernel_ctx = (ops.make_mesh_ctx(mesh, self.device)
+                            if coopt.use_kernel else None)
         # raises for the families not ported
         self.model = get_model(model_cfg)
         # recurrent-state families: the batch-major leaves that carry a
@@ -498,10 +513,12 @@ class Engine:
 
         B, M = engine_cfg.num_lanes, engine_cfg.max_len
         # the pool's pages axis is padded to split evenly into the shards
-        # (host page ids == device page ids, core.opt_kv.pool_layout)
-        self.cache = self.model.init_cache(B, M, coopt,
-                                           num_shards=ccfg.num_shards,
-                                           cache_cfg=ccfg, device=self.device)
+        # (host page ids == device page ids, core.opt_kv.pool_layout); under
+        # a shard context each range is a pool of its own on its device
+        self.cache = self.model.init_cache(
+            B, M, coopt, num_shards=ccfg.num_shards, cache_cfg=ccfg,
+            device=self.device, shard_devices=(
+                self._kernel_ctx.devices if self._kernel_ctx else None))
         # the batch-major leaves (length, recurrent state) and their batch
         # axis: a step writes them under its lane mask; the pool leaves are
         # isolated by slot disjointness
@@ -686,47 +703,56 @@ class Engine:
         s.prefetch_replans = self.scheduler.prefetch_replans
 
     # ----------------------------------------------- the host-DRAM tier --
+    def _pool_page(self, name: str, page: int) -> torch.Tensor:
+        """Global page ``page`` of pool leaf ``name``: a view of the pool,
+        or of the shard's own pool at its local index (``ShardedPool``)."""
+        leaf = self.cache[name]
+        if isinstance(leaf, ShardedPool):
+            return leaf.page(page)
+        return leaf.select(self._pool_axis[name], page)
+
     def _read_pool_page(self, page: int) -> Dict[str, torch.Tensor]:
         """Page ``page`` of every pool leaf, as views of the pool."""
-        return {k: self.cache[k].select(ax, page)
-                for k, ax in self._pool_axis.items()}
+        return {k: self._pool_page(k, page) for k in self._pool_axis}
 
     def _to_host(self, t: torch.Tensor) -> torch.Tensor:
-        """A host copy of ``t``. On the card: into pinned memory, enqueued
-        on the current (step) stream without blocking; the caching host
-        allocator keeps the buffer until the copy has run. On the CPU: a
-        plain copy."""
-        if self.device.type != "cuda":
+        """A host copy of ``t``. On the card: into memory pinned for
+        ``t``'s card, enqueued on that card's current (step) stream without
+        blocking; the caching host allocator keeps the buffer until the
+        copy has run. On the CPU: a plain copy."""
+        if t.device.type != "cuda":
             return t.clone()
-        out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        out.copy_(t, non_blocking=True)
+        with torch.cuda.device(t.device):
+            out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            out.copy_(t, non_blocking=True)
         return out
 
     def _write_pool_page(self, name: str, page: int,
                          data: torch.Tensor) -> None:
         """Write ``data`` into page ``page`` of pool leaf ``name``, IN PLACE
         (captured graphs read the pool at fixed addresses)."""
-        dst = self.cache[name].select(self._pool_axis[name], page)
-        dst.copy_(data, non_blocking=True)
+        self._pool_page(name, page).copy_(data, non_blocking=True)
 
     def _write_pool_page_q(self, name: str, page: int, q: torch.Tensor,
                            scale: torch.Tensor) -> None:
         """An fp8-encoded host leaf (``CacheConfig.host_quant``): upload the
-        codes and scales, dequantize on the device into the staging page."""
-        dst = self.cache[name].select(self._pool_axis[name], page)
-        q = q.to(self.device, non_blocking=True)
-        scale = scale.to(self.device, non_blocking=True)
+        codes and scales, dequantize on the page's device into the staging
+        page."""
+        dst = self._pool_page(name, page)
+        q = q.to(dst.device, non_blocking=True)
+        scale = scale.to(dst.device, non_blocking=True)
         dst.copy_(dequantize_fp8(q, scale, dtype=dst.dtype))
 
     def _spill_page(self, h: int, page: int, shard: int):
         """The BlockManager's spill sink: rescue an LRU-evicted prefix page
         to host memory. Returns the host payload, or None to let the page
-        die (fault injection). ``page`` is a global page id (shards are
-        page ranges of one pool). Safe without a host sync: the copies are
-        enqueued on the step stream now, during the scheduling turn that
-        evicts the page, so they run after every step already enqueued
-        (the last that wrote the page among them) and before any step this
-        turn or later plans onto the page."""
+        die (fault injection). ``page`` is a global page id, read from its
+        shard's own pool under a mesh. Safe without a host sync: the copies
+        are enqueued on the step stream now (the page's card's current
+        stream), during the scheduling turn that evicts the page, so they
+        run after every step already enqueued (the last that wrote the page
+        among them) and before any step this turn or later plans onto the
+        page."""
         if self.faults is not None and not self.faults.on_spill():
             return None
         hp = encode_host_page(self._read_pool_page(page),
@@ -737,9 +763,18 @@ class Engine:
 
     def _upload_page(self, hp: HostPage, page: int) -> None:
         """Write a host payload into reserved staging page ``page``, in
-        place. Enqueued on the step stream, after the payload's own spill
-        copy, so it needs no host sync either; the page is a staging page
-        (no live request reads it) until its flight commits."""
+        place. Enqueued on the step stream of the page's card, after the
+        payload's own spill copy, so it needs no host sync either; the page
+        is a staging page (no live request reads it) until its flight
+        commits. A payload may have been spilled from another card's shard:
+        across cards, the page's stream first waits for the work queued on
+        every other card (its spill copy among it)."""
+        ctx = self._kernel_ctx
+        if cards(ctx) > 1:
+            dst = self._pool_page(next(iter(self._pool_axis)), page).device
+            here = torch.cuda.current_stream(dst)
+            for d in set(ctx.devices) - {dst}:
+                here.wait_stream(torch.cuda.current_stream(d))
         for k in self._pool_axis:
             if k in hp.scales:
                 self._write_pool_page_q(k, page, hp.leaves[k], hp.scales[k])

@@ -31,11 +31,13 @@ built, so host and card take turns idling. This frontend overlaps them:
     lattice (a CUDA graph on the card; ``Engine.warmup``), so steady-state
     serving replays graphs: ``engine.aot_misses`` stays 0 and
     ``engine.trace_counts`` is frozen after warmup.
-  * An engine with a mesh (page-range shards, ``kernels.sharded``) runs
-    its step bodies under the mesh's shard context, so each step's graph
-    holds the per-shard kernel launches and their merge, in order on the
-    one stream (the decode kernels' arrival counters are shared across the
-    shards' launches, which that order keeps safe), with no host sync.
+  * An engine with a mesh on one card (page-range shards, each a pool of
+    its own, ``kernels.sharded``) runs its step bodies under the mesh's
+    shard context, so each step's graph holds the per-shard writes, kernel
+    launches and their merge, in order on the one stream (the decode
+    kernels' arrival counters are shared across the shards' launches,
+    which that order keeps safe), with no host sync. A mesh across several
+    cards is refused: a graph is captured on one card.
 
 Greedy outputs follow ``Engine.generate``'s: the device consumes its own
 sampled tokens in dispatch order, and a lane's paged-pool step math does
@@ -97,6 +99,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels.sharded import cards
 from repro_torch.serving.engine import Engine, StepBatch
 from repro_torch.serving.request import FinishReason, Request, RequestState
 
@@ -178,6 +181,15 @@ class AsyncEngine:
                  max_queue_depth: Optional[int] = None,
                  max_queued_tokens: Optional[int] = None,
                  watchdog_s: float = 30.0):
+        n = cards(engine._kernel_ctx)
+        if n > 1:
+            # a step is one CUDA graph, captured on one card's stream from
+            # its private memory pool; the shards' launches and copies on
+            # other cards are not captured into it
+            raise ValueError(
+                f"AsyncEngine captures each step in a CUDA graph on one "
+                f"card; this engine's mesh puts its KV shards on {n} cards. "
+                "Serve it with the sync Engine, or put the mesh on one card")
         self.engine = engine
         self.depth = max(1, int(pipeline_depth))
         self.max_queue_depth = max_queue_depth

@@ -1469,3 +1469,108 @@ def test_inspect_cell_reports_kernels_and_terms(dev):
     assert r["C_s"] == dry["cost"]["flops"] / 989e12
     assert r["M_s"] == dry["cost"]["min_bytes"] / 3.35e12
     assert r["peak_bytes"] >= dry["memory"]["argument_bytes"]
+
+
+# --------------------------------------------- KV shards, pools of their own --
+def _mesh_engine(dev, devices, params=None):
+    from repro_torch.configs import get_config
+    from repro_torch.core.coopt import COOPT
+    from repro_torch.launch.mesh import make_sim_mesh
+    from repro_torch.serving import Engine, EngineConfig
+    return Engine(get_config("qwen3-4b-reduced"),
+                  COOPT.replace(use_kernel=True),
+                  EngineConfig(num_lanes=4, max_len=256,
+                               prefill_buckets=(32, 64, 128)),
+                  params=params, device=dev,
+                  mesh=make_sim_mesh(data=4, devices=devices))
+
+
+def _mesh_prompts():
+    import numpy as np
+    rng = np.random.default_rng(5)
+    return [rng.integers(0, 512, n) for n in (12, 70, 45, 100)]
+
+
+def test_mesh_engine_on_one_card_writes_each_shard_pool(dev, monkeypatch):
+    """A 4-shard mesh engine on one card (qwen3-4b reduced): every pool
+    leaf is four tensors of their own on the card; each K1 call of its
+    sync run leaves every shard equal, byte for byte, to its copy from
+    before the call with the plain write (``kv_cache_write_ref``) of the
+    same inputs applied over the shard's range (other slots dropped by a
+    mask); the per-shard read kernels launch, and every request gets its
+    tokens."""
+    from repro_torch.core.opt_kv import ShardedPool
+    from repro_torch.kernels import sharded
+    eng = _mesh_engine(dev, [dev] * 4)
+    for k in ("kv", "scale"):
+        leaf = eng.cache[k]
+        assert isinstance(leaf, ShardedPool) and leaf.num_shards == 4
+        assert all(t.is_cuda for t in leaf.shards)
+        assert len({t.data_ptr() for t in leaf.shards}) == 4
+    real, held = sharded.kv_pool_write, []
+
+    def hold(ctx, kv, sc, k_new, v_new, slots, *, opt_kv):
+        before = [(a.clone(), b.clone())
+                  for a, b in zip(kv.shards, sc.shards)]
+        out = real(ctx, kv, sc, k_new, v_new, slots, opt_kv=opt_kv)
+        _, _, ps, H, D = kv.shape
+        n = kv.pages_per_shard * ps
+        for s, (a, b) in enumerate(before):
+            local = slots.long() - s * n
+            own = (slots >= 0) & (local >= 0) & (local < n)
+            fa, fb = a.view(2, n, H, D), b.view(2, n, H)
+            kw.kv_cache_write_ref(k_new, v_new, torch.where(
+                own, local, -1).to(torch.int32), fa[0], fa[1], fb[0],
+                fb[1], opt_kv=opt_kv)
+            held.append(torch.equal(kv.shards[s].view(torch.uint8),
+                                    a.view(torch.uint8))
+                        and torch.equal(sc.shards[s], b))
+        return out
+    monkeypatch.setattr(sharded, "kv_pool_write", hold)
+    cuda.reset_launches()
+    outs = eng.generate(_mesh_prompts(), max_new_tokens=4)
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    assert held and all(held)
+    assert len(held) == launches["kv_cache_write"]     # 4 shards a call
+    assert launches.get("flash_chunk_prefill_state", 0) > 0
+    assert any(k.startswith("paged_pool_decode") and k.endswith("_state")
+               for k in launches)
+    assert all(len(o) == 4 for o in outs)
+
+
+def test_mesh_across_cards_matches_one_card(dev):
+    """Shard s on card s % count: the sync run's tokens, every sampled
+    logits row and the pool's bytes equal the one-card mesh's bit for bit
+    (the same kernels on the same inputs, merged in the same order; copies
+    between cards are exact), and ``AsyncEngine`` refuses the engine."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip(f"needs 2 or more CUDA devices, found {count}: the "
+                    "shards cannot sit on distinct cards")
+    from repro_torch.serving import AsyncEngine
+    one = _mesh_engine(dev, [dev] * 4)
+    spread = _mesh_engine(dev, [torch.device("cuda", s % count)
+                                for s in range(4)], params=one.params)
+    runs = []
+    for eng in (one, spread):
+        rows, sample = [], eng._sample
+
+        def keep(logits, sample=sample, rows=rows):
+            rows.append(logits.float().clone())
+            return sample(logits)
+        eng._sample = keep
+        outs = eng.generate(_mesh_prompts(), max_new_tokens=4)
+        torch.cuda.synchronize()
+        runs.append((outs, rows, {k: [t.cpu() for t in eng.cache[k].shards]
+                                  for k in eng._pool_axis}))
+    (o1, r1, p1), (o2, r2, p2) = runs
+    assert o1 == o2 and len(r1) == len(r2)
+    assert all(torch.equal(a, b) for a, b in zip(r1, r2))
+    for k in p1:
+        assert all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                   for a, b in zip(p1[k], p2[k]))
+    assert {t.device.index for t in spread.cache["kv"].shards} == \
+        set(range(min(count, 4)))
+    with pytest.raises(ValueError, match="cards"):
+        AsyncEngine(spread, warmup=False)

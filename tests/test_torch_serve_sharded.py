@@ -32,17 +32,24 @@ def params():
 SHARD_KW = dict(KW, pool_pages=16, num_shards=4)
 
 
+@pytest.fixture(scope="module")
+def want():
+    """The JAX package's report, computed once for both cases."""
+    return jserve.serve_workload(ARCH, "coopt", **SHARD_KW)
+
+
 @pytest.mark.parametrize("mesh", [False, True], ids=["shards", "mesh"])
-def test_serve_workload_sharded_matches_jax(params, mesh):
+def test_serve_workload_sharded_matches_jax(params, want, mesh):
     """``--shards 4`` (host placement) and ``--mesh`` (the 4-shard mesh:
-    the kernels' plain versions read each shard's page range and merge)
-    report the JAX package's keys, and its counts, with ``num_shards=4``:
-    the per-shard peaks, preemptions and placements included."""
+    each page range a pool of its own, written per shard, the kernels'
+    plain versions reading each shard's pool and merging) report the JAX
+    package's keys, and its counts, with ``num_shards=4``: the per-shard
+    peaks, preemptions and placements included."""
     from repro_torch.launch.mesh import make_sim_mesh
-    want = jserve.serve_workload(ARCH, "coopt", **SHARD_KW)
     got = serve.serve_workload(
         ARCH, "coopt", use_kernel=True, device="cpu", params=params,
-        mesh=make_sim_mesh(data=4, model=1) if mesh else None, **SHARD_KW)
+        mesh=make_sim_mesh(data=4, model=1, devices=["cpu"] * 4)
+        if mesh else None, **SHARD_KW)
     assert list(got) == list(want)
     for k in EQUAL:
         if k in want:

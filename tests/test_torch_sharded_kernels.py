@@ -62,10 +62,24 @@ TABLE = [[0, 5, 9, 13], [1, 2, 6, -1], [0, 11, 14, 15]]
 CACHE_LEN = [64, 50, 60]
 
 
+CPU = torch.device("cpu")
+
+
 @pytest.fixture(autouse=True)
 def _no_ctx():
     yield
     ops.set_mesh_ctx(None)
+
+
+def _ctx(n=4):
+    """A context of ``n`` shards, each a pool of its own on the CPU."""
+    return sharded.ShardCtx(devices=(CPU,) * n)
+
+
+def _split(pool, pages_dim, n=4):
+    """``pool`` as a ShardedPool of ``n`` CPU tensors (None stays None)."""
+    return None if pool is None else opt_kv.ShardedPool.split(
+        pool, [CPU] * n, pages_dim)
 
 
 def _hold_state(got, want, o_atol):
@@ -387,9 +401,10 @@ def test_sharded_decode_merge_matches_jax_unsharded(opt_kv_on):
                                 opt_kv=opt_kv_on, opt_gqa=True)
     tphys, tlog = opt_kv.decode_page_select(
         tcl, opt_kv.identity_page_table(2, 16), 8, opt_pa=True)
-    with ops.mesh_ctx_scope(sharded.ShardCtx(num_shards=4)):
-        out = ops.paged_pool_decode(tq, tkv, tsc, tcl, tphys, tlog,
-                                    opt_kv=opt_kv_on, opt_gqa=True)
+    with ops.mesh_ctx_scope(_ctx()):
+        out = ops.paged_pool_decode(tq, _split(tkv, 1), _split(tsc, 1), tcl,
+                                    tphys, tlog, opt_kv=opt_kv_on,
+                                    opt_gqa=True)
     tol = MERGE_TOL[opt_kv_on]
     np.testing.assert_allclose(_t2n(out), np.asarray(ref, np.float32),
                                atol=tol)
@@ -410,11 +425,12 @@ def test_sharded_visit_shards_match_per_lane_shards():
     ref = jopt_pa.paged_decode_attention(jq, jkv, jsc, jcl, coopt=coopt,
                                          page_table=jpt)
     tphys, tlog = opt_kv.decode_page_select(tcl, tpt, 8, opt_pa=True)
-    with ops.mesh_ctx_scope(sharded.ShardCtx(num_shards=4)):
-        on = ops.paged_pool_decode(tq, tkv, tsc, tcl, tphys, tlog,
+    skv, ssc = _split(tkv, 1), _split(tsc, 1)
+    with ops.mesh_ctx_scope(_ctx()):
+        on = ops.paged_pool_decode(tq, skv, ssc, tcl, tphys, tlog,
                                    opt_kv=True, opt_gqa=True,
                                    share_visits=True)
-        off = ops.paged_pool_decode(tq, tkv, tsc, tcl, tphys, tlog,
+        off = ops.paged_pool_decode(tq, skv, ssc, tcl, tphys, tlog,
                                     opt_kv=True, opt_gqa=True,
                                     share_visits=False)
     np.testing.assert_allclose(_t2n(on), _t2n(off), atol=1e-6)
@@ -436,8 +452,8 @@ def test_sharded_chunk_merge_matches_jax_unsharded():
                                                  use_kernel=False))
     jk = jops.paged_chunk_prefill(jq, jpos, jkv, None, jpt, opt_kv=False,
                                   opt_gqa=True)
-    with ops.mesh_ctx_scope(sharded.ShardCtx(num_shards=4)):
-        out = ops.paged_chunk_prefill(tq, tpos, tkv, None,
+    with ops.mesh_ctx_scope(_ctx()):
+        out = ops.paged_chunk_prefill(tq, tpos, _split(tkv, 1), None,
                                       opt_kv.identity_page_table(2, 16),
                                       opt_kv=False, opt_gqa=True)
     np.testing.assert_allclose(_t2n(out), np.asarray(ref, np.float32),
@@ -455,7 +471,8 @@ def test_sharded_latent_merge_matches_jax_unsharded(kind):
     jlat, jsc, tlat, tsc = _latent_pool(rng, P, PS, True)
     (jpt, tpt), (jcl, tcl) = _i32(TABLE), _i32(CACHE_LEN)
     kw = dict(sm_scale=SCALE, opt_kv=True)
-    ctx = sharded.ShardCtx(num_shards=4)
+    ctx = _ctx()
+    slat, slsc = _split(tlat, 0), _split(tsc, 0)
     if kind == "decode":
         ql = rng.standard_normal((3, H, R)).astype(np.float32)
         qr = rng.standard_normal((3, H, DR)).astype(np.float32)
@@ -466,7 +483,7 @@ def test_sharded_latent_merge_matches_jax_unsharded(kind):
                                         share_visits=True)
         with ops.mesh_ctx_scope(ctx):
             got = ops.paged_latent_decode(
-                torch.from_numpy(ql), torch.from_numpy(qr), tlat, tsc, tcl,
+                torch.from_numpy(ql), torch.from_numpy(qr), slat, slsc, tcl,
                 tphys, tlog, **kw, share_visits=True)
     else:
         ql = rng.standard_normal((3, 8, H, R)).astype(np.float32)
@@ -476,72 +493,218 @@ def test_sharded_latent_merge_matches_jax_unsharded(kind):
                                          jpos, jlat, jsc, jpt, **kw)
         with ops.mesh_ctx_scope(ctx):
             got = ops.latent_chunk_prefill(
-                torch.from_numpy(ql), torch.from_numpy(qr), tpos, tlat, tsc,
+                torch.from_numpy(ql), torch.from_numpy(qr), tpos, slat, slsc,
                 tpt, **kw)
     np.testing.assert_allclose(_t2n(got), np.asarray(want),
                                atol=LATENT_ATOL)
 
 
 def test_each_shard_reads_only_its_own_view(monkeypatch):
-    """The port's counterpart of the JAX package's no-pool-all-gather check:
-    every per-shard launch of the four reads receives a view that starts at
-    its shard's first page and holds exactly its shard's pages, never the
-    pool (by ``data_ptr`` and length), and tables with no page outside
-    it."""
+    """The port's counterpart of the JAX package's no-pool-all-gather check,
+    on pools of their own: every per-shard launch of the four reads
+    receives its own shard's tensor (by ``data_ptr``: shard s's allocation,
+    a tensor of exactly its pages, never a view of a whole pool) and a
+    table with no page outside that shard's range."""
     seen = []
 
-    def spy(mod, name, arg):             # arg: the pages' position
+    def spy(mod, name, arg, tab):        # the pages' and table's positions
         real = getattr(mod, name)
 
         def wrapped(*a, **kw):
-            seen.append((name, a[arg].data_ptr(), a[arg].shape[0]))
+            seen.append((name, a[arg].data_ptr(), a[arg].shape[0],
+                         int(a[tab].max())))
             return real(*a, **kw)
         monkeypatch.setattr(mod, name, wrapped)
-    for mod, name, arg in ((pd, "paged_pool_decode", 1),
-                           (pd, "paged_pool_decode_visits", 1),
-                           (fc, "flash_chunk_prefill", 2),
-                           (ld, "paged_latent_decode", 2),
-                           (ld, "paged_latent_decode_visits", 2),
-                           (lc, "latent_chunk_prefill", 3)):
-        spy(mod, name, arg)
+    for mod, name, arg, tab in ((pd, "paged_pool_decode", 1, 6),
+                                (pd, "paged_pool_decode_visits", 1, 6),
+                                (fc, "flash_chunk_prefill", 2, 6),
+                                (ld, "paged_latent_decode", 2, 5),
+                                (ld, "paged_latent_decode_visits", 2, 5),
+                                (lc, "latent_chunk_prefill", 3, 5)):
+        spy(mod, name, arg, tab)
     _, _, (tq, tkv, tsc) = _gqa_case(10)
     rng = np.random.default_rng(10)
     _, _, tlat, tlsc = _latent_pool(rng, P, PS, True)
+    skv, ssc, slat, slsc = (_split(tkv, 1), _split(tsc, 1),
+                            _split(tlat, 0), _split(tlsc, 0))
     tcl = torch.tensor(CACHE_LEN, dtype=torch.int32)
     tpt = torch.tensor(TABLE, dtype=torch.int32)
     phys, log = opt_kv.decode_page_select(tcl, tpt, PS)
     pos = torch.from_numpy(_chunk_inputs(False)[0].astype(np.int32))
     ql, qr = torch.randn(3, H, R), torch.randn(3, H, DR)
-    with ops.mesh_ctx_scope(sharded.ShardCtx(num_shards=4)):
+    with ops.mesh_ctx_scope(_ctx()):
         for v in (False, True):
-            ops.paged_pool_decode(tq, tkv, tsc, tcl, phys, log, opt_kv=True,
+            ops.paged_pool_decode(tq, skv, ssc, tcl, phys, log, opt_kv=True,
                                   opt_gqa=True, share_visits=v)
-            ops.paged_latent_decode(ql, qr, tlat, tlsc, tcl, phys, log,
+            ops.paged_latent_decode(ql, qr, slat, slsc, tcl, phys, log,
                                     sm_scale=SCALE, opt_kv=True,
                                     share_visits=v)
         ops.paged_chunk_prefill(torch.randn(3, 8, 8, 64).to(torch.bfloat16),
-                                pos, tkv, tsc, tpt, opt_kv=True,
+                                pos, skv, ssc, tpt, opt_kv=True,
                                 opt_gqa=True)
         ops.latent_chunk_prefill(torch.randn(3, 8, H, R),
-                                 torch.randn(3, 8, H, DR), pos, tlat, tlsc,
+                                 torch.randn(3, 8, H, DR), pos, slat, slsc,
                                  tpt, sm_scale=SCALE, opt_kv=True)
     assert len(seen) == 6 * 4
-    bases = {"gqa": (tkv[0].data_ptr(), tkv[0][0].nbytes),
-             "latent": (tlat.data_ptr(), tlat[0].nbytes)}
-    for i, (name, ptr, pages) in enumerate(seen):
-        base, page_bytes = bases["latent" if "latent" in name else "gqa"]
-        assert pages == P // 4, name
-        assert ptr == base + (i % 4) * (P // 4) * page_bytes, (name, i)
+    for i, (name, ptr, pages, top) in enumerate(seen):
+        shard = (slat.shards if "latent" in name else
+                 [t[0] for t in skv.shards])[i % 4]
+        assert pages == P // 4 and ptr == shard.data_ptr(), (name, i)
+        assert top < P // 4, (name, i, top)
+    ptrs = {p for _, p, _, _ in seen}
+    assert len(ptrs) == 8           # 4 K halves and 4 latent pools
 
 
 # ------------------------------------------------------------ writes ----
+WPS, WPT = 8, 16        # the write tests' pool: 16 pages of 8 lines
+
+
+def _jbytes(x):
+    return np.asarray(x).view(np.uint8)
+
+
+def _tbytes(t):
+    return t.contiguous().view(torch.uint8).numpy()
+
+
+def _write_slots(n):
+    """(2, 4) GLOBAL slots for a pool split into ``n`` shards: -1 twice,
+    shard 1's first line, a line of shard 0 and one of shard 1 (n = 4: of
+    shard 0), the pool's last line and one past the pool. No mid-pool
+    shard's last line is written."""
+    per = WPS * WPT // n
+    return np.asarray([[-1, per, 37, per - 2],
+                       [WPS * WPT - 1, WPS * WPT, 5, -1]], np.int32)
+
+
+def test_global_to_local_slots_matches_jax():
+    """``global_to_local_slots`` equals the JAX function on slots that
+    include -1, other shards' slots, the first and last line of every
+    shard and one past the pool, at 2 and 4 shards: a shard's own slots
+    become local lines, every other slot one past its range (never -1)."""
+    total = WPS * WPT
+    for n in (2, 4):
+        per = total // n
+        slots = np.asarray([[-1, total, total - 1, 0, 37]
+                            + [s * per for s in range(n)]
+                            + [s * per + per - 1 for s in range(n)]],
+                           np.int32)
+        for s in range(n):
+            got = opt_kv.global_to_local_slots(torch.from_numpy(slots),
+                                               s * per, per)
+            want = jopt_kv.global_to_local_slots(jnp.asarray(slots),
+                                                 s * per, per)
+            assert got.dtype == torch.int32
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+            own = (slots >= s * per) & (slots < (s + 1) * per)
+            assert np.all(got.numpy()[~own] == per)
+            assert np.all(got.numpy()[own] == slots[own] - s * per)
+
+
+@pytest.mark.parametrize("opt_kv_on", [True, False], ids=["fp8", "bf16"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_shard_local_writes_match_jax(n, opt_kv_on):
+    """The shard-local K1 path (its plain version) and latent write at
+    ``n`` shards, each shard a tensor of its own: every shard equals, byte
+    for byte, the JAX ``kv_pool_write``/``latent_pool_write`` body run on
+    that shard's slice without a mesh (``quantize_fp8``/
+    ``quantize_latent``, ``global_to_local_slots``, ``.at[].set(
+    mode="drop")``); concatenated, the shards equal the JAX global write's
+    live lines (its sentinel, the pool's last line, excluded); only the
+    written lines change, so the dropped slots leave every mid-pool
+    shard's last line as it was. The control, the global latent write run
+    on each shard with its local slots (it routes a dropped slot to the
+    tensor's last line), must change those lines."""
+    from repro.cache import quant as jquant
+    rng = np.random.default_rng(20 + n)
+    Hkv, D, pp = 2, 16, WPT // n
+    per, total = pp * WPS, WPT * WPS
+    slots = _write_slots(n)
+    (jsl, tsl) = _i32(slots)
+    written = sorted(x for x in slots.ravel().tolist() if 0 <= x < total)
+    mid_last = [s * per - 1 for s in range(1, n)]
+    coopt = JCOOPT.replace(opt_kv=opt_kv_on, use_kernel=False)
+
+    # K1's path
+    jkv, jsc, tkv, tsc = _pool(rng, WPT, WPS, Hkv, D, opt_kv_on)
+    jk, tk = _bf16(rng.standard_normal((2, 4, Hkv, D)).astype(np.float32)
+                   * 3)
+    jv, tv = _bf16(rng.standard_normal((2, 4, Hkv, D)).astype(np.float32))
+    skv, ssc = _split(tkv, 1, n), _split(tsc, 1, n)
+    with ops.mesh_ctx_scope(_ctx(n)):
+        ops.kv_cache_write(skv, ssc, tk, tv, tsl, opt_kv=opt_kv_on)
+    new = jnp.stack([jk, jv])
+    vals, scl = jquant.quantize_fp8(new, axis=-1) if opt_kv_on \
+        else (new, None)
+    for s in range(n):
+        ls = jopt_kv.global_to_local_slots(jsl, s * per, per)
+        want = jkv[:, s * pp:(s + 1) * pp].reshape(2, per, Hkv, D)
+        want = want.at[:, ls].set(vals.astype(want.dtype), mode="drop")
+        np.testing.assert_array_equal(_tbytes(skv.shards[s]).ravel(),
+                                      _jbytes(want).ravel())
+        if opt_kv_on:
+            wsc = jsc[:, s * pp:(s + 1) * pp].reshape(2, per, Hkv)
+            wsc = wsc.at[:, ls].set(scl, mode="drop")
+            np.testing.assert_array_equal(ssc.shards[s].numpy().ravel(),
+                                          np.asarray(wsc).ravel())
+    ref, _ = jopt_kv.write_kv(jkv, jsc, jk, jv, jsl, coopt)
+    cat = _tbytes(torch.cat(skv.shards, 1)).reshape(2, total, -1)
+    np.testing.assert_array_equal(cat[:, :-1],
+                                  _jbytes(ref).reshape(2, total, -1)[:, :-1])
+    changed = np.any(cat != _tbytes(tkv).reshape(2, total, -1), axis=(0, 2))
+    assert np.flatnonzero(changed).tolist() == written
+
+    # the latent write
+    jlat, jlsc, tlat, tlsc = _latent_pool(rng, WPT, WPS, opt_kv_on)
+    W = R + DR
+    jn, tn = _bf16(rng.standard_normal((2, 4, W)).astype(np.float32))
+    slat, slsc = _split(tlat, 0, n), _split(tlsc, 0, n)
+    with ops.mesh_ctx_scope(_ctx(n)):
+        ops.latent_pool_write(slat, slsc, tn, tsl, opt_kv=opt_kv_on,
+                              lora_rank=R)
+    lv, lsc = jquant.quantize_latent(jn, R) if opt_kv_on else (jn, None)
+    for s in range(n):
+        ls = jopt_kv.global_to_local_slots(jsl, s * per, per)
+        want = jlat[s * pp:(s + 1) * pp].reshape(per, W)
+        want = want.at[ls].set(lv.astype(want.dtype), mode="drop")
+        np.testing.assert_array_equal(_tbytes(slat.shards[s]).ravel(),
+                                      _jbytes(want).ravel())
+        if opt_kv_on:
+            wsc = jlsc[s * pp:(s + 1) * pp].reshape(per, 2)
+            wsc = wsc.at[ls].set(lsc, mode="drop")
+            np.testing.assert_array_equal(slsc.shards[s].numpy().ravel(),
+                                          np.asarray(wsc).ravel())
+    ref, _ = jops.latent_pool_write(jlat, jlsc, jn, jsl, opt_kv=opt_kv_on,
+                                    lora_rank=R)
+    cat = _tbytes(torch.cat(slat.shards, 0)).reshape(total, -1)
+    np.testing.assert_array_equal(cat[:-1],
+                                  _jbytes(ref).reshape(total, -1)[:-1])
+    before = _tbytes(tlat).reshape(total, -1)
+    changed = np.flatnonzero(np.any(cat != before, axis=1)).tolist()
+    assert changed == written
+    assert not set(mid_last) & set(changed)
+    # the control: the global rule on each shard (drops to its last line)
+    ctl = _split(tlat, 0, n)
+    ctl_sc = _split(tlsc, 0, n)
+    for s in range(n):
+        ops.latent_pool_write(ctl.shards[s], None if ctl_sc is None
+                              else ctl_sc.shards[s], tn,
+                              opt_kv.global_to_local_slots(tsl, s * per,
+                                                           per),
+                              opt_kv=opt_kv_on, lora_rank=R)
+    cat = _tbytes(torch.cat(ctl.shards, 0)).reshape(total, -1)
+    changed = np.flatnonzero(np.any(cat != before, axis=1)).tolist()
+    assert set(mid_last) <= set(changed)
+
+
 def test_write_under_a_context_is_the_global_write():
     """Under a shard context K1's path (the plain version here) and the
-    latent write stay the global writes: the pool changes only at the
-    written slots, its live lines equal the JAX jnp ``write_kv`` (the JAX
-    sentinel line, the pool's last, excluded), and the result equals the
-    write without a context."""
-    from repro_torch.cache.quant import quantize_latent
+    latent write are shard-local, and write what the global writes write:
+    the concatenated shards change only at the written slots and equal the
+    global write on one pool and the JAX jnp ``write_kv``'s live lines (the
+    JAX sentinel line, the pool's last, excluded). A dropped token (slot
+    -1) touches no line of any shard, where the global latent write puts it
+    on the pool's last line."""
     rng = np.random.default_rng(11)
     B, Hkv, D, ps, PT = 2, 4, 16, 8, 16
     kv = rng.standard_normal((2, PT, ps, Hkv, D)).astype(np.float32)
@@ -551,41 +714,45 @@ def test_write_under_a_context_is_the_global_write():
     ref, _ = jopt_kv.write_kv(jnp.asarray(kv), None, jnp.asarray(k_new),
                               jnp.asarray(v_new), jnp.asarray(slots),
                               JCOOPT.replace(opt_kv=False, use_kernel=False))
-    outs = []
-    for ctx in (sharded.ShardCtx(num_shards=4), None):
-        pool = torch.from_numpy(kv.copy())
-        with ops.mesh_ctx_scope(ctx):
-            ops.kv_cache_write(pool, None, torch.from_numpy(k_new),
-                               torch.from_numpy(v_new),
-                               torch.from_numpy(slots), opt_kv=False)
-        outs.append(pool)
-    assert torch.equal(outs[0], outs[1])
-    o = outs[0].numpy().reshape(2, PT * ps, Hkv, D)
+    one = torch.from_numpy(kv.copy())
+    ops.kv_cache_write(one, None, torch.from_numpy(k_new),
+                       torch.from_numpy(v_new), torch.from_numpy(slots),
+                       opt_kv=False)
+    pool = _split(torch.from_numpy(kv), 1)
+    with ops.mesh_ctx_scope(_ctx()):
+        ops.kv_cache_write(pool, None, torch.from_numpy(k_new),
+                           torch.from_numpy(v_new), torch.from_numpy(slots),
+                           opt_kv=False)
+    got = torch.cat(pool.shards, 1)
+    assert torch.equal(got, one)
+    o = got.numpy().reshape(2, PT * ps, Hkv, D)
     r = np.asarray(ref).reshape(2, PT * ps, Hkv, D)
     np.testing.assert_array_equal(o[:, :-1], r[:, :-1])
     changed = np.any(o != kv.reshape(2, PT * ps, Hkv, D), axis=(0, 2, 3))
     assert np.flatnonzero(changed).tolist() == [37]
-    # the latent pool: one slot on a mid-pool shard's last line boundary
+    # the latent pool: one slot on a mid-pool shard's last line, one dropped
+    from repro_torch.cache.quant import quantize_latent
     lat = rng.standard_normal((PT, ps, R + DR)).astype(np.float32)
     tq, tsc = quantize_latent(torch.from_numpy(lat), R)
     new = torch.from_numpy(rng.standard_normal((B, 1, R + DR))
                            .astype(np.float32))
     lslots = torch.tensor([[ps * PT // 4 - 1], [-1]], dtype=torch.int32)
-    lat_outs = []
-    for ctx in (sharded.ShardCtx(num_shards=4), None):
-        pool, sc = tq.clone(), tsc.clone()
-        with ops.mesh_ctx_scope(ctx):
-            ops.latent_pool_write(pool, sc, new, lslots, opt_kv=True,
-                                  lora_rank=R)
-        lat_outs.append((pool, sc))
-    assert torch.equal(lat_outs[0][0].view(torch.uint8),
-                       lat_outs[1][0].view(torch.uint8))
-    assert torch.equal(lat_outs[0][1], lat_outs[1][1])
-    flat = lat_outs[0][0].view(torch.uint8).reshape(PT * ps, -1)
+    g, gsc = tq.clone(), tsc.clone()
+    ops.latent_pool_write(g, gsc, new, lslots, opt_kv=True, lora_rank=R)
+    spool, ssc = _split(tq, 0), _split(tsc, 0)
+    with ops.mesh_ctx_scope(_ctx()):
+        ops.latent_pool_write(spool, ssc, new, lslots, opt_kv=True,
+                              lora_rank=R)
+    flat = torch.cat(spool.shards).view(torch.uint8).reshape(PT * ps, -1)
     before = tq.view(torch.uint8).reshape(PT * ps, -1)
+    gflat = g.view(torch.uint8).reshape(PT * ps, -1)
+    assert torch.equal(flat[:-1], gflat[:-1])
+    assert torch.equal(torch.cat(ssc.shards)[:-1], gsc[:-1])
     changed = torch.any(flat != before, dim=1).nonzero().flatten().tolist()
-    # the written slot, and the pool's last line (the dropped token's)
-    assert changed == [ps * PT // 4 - 1, PT * ps - 1]
+    assert changed == [ps * PT // 4 - 1]
+    # the global write also put the dropped token on the pool's last line
+    gchanged = torch.any(gflat != before, dim=1).nonzero().flatten()
+    assert gchanged.tolist() == [ps * PT // 4 - 1, PT * ps - 1]
 
 
 # ------------------------------------------------------- engine + mesh ----
@@ -645,4 +812,4 @@ def test_engine_derives_num_shards_from_mesh_and_rejects_conflict():
         EngineConfig(num_shards=4,
                      cache=CacheConfig(num_shards=2)).cache_config(64)
     with pytest.raises(ValueError, match="mesh is on"):
-        _engine(mesh=make_sim_mesh(data=4, device="meta"))
+        _engine(mesh=make_sim_mesh(data=4, devices=["meta"] * 4))
