@@ -129,6 +129,7 @@ from repro_torch.serving.request import FinishReason, Request, RequestState
 from repro_torch.serving.sampler import SamplingParams, sample
 from repro_torch.serving.scheduler import (PrefillChunk, Scheduler, StepPlan,
                                            bucket_len, chunk_pages, pack_rows)
+from repro_torch.serving.trace import StepRecorder
 
 
 @dataclass
@@ -190,6 +191,9 @@ class EngineStats:
     prefill_calls: int = 0
     decode_steps: int = 0
     mixed_steps: int = 0            # decode + prefill fused in one call
+    step_rows: int = 0              # query rows of every step, padding in
+    padded_rows: int = 0            # ..of them rows that write no slot
+                                    # (slot_idx == -1)
     generated_tokens: int = 0
     prefill_time: float = 0.0       # mixed-step wall time is split by
     decode_time: float = 0.0        # planned token share (Eq. 12 fairness)
@@ -198,7 +202,6 @@ class EngineStats:
     # cross-lane prefix sharing, per decode step, from the step's page table
     shared_page_visits: int = 0
     dup_page_streams_saved: int = 0
-    lanes_per_shared_page: Dict[int, int] = field(default_factory=dict)
     # per-request latency
     ttft_s: List[float] = field(default_factory=list)   # submit->1st token
     tpot_s: List[float] = field(default_factory=list)   # mean s/token after
@@ -572,6 +575,8 @@ class Engine:
         self.graph_pool_bytes = 0             # memory the captures reserved
         self.aot_misses = 0                   # async steps with no runner
         self.trace_counts: Dict[str, int] = {}  # runners built per kind
+        # the serving loop's spans and records (serving/trace.py); None: off
+        self.recorder: Optional[StepRecorder] = None
 
     # ---------------------------------------------------------- step bodies --
     def _forward(self, kind: str, batch, lane_mask: torch.Tensor):
@@ -850,9 +855,6 @@ class Engine:
         st = sharing_stats(rows)
         self.stats.shared_page_visits += st["shared_page_visits"]
         self.stats.dup_page_streams_saved += st["dup_page_streams_saved"]
-        hist = self.stats.lanes_per_shared_page
-        for k, n in st["lanes_per_shared_page"].items():
-            hist[k] = hist.get(k, 0) + n
 
     # ------------------------------------------------- recurrent snapshots --
     def _lane_index(self, leaf: str, lane: int):
@@ -1132,6 +1134,10 @@ class Engine:
         return logits
 
     def _book_time(self, sb: StepBatch, dt: float) -> None:
+        width = 1 if sb.kind == "decode" else sb.batch["slot_idx"].shape[1]
+        rows = sb.feed.size * width
+        self.stats.step_rows += rows
+        self.stats.padded_rows += rows - sb.tp - sb.td
         share = dt / max(sb.tp + sb.td, 1)
         if sb.tp:
             self.stats.prefill_time += share * sb.tp
@@ -1145,9 +1151,12 @@ class Engine:
     def _note_executed(self, sb: StepBatch) -> None:
         """Host metadata updates that must land before the NEXT plan is
         built and do not depend on sampled token values: advance prefill
-        progress, register prefix pages, snapshot recurrent state."""
+        progress, register prefix pages, snapshot recurrent state, stamp
+        the final prompt chunk's dispatch."""
         for c in sb.plan.prefill:
             self.scheduler.note_prefilled(c.req, c.n)
+            if c.final and c.req.last_chunk_time < 0:
+                c.req.last_chunk_time = time.perf_counter()
             if self._rec_leaves:
                 self._snapshot_state(c)
 
@@ -1221,15 +1230,24 @@ class Engine:
             self.faults.before_execute(sb)
         host = _host_inputs(sb)
         runner = self._runners.get(self._async_key(sb.kind, sb.batch))
+        rec = self.recorder
+        if rec is not None:
+            t = time.perf_counter()
         if runner is not None:
             runner.load(host, slot)
+            if rec is not None:
+                t = rec.span("load", t, "dispatch")
             logits, toks = runner.run()
+            if rec is not None:
+                rec.span("launch", t, "dispatch")
             inp = runner.inputs
         else:
             self.aot_misses += 1
             inp = {k: torch.as_tensor(v, device=self.device)
                    for k, v in host.items()}
             logits, toks = self._async_step(sb.kind, inp)
+            if rec is not None:
+                rec.span("launch_eager", t, "dispatch")
         if toks is None:
             toks = self._sample_device(logits)
             self.lane_tok.index_copy_(0, inp["scatter_lane"].long(),

@@ -52,6 +52,11 @@ Single process, two threads: the loop thread owns ALL scheduler, request
 and cache mutation and every launch; the emit worker only waits for events
 and reads the host ring.
 
+With ``engine.recorder`` set (a ``serving.trace.StepRecorder``) the loop
+and the worker keep their spans, each step's card time and each request's
+stamps in memory; it is None by default, and then each site costs one
+``is None`` test.
+
 Host-DRAM KV tier: its spills and prefetch uploads ride the SAME loop
 thread and the same stream. ``schedule_step`` ticks the engine's prefetch
 flights at the top of every turn and enqueues spill and upload copies
@@ -197,11 +202,14 @@ class AsyncEngine:
         self.watchdog_s = float(watchdog_s)
         self._submit_q: "queue.Queue[Tuple[Request, TokenStream]]" = \
             queue.Queue()
-        # (step, ring slot, shape of its sampled tokens); None stops
-        self._emit_q: "queue.Queue[Optional[Tuple[StepBatch, int, tuple]]]" \
-            = queue.Queue()
-        self._done_q: "queue.Queue[Tuple[StepBatch, object]]" = \
+        # (step, ring slot, shape of its sampled tokens, step id); None
+        # stops
+        self._emit_q: \
+            "queue.Queue[Optional[Tuple[StepBatch, int, tuple, int]]]" = \
             queue.Queue()
+        self._done_q: "queue.Queue[Tuple[StepBatch, object, int]]" = \
+            queue.Queue()
+        self._dispatched = 0                   # steps dispatched: the next id
         self._streams: Dict[int, TokenStream] = {}
         self._cancelled: set = set()           # req_ids pending release
         self._inflight_steps = 0
@@ -313,20 +321,25 @@ class AsyncEngine:
             item = self._emit_q.get()
             if item is None:
                 return
-            sb, slot, shape = item
+            sb, slot, shape, step = item
             try:
                 faults = self.engine.faults
                 if faults is not None:
                     faults.on_emit()
+                rec = self.engine.recorder
+                if rec is not None:
+                    t0 = time.perf_counter()
                 if self._events is not None:
                     self._events[slot].synchronize()
+                if rec is not None:
+                    rec.synced(step, slot, sb.tp > 0, t0)
                 n = int(np.prod(shape))
                 self._done_q.put((sb, self._ring[slot, :n].numpy()
-                                  .reshape(shape).copy()))
+                                  .reshape(shape).copy(), step))
             except WorkerKilled:
                 return                  # silent death: the watchdog fires
             except Exception as exc:
-                self._done_q.put((sb, exc))
+                self._done_q.put((sb, exc, step))
 
     # ---------------------------------------------------------------- loop --
     def _drain_submissions(self) -> None:
@@ -350,20 +363,25 @@ class AsyncEngine:
         their streams, retire finished requests. A blocking wait is
         bounded by ``watchdog_s``; its expiry means the pipeline is wedged
         (dead emit worker / hung device) and fails loudly."""
+        eng = self.engine
+        rec = eng.recorder
+        if rec is not None:
+            t0 = time.perf_counter()
         try:
             if block:
-                sb, toks = self._done_q.get(timeout=self.watchdog_s)
+                sb, toks, step = self._done_q.get(timeout=self.watchdog_s)
             else:
-                sb, toks = self._done_q.get(block=False)
+                sb, toks, step = self._done_q.get(block=False)
         except queue.Empty:
             if not block:
                 return False
             self._stall()               # drains + raises PipelineStallError
+        if rec is not None and block:
+            rec.span("emit_wait", t0, step=step)
         self._inflight_steps -= 1
         if isinstance(toks, BaseException):
             self._fail(toks)            # emit-worker fault, posted in-band
             return True
-        eng = self.engine
         now = time.perf_counter()
         finished: List[Request] = []
         for req, first, idx in sb.samples:
@@ -377,6 +395,8 @@ class AsyncEngine:
             if req.state is RequestState.FINISHED:
                 self._close_stream(req)
         eng._update_pool_stats()
+        if rec is not None:
+            rec.span("emit", now, step=step)
         return True
 
     def _close_stream(self, req: Request) -> None:
@@ -386,6 +406,9 @@ class AsyncEngine:
         stream = self._streams.pop(req.req_id, None)
         if stream is not None:
             stream.close()
+            rec = self.engine.recorder
+            if rec is not None:
+                rec.request(req)
         self._cancelled.discard(req.req_id)
 
     def _apply_cancels(self) -> None:
@@ -407,15 +430,28 @@ class AsyncEngine:
     def _dispatch_one(self) -> bool:
         """Build + dispatch ONE device step without waiting for results."""
         eng = self.engine
+        rec = eng.recorder
+        if rec is not None:
+            t0 = time.perf_counter()
         plan = eng.scheduler.schedule_step()
         if plan.empty:
             return False
+        step = self._dispatched
+        if rec is not None:
+            rec.step = step
+            t = rec.span("plan", t0, "dispatch")
         slot = self._next_slot
         if self._events is not None and not self._events[slot].query():
             raise RuntimeError(f"host ring slot {slot} reused before its "
                                "copy completed")
         sb = eng._build_step(plan, device_feed=True)
+        if rec is not None:
+            rec.span("build", t, "dispatch")
+            if self._events is not None:
+                rec.device_start(slot)
         toks = eng._dispatch_async(sb, slot)
+        if rec is not None and self._events is not None:
+            rec.device_end(slot)
         self._ring[slot, :toks.numel()].copy_(toks.reshape(-1),
                                               non_blocking=True)
         if self._events is not None:
@@ -427,7 +463,10 @@ class AsyncEngine:
         for req, _, _ in sb.samples:
             req.inflight += 1
         self._inflight_steps += 1
-        self._emit_q.put((sb, slot, tuple(toks.shape)))
+        self._emit_q.put((sb, slot, tuple(toks.shape), step))
+        self._dispatched = step + 1
+        if rec is not None:
+            rec.span("dispatch", t0)
         return True
 
     # ------------------------------------------------------- fault drain --

@@ -21,7 +21,10 @@ Latency anchors: ``submit_time`` is stamped when the CLIENT hands the
 request over (Engine.generate / AsyncEngine.submit — the TTFT anchor, so
 queue wait counts); ``enqueue_time`` when the scheduler queue receives it;
 ``admit_time`` at first lane admission (queue_wait = admit - submit);
-``prefill_time`` at first-token emission.
+``last_chunk_time`` at the dispatch of the step that carries the final
+prompt chunk (prefill = last_chunk - admit); ``prefill_time`` at
+first-token emission. The last three are stamped once and kept across
+preemptions.
 
 Terminal status: every request ends with a ``FinishReason`` — the
 STRUCTURED terminal status clients observe (``TokenStream.finish_reason``
@@ -116,6 +119,7 @@ class Request:
                                              # (TTFT / queue-wait anchor;
                                              # falls back to enqueue_time)
     admit_time: float = -1.0                 # first lane admission
+    last_chunk_time: float = -1.0            # final prompt chunk dispatched
     prefill_time: float = -1.0               # first-token timestamp (kept
                                              # across preemptions)
     finish_time: float = -1.0
