@@ -32,18 +32,6 @@ from repro_torch.training import (AdamWState, adamw_init,  # noqa: E402
 ARCH = "qwen3-4b-reduced"
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Under the suite's parallel workers torch's spinning intra-op pool
-    oversubscribes the cores (a 20-step reduced run went from 0.8 s alone
-    to 22 s beside two other workers); these small models are as fast on
-    one thread, so the module runs torch on one and restores the count."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _bits(x):
     """A leaf's bytes: a torch tensor's or a JAX array's."""
     if isinstance(x, torch.Tensor):

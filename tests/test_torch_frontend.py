@@ -54,18 +54,6 @@ def _ecfg(cls=EngineConfig, sp=SamplingParams, num_lanes=4, max_len=128,
                sampling=sp(temperature=temperature), seed=seed)
 
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The pipeline hands each step between two Python threads; on a
-    loaded machine (the suite's parallel workers) torch's spinning
-    intra-op pool starves those hand-offs, so these tests run torch on one
-    thread (the reduced model is as fast on it) and restore the count."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
 def _engine(num_lanes=4, max_len=128, seed=0, arch=ARCH, **kw):
     return Engine(get_config(arch), COOPT,
                   _ecfg(num_lanes=num_lanes, max_len=max_len, seed=seed,

@@ -46,7 +46,6 @@ from repro_torch.serving import (AsyncEngine, Engine, EngineConfig,  # noqa: E40
                                  FaultInjector, FaultPlan, FinishReason)
 from test_torch_resilience import (_assert_all_terminated,  # noqa: E402
                                    _assert_clean, _engine, _host_tier_kw,
-                                   _one_torch_thread,  # noqa: F401
                                    _shared_prefix_prompts)
 
 # the two packages' block managers and their configs

@@ -46,16 +46,6 @@ LOGIT_ATOL = 0.1
 NEAR_TIE = 0.1
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small models, as fast on one thread; under the suite's parallel
-    workers torch's spinning pool oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def weights():
     jparams = jget_model(jget_config(ARCH)).init(jax.random.PRNGKey(0))

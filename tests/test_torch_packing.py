@@ -52,18 +52,6 @@ LOGIT_ATOL = 0.1
 PACK_TOL = 2e-3
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The async cases hand each step between two Python threads; under
-    the suite's parallel workers torch's spinning intra-op pool starves
-    those hand-offs (tests/test_torch_frontend.py), so the file runs torch
-    on one thread and restores the count."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _ecfg(cls, sp, pack, num_lanes=4, temperature=0.0, seed=0):
     return cls(num_lanes=num_lanes, max_len=128,
                prefill_buckets=(32, 64, 128),

@@ -56,18 +56,6 @@ NEAR_TIE = 0.1
 ENGINE_MODES = [("coopt", True), ("original", False)]
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The async cell hands each step between two Python threads; under the
-    suite's parallel workers torch's intra-op pool starves those hand-offs
-    (tests/test_torch_frontend.py), so the module runs torch on one
-    thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _cfgs(arch, head_dim=None):
     cfg, jcfg = get_config(arch), jget_config(arch)
     if head_dim:

@@ -42,18 +42,6 @@ from repro_torch.serving.sampler import SamplingParams  # noqa: E402
 CFG = get_config("qwen3-4b-reduced")
 
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The pipeline hands each step between two Python threads; on a
-    loaded machine (the suite's parallel workers) torch's spinning
-    intra-op pool starves those hand-offs, so these tests run torch on one
-    thread (the reduced model is as fast on it) and restore the count."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
 def _engine(num_lanes=4, max_len=128, seed=0, **kw):
     ecfg = EngineConfig(num_lanes=num_lanes, max_len=max_len,
                         prefill_buckets=(32, 64, 128),

@@ -40,17 +40,6 @@ COOPT = MODES["coopt"].replace(use_kernel=True)
 CPU4 = ["cpu"] * 4
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The async pipeline hands each step between two threads; torch on
-    one thread keeps the hand-offs prompt under parallel test workers (as
-    in tests/test_torch_frontend.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _ecfg(cls, **kw):
     return cls(num_lanes=4, max_len=256, prefill_buckets=(32, 64, 128),
                **kw)

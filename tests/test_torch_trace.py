@@ -20,16 +20,6 @@ from repro_torch.serving.trace import StepRecorder  # noqa: E402
 ARCH = "qwen3-4b-reduced"
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """As in test_torch_frontend.py: the pipeline's two threads hand steps
-    to each other, which torch's spinning intra-op pool would starve."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _serve(recorder=None, warmup=True, device="cpu", pack=False):
     """Serve five prompts of 5-100 tokens, 6 new tokens each, the last two
     submitted once the first three are running; returns the engine, the

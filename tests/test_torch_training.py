@@ -75,18 +75,6 @@ ROUTE_TIE = 2 ** -9
 B, S = 2, 32
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Under the suite's parallel workers torch's spinning intra-op pool
-    oversubscribes the cores (a 20-step reduced run went from 0.8 s alone
-    to 22 s beside two other workers); these small models are as fast on
-    one thread, so the module runs torch on one and restores the count."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _batch(cfg, seed=0):
     """A ``TrainPipeline`` batch, with bf16-exact random patches (vlm) or
     frames (whisper) as f32 numpy."""

@@ -34,7 +34,6 @@ from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.models.whisper import WhisperModel  # noqa: E402
 from repro_torch.serving import AsyncEngine, Engine, EngineConfig  # noqa: E402
 from test_torch_families import _record  # noqa: E402
-from test_torch_resilience import _one_torch_thread  # noqa: E402,F401
 
 ARCH = "whisper-small-reduced"
 # The other families' logit bound (tests/test_torch_recurrent.py and
