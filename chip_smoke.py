@@ -905,8 +905,9 @@ def kernel_phase(torch, rec, time_ms):
 
 
 def latent_decode_step(torch, rec, time_ms, key, lat, sc, table, cache_len,
-                       H, lat_d=None, q=None, timed_plain=True):
-    """K5 and K7 on one decode step of deepseek-v2-lite's widths over the
+                       H, lat_d=None, q=None, timed_plain=True, dn=128):
+    """K5 and K7 on one decode step of deepseek-v2-lite's widths (``H``
+    heads, query heads of ``dn`` + dr: glm-4.7-flash's 20 and 192) over the
     fp8 latent pool ``lat``/``sc``: K5 within the f32 tolerance of its plain
     version beside a control (each lane's last key masked off) that must
     fail, K7 bit-identical to K5; then each kernel's time, the bound of the
@@ -925,7 +926,7 @@ def latent_decode_step(torch, rec, time_ms, key, lat, sc, table, cache_len,
     B, NP = table.shape
     _, ps, W = lat.shape
     R, dr = 512, W - 512                        # deepseek-v2-lite's R
-    sm_scale = 1.0 / (128 + dr) ** 0.5          # 1/sqrt(dn + dr), dn 128
+    sm_scale = 1.0 / (dn + dr) ** 0.5
     if q is None:
         gen = torch.Generator(device=dev).manual_seed(7)
         q = (torch.randn((B, H, R), generator=gen, device=dev),
@@ -1009,7 +1010,7 @@ def latent_decode_step(torch, rec, time_ms, key, lat, sc, table, cache_len,
         ms = time_ms(fn)
         fn()                                    # the grid of this shape
         torch.cuda.synchronize()
-        k = ld.kernel_info(R, dr, True, visit_list, dev)
+        k = ld.kernel_info(R, dr, True, visit_list, dev, heads=H)
         summary[name] = dict(ms=ms, bound_share=bnd["bound_ms"] / ms,
                              own_bound_ms=own["bound_ms"],
                              own_bound_share=own["bound_ms"] / ms,
@@ -1067,7 +1068,9 @@ def latent_long_case(torch, rec, time_ms):
 
 def latent_phase(torch, rec, time_ms):
     """K5 and K7 alone (``--only latent``, for comparing trees): the kernel
-    phase's decode shape on a pool of its own, then the long shape."""
+    phase's decode shape on a pool of its own, the same at glm-4.7-flash's
+    20 heads (two 16-row groups a lane, ``rec["latent_h20"]``), then the
+    long shape."""
     from repro_torch.cache.quant import quantize_latent
     dev = torch.device(DEV)
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -1081,6 +1084,13 @@ def latent_phase(torch, rec, time_ms):
                              device=dev)
     latent_decode_step(torch, rec, time_ms, "latent", lat, sc, table,
                        cache_len, H, timed_plain=False)
+    pt = table.long()
+    lat_d = (torch.cat([lat[pt][..., :R].float() * sc[pt][..., 0:1],
+                        lat[pt][..., R:].float() * sc[pt][..., 1:2]], -1)
+             .to(torch.bfloat16).reshape(B, 1, NP * ps, R + dr))
+    rec["latent_h20_kernels"] = latent_decode_step(
+        torch, rec, time_ms, "latent_h20", lat, sc, table, cache_len, 20,
+        lat_d, dn=192)
     latent_long_case(torch, rec, time_ms)
 
 

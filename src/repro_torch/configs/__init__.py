@@ -6,7 +6,10 @@ The port serves every architecture of the JAX package: the dense family
 the MLA family (deepseek-v2-lite), the MoE family (mixtral-8x22b), the vlm
 family (internvl2-2b), the recurrent families griffin (recurrentgemma-9b)
 and rwkv6 (rwkv6-7b), and the encoder-decoder whisper (whisper-small).
-An unknown id raises ``KeyError``.
+Beside them, ``PORT_IDS`` are architectures the port serves that the JAX
+package has none of (glm-4.7-flash); ``get_config`` finds them too, and
+``ARCH_IDS`` / ``ALL_IDS`` stay the JAX package's lists. An unknown id
+raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -31,22 +34,26 @@ _ARCH_MODULES = {
     "llama13b-gptq": "llama13b_gptq",
 }
 
+# the port's own architectures (none in the JAX package)
+_PORT_MODULES = {
+    "glm-4.7-flash": "glm_4_7_flash",
+}
+
 # the assigned architectures (the paper's model apart)
 ARCH_IDS = [k for k in _ARCH_MODULES if k != "llama13b-gptq"]
 ALL_IDS = list(_ARCH_MODULES)
+PORT_IDS = list(_PORT_MODULES)
 
 
 def get_config(arch_id: str) -> ModelConfig:
     if arch_id.endswith("-reduced"):
         return reduced(get_config(arch_id[: -len("-reduced")]))
-    try:
-        mod = importlib.import_module(
-            f"repro_torch.configs.{_ARCH_MODULES[arch_id]}")
-    except KeyError:
-        raise KeyError(f"unknown arch {arch_id!r}; "
-                       f"known: {sorted(_ARCH_MODULES)}") from None
-    return mod.CONFIG
+    module = _ARCH_MODULES.get(arch_id) or _PORT_MODULES.get(arch_id)
+    if module is None:
+        raise KeyError(f"unknown arch {arch_id!r}; known: "
+                       f"{sorted(_ARCH_MODULES) + PORT_IDS}")
+    return importlib.import_module(f"repro_torch.configs.{module}").CONFIG
 
 
 __all__ = ["ALL_IDS", "ARCH_IDS", "CacheConfig", "InputShape", "ModelConfig",
-           "SHAPES", "get_config", "get_shape", "reduced"]
+           "PORT_IDS", "SHAPES", "get_config", "get_shape", "reduced"]

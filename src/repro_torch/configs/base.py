@@ -2,6 +2,9 @@
 
 The same frozen ``ModelConfig`` / ``CacheConfig`` as the JAX package, field
 for field, so a config built by either package describes the same model.
+Two router fields (``router_score``, ``routed_scaling``) are the port's
+own (``PORT_ONLY_FIELDS``); their defaults are the JAX package's routing, so a config of its architectures
+equals its config on every shared field and holds them at the defaults.
 ``family`` selects the implementation in ``repro_torch.models.registry``;
 this port serves the ``dense`` family (llama-style GQA decoders), the
 ``moe`` family (GQA + routed experts, mixtral), the ``mla`` family (latent
@@ -42,6 +45,11 @@ class ModelConfig:
     top_k: int = 0
     moe_d_ff: int = 0
     first_dense_layers: int = 0
+    # the router, port only (the JAX package routes by softmax alone): the
+    # defaults are its routing
+    router_score: str = "softmax"    # "softmax" | "sigmoid" (with a
+                                     # per-expert bias that picks, not weighs)
+    routed_scaling: float = 1.0      # the routed experts' weights times this
 
     # -- MLA (deepseek-v2) -------------------------------------------------
     kv_lora_rank: int = 0
@@ -95,6 +103,10 @@ class ModelConfig:
         routed experts only."""
         from repro_torch.models.registry import get_model
         return get_model(self).active_param_count()
+
+
+# fields the JAX package's ModelConfig does not have, with their defaults
+PORT_ONLY_FIELDS = {"router_score": "softmax", "routed_scaling": 1.0}
 
 
 @dataclass(frozen=True)
@@ -156,8 +168,12 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
                   num_shared_experts=min(cfg.num_shared_experts, 1),
                   first_dense_layers=min(cfg.first_dense_layers, 1))
     if cfg.family == "mla":
-        kw.update(kv_lora_rank=64, q_lora_rank=0, qk_nope_head_dim=64,
-                  qk_rope_head_dim=32, v_head_dim=64)
+        # a low-rank query keeps one of its own, and a value width apart
+        # from the query's stays apart
+        kw.update(kv_lora_rank=64, q_lora_rank=min(cfg.q_lora_rank, 96),
+                  qk_nope_head_dim=64, qk_rope_head_dim=32,
+                  v_head_dim=64 if cfg.v_head_dim == cfg.qk_nope_head_dim
+                  else 96)
     if cfg.family == "griffin":
         kw.update(num_layers=3, lru_width=256, local_window=64)
     if cfg.family == "whisper":

@@ -23,14 +23,17 @@
 // bytes (~20), far below the bf16 tensor cores' (~295), on which they run.
 //
 // Design: a split-page decode on the latent tile of csrc/latent_mma.cuh.
-//   Rows     A lane's H absorbed heads are the rows of one 16-row group of
-//            `lmma::WarpTile` (rows at or past H zero), CW warps a group (R
-//            512: 4 warps of 128 latent columns; R 64: 1). q enters as 3
-//            bf16 terms, P' = p * sc0 as 2, fp8 -> bf16 exact, each key's
-//            scales after the MMA; masked probabilities are hard-zeroed.
-//   Grid     K5 (B, splits): a block is one lane's group. K7 (ceil(B /
-//            LANES), splits): a block holds LANES lanes' groups (R 512: 2,
-//            8 warps; R 64: 8). Split z covers the table slots [z * slots,
+//   Rows     A lane's H absorbed heads are the rows of HG = ceil(H / 16)
+//            16-row groups of `lmma::WarpTile` (head group j holds heads
+//            16 j.., rows at or past H zero; HG 1 up to 16 heads, 2 up to
+//            32), CW warps a group (R 512: 4 warps of 128 latent columns;
+//            R 64: 1). q enters as 3 bf16 terms, P' = p * sc0 as 2, fp8 ->
+//            bf16 exact, each key's scales after the MMA; masked
+//            probabilities are hard-zeroed.
+//   Grid     K5 (B, splits): a block is one lane's HG groups. K7 (ceil(B /
+//            LANES), splits): a block holds LANES lanes' groups, LANES = 8
+//            warps / (CW * HG) (R 512: 2 at HG 1, 1 at HG 2; R 64: 8, 4).
+//            Split z covers the table slots [z * slots,
 //            (z + 1) * slots), `slots` from the wrapper's `latent_splits`
 //            (the same for both kernels, at most kMaxSplits splits); K7's
 //            split covers the visits [s0 * B, s1 * B), which plan_visits'
@@ -43,8 +46,9 @@
 //            staged by cp.async, converted once per block and tile into the
 //            swizzled bf16 tile, and the next raw tile is in flight while
 //            this one computes; a bf16 pool is staged straight into the
-//            tile. Each member group updates its rows from the one staged
-//            tile; a non-member group leaves its rows as they are.
+//            tile. Each group of a member lane updates its rows from the
+//            one staged tile (a lane's head groups read the same tile); a
+//            non-member lane's groups leave their rows as they are.
 //   Merge    The splits of a lane (K7: of a block's lanes) run as one
 //            thread-block cluster. Each block keeps its rows' (acc, m, l)
 //            in its own shared memory; after the cluster's barrier block z
@@ -60,7 +64,8 @@
 // A row's arithmetic depends only on its own lane's tiles in slot order,
 // on (R, dr, ps) and on the split boundaries, never on which lanes share
 // its block (an MMA output row reads only its own A row), so K7 is
-// bit-identical to K5 under any split count.
+// bit-identical to K5 under any split count. At HG 1 the code is the one
+// of 16 heads a lane (the head group's offset is the constant 0).
 #include <cooperative_groups.h>
 
 #include "latent_mma.cuh"
@@ -180,10 +185,10 @@ __device__ __noinline__ void merge_splits(float* __restrict__ out, float* __rest
   cluster.sync();               // every block done reading the others' state
 }
 
-template <int R, int DR, int CW, int LANES, typename KVT, bool VISITS>
-__global__ void __launch_bounds__(LANES * CW * 32, 1)
+template <int R, int DR, int CW, int LANES, int HG, typename KVT, bool VISITS>
+__global__ void __launch_bounds__(LANES * HG * CW * 32, 1)
 latent_decode_kernel(LatentDecodeArgs a) {
-  constexpr int WARPS = LANES * CW;
+  constexpr int WARPS = LANES * HG * CW;
   using G = Geo<R, DR, CW, WARPS>;
   constexpr int W = G::W, WS = G::WS;
   constexpr bool kFp8 = sizeof(KVT) == 1;
@@ -191,10 +196,11 @@ latent_decode_kernel(LatentDecodeArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ int2 live_list[kMaxLive];   // live entries: (page, lpage << 8 | members)
   __shared__ int n_live, e_next;
-  __shared__ int lens[LANES];            // the groups' lane lengths (0: no lane)
+  __shared__ int lens[LANES];            // the lanes' lengths (0: no lane)
   const uint32_t base = mma::smem_addr(smem);
   const uint32_t tile = base, qs = base + SM::q;
   const int tid = threadIdx.x, lane = tid & 31, grp = (tid >> 5) / CW;
+  const int li = grp / HG, hg = grp % HG;       // the group's lane, head group
   const int z = blockIdx.y;
   const int b0 = blockIdx.x * LANES;            // the block's first lane
   const int ps = a.ps;
@@ -253,7 +259,8 @@ latent_decode_kernel(LatentDecodeArgs a) {
   if (n_live > 0) stage(0, 0);
   // q's terms load while the first tile is in flight
   WarpTile<R, DR, CW, WARPS> wt;
-  wt.init(a.q_lat, a.q_rope, (long long)(b0 + grp) * a.H, 0, b0 + grp < a.B ? a.H : 0, qs);
+  wt.init(a.q_lat, a.q_rope, (long long)(b0 + li) * a.H, hg * 16, b0 + li < a.B ? a.H : 0,
+          qs);
   for (;;) {
     const int total = n_live << sh;
     for (int t = 0, buf = 0; t < total; ++t, buf ^= 1) {
@@ -267,11 +274,11 @@ latent_decode_kernel(LatentDecodeArgs a) {
         if (t + 1 < total) stage(t + 1, buf ^ 1);
       }
       const int meta = live_list[t >> sh].y;
-      const LatentDecodeMask mk(meta >> 8, ps, lens[grp], a.window, a.sink);
-      // a member group updates; a tile wholly past its lane's length is an
-      // exact identity update (every score masked), not skipped: the skip's
-      // registers spill
-      if ((meta >> grp) & 1) {
+      const LatentDecodeMask mk(meta >> 8, ps, lens[li], a.window, a.sink);
+      // a member lane's groups update; a tile wholly past its lane's length
+      // is an exact identity update (every score masked), not skipped: the
+      // skip's registers spill
+      if ((meta >> li) & 1) {
         const LatentDecodeMask mks[2] = {mk, mk};
         wt.template update<kFp8>(tile, qs, base + SM::sc + buf * kKeys * 8, base + SM::part, j0,
                                  nk, mk.all(j0, nk), mks, scale_log2);
@@ -288,51 +295,64 @@ latent_decode_kernel(LatentDecodeArgs a) {
     if (n_live > 0) stage(0, 0);
   }
 
-  // the lane, split and lane group read anew (see sreg_tid)
-  const int g = (sreg_tid() >> 5) / CW, b = sreg_ctaid_x() * LANES + g;
+  // the group, its lane and head group read anew (see sreg_tid)
+  const int g = (sreg_tid() >> 5) / CW, gl = g / HG, h0 = g % HG * 16;
+  const int b = sreg_ctaid_x() * LANES + gl;
   if (gridDim.y == 1) {
-    if (b < a.B) wt.store(a.out, (long long)b * a.H, 0, a.H, a.m_out, a.l_out);
+    if (b < a.B) wt.store(a.out, (long long)b * a.H, h0, a.H, a.m_out, a.l_out);
     return;
   }
   float* st_acc = reinterpret_cast<float*>(smem);   // (LANES * H, R); free after the loop
   float* st_ml = st_acc + LANES * a.H * R;          // (LANES * H, 2)
-  if (b < a.B) wt.store_state(st_acc + g * a.H * R, st_ml + g * a.H * 2, 2, a.H);
+  const int r0 = gl * a.H + h0;                     // the group's first row
+  if (b < a.B) wt.store_state(st_acc + r0 * R, st_ml + r0 * 2, 2, a.H - h0);
   merge_splits<R, LANES>(a.out, a.m_out, a.l_out, st_acc, st_ml, a.B, a.H);
 }
 
-// One instantiation: CW warps a lane's group, LANES lanes a block, the pool
-// type and the kernel (K5: one lane a block; K7: as many as 8 warps hold).
-template <int R_, int DR_, int CW_, typename KVT_, bool VISITS_>
+// One instantiation: CW warps a 16-row group, HG groups a lane (ceil(H /
+// 16)), LANES lanes a block, the pool type and the kernel (K5: one lane a
+// block; K7: as many as 8 warps hold).
+template <int R_, int DR_, int CW_, int HG_, typename KVT_, bool VISITS_>
 struct Inst {
-  static constexpr int R = R_, DR = DR_, CW = CW_;
+  static constexpr int R = R_, DR = DR_, CW = CW_, HG = HG_;
   static constexpr bool VISITS = VISITS_;
-  static constexpr int LANES = VISITS_ ? 8 / CW_ : 1;
+  static constexpr int LANES = VISITS_ ? 8 / (CW_ * HG_) : 1;
   using KVT = KVT_;
 };
 
+template <int R, int DR, int CW, int HG, typename F>
+int dispatch_pool(int opt_kv, bool visits, F&& f) {
+  if (visits)
+    return opt_kv ? f(Inst<R, DR, CW, HG, fp8_t, true>{})
+                  : f(Inst<R, DR, CW, HG, __nv_bfloat16, true>{});
+  return opt_kv ? f(Inst<R, DR, CW, HG, fp8_t, false>{})
+                : f(Inst<R, DR, CW, HG, __nv_bfloat16, false>{});
+}
+
+template <int R, int DR, int CW, typename F>
+int dispatch_heads(int H, int opt_kv, bool visits, F&& f) {
+  if (H >= 1 && H <= 16) return dispatch_pool<R, DR, CW, 1>(opt_kv, visits, f);
+  if (H > 16 && H <= 32) return dispatch_pool<R, DR, CW, 2>(opt_kv, visits, f);
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename F>
-int dispatch(int R, int dr, int opt_kv, bool visits, F&& f) {
-  if (R == 512 && dr == 64) {   // a group of 4 warps, 128 latent columns each
-    if (visits)
-      return opt_kv ? f(Inst<512, 64, 4, fp8_t, true>{}) : f(Inst<512, 64, 4, __nv_bfloat16, true>{});
-    return opt_kv ? f(Inst<512, 64, 4, fp8_t, false>{}) : f(Inst<512, 64, 4, __nv_bfloat16, false>{});
-  }
-  if (R == 64 && dr == 32) {    // a group of 1 warp
-    if (visits)
-      return opt_kv ? f(Inst<64, 32, 1, fp8_t, true>{}) : f(Inst<64, 32, 1, __nv_bfloat16, true>{});
-    return opt_kv ? f(Inst<64, 32, 1, fp8_t, false>{}) : f(Inst<64, 32, 1, __nv_bfloat16, false>{});
-  }
+int dispatch(int R, int dr, int H, int opt_kv, bool visits, F&& f) {
+  if (R == 512 && dr == 64)     // a group of 4 warps, 128 latent columns each
+    return dispatch_heads<512, 64, 4>(H, opt_kv, visits, f);
+  if (R == 64 && dr == 32)      // a group of 1 warp
+    return dispatch_heads<64, 32, 1>(H, opt_kv, visits, f);
   return (int)cudaErrorInvalidValue;
 }
 
 template <class I>
 auto kernel_of() {
-  return latent_decode_kernel<I::R, I::DR, I::CW, I::LANES, typename I::KVT, I::VISITS>;
+  return latent_decode_kernel<I::R, I::DR, I::CW, I::LANES, I::HG, typename I::KVT, I::VISITS>;
 }
 
 template <class I>
 constexpr int smem_of() {
-  return Smem<I::R, I::DR, I::CW, I::LANES * I::CW, sizeof(typename I::KVT) == 1>::kBytes;
+  return Smem<I::R, I::DR, I::CW, I::LANES * I::HG * I::CW, sizeof(typename I::KVT) == 1>::kBytes;
 }
 
 // blocks and splits of this instantiation's last launch
@@ -341,13 +361,13 @@ int g_last[2] = {0, 0};
 
 template <class I>
 int launch(const LatentDecodeArgs& a, int splits, cudaStream_t st) {
-  using G = Geo<I::R, I::DR, I::CW, I::LANES * I::CW>;
+  using G = Geo<I::R, I::DR, I::CW, I::LANES * I::HG * I::CW>;
   // the merge keeps a block's rows' state in the dynamic shared memory
   const int rows = I::LANES * a.H;
-  if (splits < 1 || splits > kMaxSplits || a.H > 16 ||
+  if (splits < 1 || splits > kMaxSplits || a.H > 16 * I::HG ||
       rows * (I::R + 2 + kMaxSplits + 1) * 4 > smem_of<I>())
     return (int)cudaErrorInvalidValue;
-  static_assert(G::kRows == 16 * I::LANES, "a lane a group");
+  static_assert(G::kRows == 16 * I::LANES * I::HG, "HG groups a lane");
   const auto kernel = kernel_of<I>();
   // always opt in: the static list sits on top of the dynamic bytes
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -356,7 +376,7 @@ int launch(const LatentDecodeArgs& a, int splits, cudaStream_t st) {
   const int groups = (a.B + I::LANES - 1) / I::LANES;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(groups, splits);
-  cfg.blockDim = dim3(I::LANES * I::CW * 32);
+  cfg.blockDim = dim3(I::LANES * I::HG * I::CW * 32);
   cfg.dynamicSmemBytes = smem_of<I>();
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
@@ -384,7 +404,7 @@ int describe(int* info) {
   cudaFuncAttributes fa;
   const cudaError_t e = cudaFuncGetAttributes(&fa, kernel_of<I>());
   if (e != cudaSuccess) return (int)e;
-  const int v[9] = {I::LANES, I::LANES * I::CW * 32, smem_of<I>(), fa.numRegs,
+  const int v[9] = {I::LANES, I::LANES * I::HG * I::CW * 32, smem_of<I>(), fa.numRegs,
                     (int)fa.localSizeBytes, kQTerms, kPTerms, g_last<I>[0],
                     g_last<I>[1]};
   for (int i = 0; i < 9; ++i) info[i] = v[i];
@@ -407,7 +427,7 @@ extern "C" int paged_latent_decode(
                            out, m_out, l_out, B, H, ps, nsel, window, sink, slots,
                            sm_scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dispatch(R, dr, opt_kv, false, [&](auto inst) {
+  return dispatch(R, dr, H, opt_kv, false, [&](auto inst) {
     return launch<decltype(inst)>(a, splits_of(nsel, slots), st);
   });
 }
@@ -423,14 +443,15 @@ extern "C" int paged_latent_decode_visits(
                            visit_lanes, out, m_out, l_out, B, H, ps, nsel, window, sink,
                            slots, sm_scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dispatch(R, dr, opt_kv, true, [&](auto inst) {
+  return dispatch(R, dr, H, opt_kv, true, [&](auto inst) {
     return launch<decltype(inst)>(a, splits_of(nsel, slots), st);
   });
 }
 
 // The instantiation that K5 (visits 0) or K7 (visits 1) runs for (R, dr,
-// opt_kv): info[0..8] as `describe`.
-extern "C" int paged_latent_decode_info(int R, int dr, int opt_kv, int visits, int* info) {
-  return dispatch(R, dr, opt_kv, visits != 0,
+// H, opt_kv): info[0..8] as `describe`.
+extern "C" int paged_latent_decode_info(int R, int dr, int H, int opt_kv, int visits,
+                                        int* info) {
+  return dispatch(R, dr, H, opt_kv, visits != 0,
                   [&](auto inst) { return describe<decltype(inst)>(info); });
 }

@@ -68,7 +68,7 @@ _ARGTYPES = {
     "flash_chunk_prefill": [_P] * 13 + [_I] * 11 + [_F, _P],
     "paged_latent_decode": [_P] * 10 + [_I] * 10 + [_F, _P],
     "paged_latent_decode_visits": [_P] * 11 + [_I] * 10 + [_F, _P],
-    "paged_latent_decode_info": [_I] * 4 + [ctypes.POINTER(_I)],
+    "paged_latent_decode_info": [_I] * 5 + [ctypes.POINTER(_I)],
     "latent_chunk_prefill": [_P] * 12 + [_I] * 10 + [_F, _P],
     "latent_chunk_prefill_info": [_I, _I, _I, ctypes.POINTER(_I)],
     "flash_prefill": [_P] * 4 + [_I] * 8 + [_F, _P],

@@ -26,7 +26,9 @@ splits as one thread-block cluster and merge their (m, l, acc) in
 ascending order through the cluster's shared memory in the same launch,
 which moves their f32 sums by rounding only. K7 takes every 1 < B <= 32
 that the Pallas K7 serves: its blocks hold a fixed number of lanes,
-whatever B. Both take at most MAX_HEADS heads (one 16-row MMA group).
+whatever B. Both take at most MAX_HEADS heads: a lane's heads are
+ceil(H / 16) 16-row MMA groups of one block, which read each staged page
+tile once (up to 16 heads the kernels are those of one group).
 
 ``return_state=True`` (the page-range sharded layer, ``kernels.sharded``)
 returns ``(o_lat, m, l)``: each row's final online-softmax max (natural
@@ -52,8 +54,9 @@ LATENT_WIDTHS = ((512, 64), (64, 32))
 # splits a lane at most: a lane's splits are one thread-block cluster, 8
 # blocks at most (the portable cluster size; csrc kMaxSplits)
 _MAX_SPLITS = 8
-# heads a lane at most: one 16-row MMA group holds a lane's heads
-MAX_HEADS = 16
+# heads a lane at most: two 16-row MMA groups of one block hold a lane's
+# heads (csrc HG)
+MAX_HEADS = 32
 
 _SMS: dict = {}
 
@@ -323,12 +326,13 @@ KERNEL_INFO = ("lanes_per_block", "threads", "smem_bytes", "registers",
 
 
 def kernel_info(R: int, dr: int, opt_kv: bool, visits: bool,
-                device=None) -> dict:
+                device=None, heads: int = 16) -> dict:
     """The K5 (``visits`` False) or K7 kernel that runs for (R, dr,
-    opt_kv), as the loaded library reports it: lanes and threads a block,
+    opt_kv) at ``heads`` heads, as the loaded library reports it: lanes
+    and threads a block,
     dynamic shared bytes, registers and local bytes (spills and stack) a
     thread, the bf16 terms of q and of P' = p * sc0, and the blocks and
     splits of that kernel's last launch."""
     return cuda.info("paged_latent_decode", "paged_latent_decode_info",
-                     KERNEL_INFO, R, dr, int(opt_kv), int(visits),
+                     KERNEL_INFO, R, dr, heads, int(opt_kv), int(visits),
                      device=device)

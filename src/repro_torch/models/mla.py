@@ -37,7 +37,12 @@ def mla_query(x, p, cfg, positions):
     """x (B,S,d) -> q_nope (B,S,H,dn), q_rope (B,S,H,dr) (rotated)."""
     H, dn, dr = cfg.num_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     B, S, _ = x.shape
-    q = linear(x, p["wq"]).reshape(B, S, H, dn + dr)
+    if cfg.q_lora_rank:         # low-rank query: W_qb RMSNorm(W_qa x)
+        q = linear(rmsnorm(linear(x, p["wq_a"]), p["q_a_norm"], cfg.norm_eps),
+                   p["wq_b"])
+    else:
+        q = linear(x, p["wq"])
+    q = q.reshape(B, S, H, dn + dr)
     return q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
 
 

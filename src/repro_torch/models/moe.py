@@ -2,8 +2,12 @@
 the JAX package's ``models/moe.py``.
 
 Routing is computed per batch row (capacity C = ceil(S * top_k / E * cf),
-clipped to S): each token's top-k experts by softmax probability (ties to
-the lower expert index, as ``jax.lax.top_k``), renormalised; tokens queue
+clipped to S, ``capacity``): each token's top-k experts by softmax
+probability (ties to the lower expert index, as ``jax.lax.top_k``),
+renormalised. The port's sigmoid mode (glm-4.7-flash, DeepSeek-V3's
+``noaux_tc``) scores sigmoid(logits) instead, picks the top-k of scores +
+a per-expert correction bias, and weighs the picked experts by their
+unbiased scores, renormalised and times ``scaling``. Tokens queue
 per expert in sequence order, and those beyond capacity are dropped. The
 dispatched tokens run through the expert SwiGLU as batched matmuls
 ((B, E, C, d) x (E, d, ff)) and are scattered back with their router
@@ -29,18 +33,39 @@ class MoEAux(NamedTuple):
     dropped_fraction: torch.Tensor
 
 
+def capacity(S: int, top_k: int, num_experts: int,
+             capacity_factor: float) -> int:
+    """Slots an expert has in a batch row of S tokens."""
+    return min(max(int(math.ceil(S * top_k / num_experts * capacity_factor)),
+                   1), S)
+
+
 def _route(logits: torch.Tensor, top_k: int, capacity: int,
-           with_aux: bool = False):
+           with_aux: bool = False, score: str = "softmax", bias=None,
+           scaling: float = 1.0):
     """logits (B,S,E) -> (idx (B,E,C) token positions, S = empty slot;
     comb (B,E,C) f32 router weights of the token in each slot), and with
-    ``with_aux`` the ``MoEAux`` terms as a third element."""
+    ``with_aux`` the ``MoEAux`` terms as a third element. ``score``
+    "sigmoid": the top-k of sigmoid(logits) + ``bias`` (E,) f32 picks the
+    experts, their unbiased scores renormalised times ``scaling`` weigh
+    them."""
     B, S, E = logits.shape
     dev = logits.device
-    probs = torch.softmax(logits.float(), dim=-1)
-    # a stable descending sort keeps equal probabilities in index order
-    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
-    top_p, top_e = top_p[..., :top_k], top_e[..., :top_k]      # (B,S,K)
-    top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+    if score == "softmax":
+        probs = torch.softmax(logits.float(), dim=-1)
+        # a stable descending sort keeps equal probabilities in index order
+        top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+        top_p, top_e = top_p[..., :top_k], top_e[..., :top_k]  # (B,S,K)
+        top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+    elif score == "sigmoid":
+        probs = torch.sigmoid(logits.float())
+        pick = probs if bias is None else probs + bias.float()
+        top_e = torch.sort(pick, dim=-1, descending=True,
+                           stable=True).indices[..., :top_k]
+        top_p = torch.gather(probs, -1, top_e)
+        top_p = top_p / top_p.sum(dim=-1, keepdim=True) * scaling
+    else:
+        raise ValueError(f"unknown router score {score!r}")
 
     onehot = torch.nn.functional.one_hot(top_e, E).float()     # (B,S,K,E)
     mask = onehot.sum(dim=2)                                   # (B,S,E) 0/1
@@ -74,19 +99,23 @@ def _route(logits: torch.Tensor, top_k: int, capacity: int,
 
 
 def moe_ffn(x, wr, wg, wu, wd, *, top_k: int, capacity_factor: float = 1.25,
-            shared: Optional[tuple] = None, with_aux: bool = False):
+            shared: Optional[tuple] = None, with_aux: bool = False,
+            score: str = "softmax", bias=None, scaling: float = 1.0):
     """x (B,S,d); wr (d,E); wg/wu (E,d,ff); wd (E,ff,d); shared: optional
-    (wg_s, wu_s, wd_s) always-on shared-expert SwiGLU. Returns (B,S,d) in
-    x's dtype, and with ``with_aux`` (out, ``MoEAux``)."""
+    (wg_s, wu_s, wd_s) always-on shared-expert SwiGLU; ``score``, ``bias``
+    (E,) and ``scaling`` as ``_route``. Returns (B,S,d) in x's dtype, and
+    with ``with_aux`` (out, ``MoEAux``)."""
     B, S, d = x.shape
     E = wr.shape[-1]
-    capacity = max(int(math.ceil(S * top_k / E * capacity_factor)), 1)
-    capacity = min(capacity, S)
-
-    if with_aux:
-        idx, comb, aux = _route(linear(x, wr), top_k, capacity, with_aux=True)
-    else:
-        idx, comb = _route(linear(x, wr), top_k, capacity)
+    cap = capacity(S, top_k, E, capacity_factor)
+    # the sigmoid router's logits in f32, as the published code computes
+    # them (the scores' spread is narrow, so bf16 logits flip the choice);
+    # passed without a name, so they are freed before the experts run
+    routed = _route(
+        x.float() @ wr.float() if score == "sigmoid" else linear(x, wr),
+        top_k, cap, with_aux=with_aux, score=score, bias=bias,
+        scaling=scaling)
+    idx, comb = routed[:2]
     x_pad = torch.cat([x, torch.zeros((B, 1, d), dtype=x.dtype,
                                       device=x.device)], dim=1)
     rows = torch.arange(B, device=x.device)[:, None, None]
@@ -103,4 +132,4 @@ def moe_ffn(x, wr, wg, wu, wd, *, top_k: int, capacity_factor: float = 1.25,
     out = out[:, :S]
     if shared is not None:
         out = out + swiglu(x, *shared)
-    return (out.to(x.dtype), aux) if with_aux else out.to(x.dtype)
+    return (out.to(x.dtype), routed[2]) if with_aux else out.to(x.dtype)

@@ -87,8 +87,14 @@ class TransformerModel:
         if cfg.family == "mla":
             dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
             R, dv = cfg.kv_lora_rank, cfg.v_head_dim
-            s.update(wq=((L, d, H * (dn + dr)), "normal", bf),
-                     w_dkv=((L, d, R + dr), "normal", bf),
+            if cfg.q_lora_rank:     # q = W_qb RMSNorm(W_qa x)
+                Rq = cfg.q_lora_rank
+                s.update(wq_a=((L, d, Rq), "normal", bf),
+                         q_a_norm=((L, Rq), "ones", f32),
+                         wq_b=((L, Rq, H * (dn + dr)), "normal", bf))
+            else:
+                s.update(wq=((L, d, H * (dn + dr)), "normal", bf))
+            s.update(w_dkv=((L, d, R + dr), "normal", bf),
                      kv_norm=((L, R), "ones", f32),
                      w_uk=((L, R, H * dn), "normal", bf),
                      w_uv=((L, R, H * dv), "normal", bf),
@@ -119,8 +125,10 @@ class TransformerModel:
                      wd=((L, ff, d), "normal", bf))
             return s
         E, ff = cfg.num_experts, cfg.moe_d_ff
-        s.update(wr=((L, d, E), "normal", bf),
-                 wg_e=((L, E, d, ff), "normal", bf),
+        s.update(wr=((L, d, E), "normal", bf))
+        if cfg.router_score == "sigmoid":       # its correction bias
+            s.update(wr_bias=((L, E), "embed", f32))
+        s.update(wg_e=((L, E, d, ff), "normal", bf),
                  wu_e=((L, E, d, ff), "normal", bf),
                  wd_e=((L, E, ff, d), "normal", bf))
         if cfg.num_shared_experts:
@@ -342,7 +350,8 @@ class TransformerModel:
         return moe_ffn(x, p["wr"], p["wg_e"], p["wu_e"], p["wd_e"],
                        top_k=cfg.top_k, shared=shared,
                        capacity_factor=coopt.moe_capacity_factor,
-                       with_aux=with_aux)
+                       with_aux=with_aux, score=cfg.router_score,
+                       bias=p.get("wr_bias"), scaling=cfg.routed_scaling)
 
     def _write_layer(self, kv_c, sc_c, new_a, new_b, slots, coopt):
         """Write one layer's cache entries (GLOBAL flat slots; < 0 dropped).

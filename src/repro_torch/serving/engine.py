@@ -124,6 +124,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.sharded import canonical_device, cards
 from repro_torch.kernels.visits import sharing_stats
 from repro_torch.models import get_model
+from repro_torch.models.moe import capacity as moe_capacity
 from repro_torch.models.transformer import check_device
 from repro_torch.serving.request import FinishReason, Request, RequestState
 from repro_torch.serving.sampler import SamplingParams, sample
@@ -194,6 +195,11 @@ class EngineStats:
     step_rows: int = 0              # query rows of every step, padding in
     padded_rows: int = 0            # ..of them rows that write no slot
                                     # (slot_idx == -1)
+    # the MoE layers' expert slots (B x E x capacity at the step's row
+    # width, each layer) and the (real token, routed expert) pairs they
+    # were offered (tokens x top_k, each layer)
+    moe_slots: int = 0
+    moe_pairs: int = 0
     generated_tokens: int = 0
     prefill_time: float = 0.0       # mixed-step wall time is split by
     decode_time: float = 0.0        # planned token share (Eq. 12 fairness)
@@ -1138,6 +1144,14 @@ class Engine:
         rows = sb.feed.size * width
         self.stats.step_rows += rows
         self.stats.padded_rows += rows - sb.tp - sb.td
+        cfg = self.cfg
+        if cfg.num_experts:
+            layers = cfg.num_layers - cfg.first_dense_layers
+            cap = moe_capacity(width, cfg.top_k, cfg.num_experts,
+                               self.coopt.moe_capacity_factor)
+            self.stats.moe_slots += layers * rows // width * \
+                cfg.num_experts * cap
+            self.stats.moe_pairs += layers * (sb.tp + sb.td) * cfg.top_k
         share = dt / max(sb.tp + sb.td, 1)
         if sb.tp:
             self.stats.prefill_time += share * sb.tp

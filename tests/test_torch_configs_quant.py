@@ -25,17 +25,27 @@ from repro_torch.cache import quant  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.configs import ALL_IDS, CacheConfig, get_config  # noqa: E402
 from repro_torch.configs import paper_models  # noqa: E402
+from repro_torch.configs.base import PORT_ONLY_FIELDS  # noqa: E402
 from repro_torch.core import coopt, opt_gqa  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.serving import sampler  # noqa: E402
 
 
+def _shared_fields(cfg):
+    """The port's config on the JAX package's fields, after checking that
+    the port's own router fields (``PORT_ONLY_FIELDS``) stand at their
+    defaults, the JAX package's routing."""
+    fields = dataclasses.asdict(cfg)
+    assert {k: fields.pop(k) for k in PORT_ONLY_FIELDS} == PORT_ONLY_FIELDS
+    return fields
+
+
 @pytest.mark.parametrize("arch", [a + s for a in ALL_IDS
                                   for s in ("", "-reduced")])
 def test_configs_agree_field_for_field(arch):
     mine, ref = get_config(arch), jget_config(arch)
-    assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+    assert _shared_fields(mine) == dataclasses.asdict(ref)
     assert mine.q_per_kv == ref.q_per_kv
     assert mine.param_count() == ref.param_count()
 
@@ -58,7 +68,7 @@ def test_unported_arch_raises():
     package knows raises ``KeyError`` in both."""
     for arch in ("whisper-small", "whisper-small-reduced"):
         mine, ref = get_config(arch), jget_config(arch)
-        assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+        assert _shared_fields(mine) == dataclasses.asdict(ref)
     assert (mine.encoder_layers, mine.num_frames) == (2, 32)
     for get in (get_config, jget_config):
         with pytest.raises(KeyError, match="unknown arch"):
@@ -81,11 +91,11 @@ def test_paper_models_agree_field_for_field(name):
     parameter counts."""
     mine, ref = paper_models.PAPER_MODELS[name], jpaper.PAPER_MODELS[name]
     assert list(paper_models.PAPER_MODELS) == list(jpaper.PAPER_MODELS)
-    assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+    assert _shared_fields(mine) == dataclasses.asdict(ref)
     for kw in ({}, dict(layer_div=4, width_div=8, vocab=1024)):
         b, jb = paper_models.bench_reduced(mine, **kw), \
             jpaper.bench_reduced(ref, **kw)
-        assert dataclasses.asdict(b) == dataclasses.asdict(jb)
+        assert _shared_fields(b) == dataclasses.asdict(jb)
         assert b.param_count() == jb.param_count()
     assert mine.active_param_count() == ref.active_param_count()
 

@@ -528,6 +528,11 @@ _LATENT_CASES = {
     "long_list": (2, 600, 8, 16, 1),   # one split of 600 live slots: the
                                        # block lists them in two rounds
     "r64_5_splits": (4, 10, 16, 4, 9),    # 64 columns in 5 slices
+    # past 16 heads: two 16-row groups a lane (glm-4.7-flash's 20 heads,
+    # and the most, 32), in one split and in three
+    "h20": (4, 6, 32, 20, None), "h32": (4, 6, 32, 32, None),
+    "h20_ragged_splits": (4, 7, 32, 20, 9),
+    "h20_b32": (32, 3, 32, 20, None),
 }
 
 
@@ -535,7 +540,7 @@ def _latent_tables(case, shared, dev):
     B, NP, ps, _, _ = _LATENT_CASES[case]
     table = torch.arange(B * NP, device=dev, dtype=torch.int32).reshape(B, NP)
     cl = [NP * ps - (b * 29) % (NP * ps // 2) for b in range(B)]
-    if case in ("base", "one_split", "dead_lane", "h4"):
+    if case in ("base", "one_split", "dead_lane", "h4", "h20", "h32"):
         cl = [NP * ps, 150, 70, 33]
     if shared:
         if case == "b32":
@@ -566,7 +571,11 @@ def _latent_tables(case, shared, dev):
        (64, 32, True, 48, 1, True, "window_split")]
     + [(64, 32, kv, 0, 0, True, c) for c in ("ragged_splits", "b17", "b32",
                                              "ps128", "h4", "r64_5_splits")
-       for kv in (True, False)])
+       for kv in (True, False)]
+    + [(R, dr, kv, 0, 0, sh, c) for R, dr in ((512, 64), (64, 32))
+       for c in ("h20", "h32", "h20_ragged_splits", "h20_b32")
+       for kv, sh in ((True, True), (False, False))]
+    + [(512, 64, True, 48, 1, True, "h20")])
 def test_latent_decode_kernels(dev, monkeypatch, R, dr, opt_kv, window, sink,
                                shared, case):
     """K5 vs its plain version within LAT_RTOL/LAT_ATOL; K7 bit-identical
@@ -656,6 +665,66 @@ def test_latent_decode_routes_every_visit_plan_to_k7(dev, B):
     assert torch.equal(got, k5)
 
 
+@pytest.mark.parametrize("H", [20, 32])
+@pytest.mark.parametrize("opt_kv", [True, False])
+def test_latent_decode_past_16_heads(dev, monkeypatch, H, opt_kv):
+    """K5 and K7 at 20 and 32 heads (two 16-row groups a lane), at
+    glm-4.7-flash's widths (R 512, dr 64, sm_scale (192 + 64)^-1/2) and
+    in four splits: against the flat oracle of ``kernels/ref.py`` within
+    one bf16 ulp (RTOL/ATOL) and within the latent kernels' f32 tolerance,
+    while the oracle with each lane's last key masked off fails the bf16
+    rule; K7 equals K5 bit for bit; each is one launch of one block a
+    lane (K7 too: 8 warps hold one lane's two groups), 256 threads, no
+    spills."""
+    from repro_torch.kernels import paged_latent_decode as ld
+    from repro_torch.kernels import ref
+    monkeypatch.setitem(ld._SMS, torch.device(
+        "cuda", torch.cuda.current_device()), 16)
+    B, NP, ps, R, dr = 4, 12, 64, 512, 64
+    lat, sc = _latent_pool(dev, B * NP + 1, ps, R, dr, opt_kv)
+    table = torch.arange(B * NP, device=dev, dtype=torch.int32).reshape(B, NP)
+    table[1:3, :3] = table[0, :3]
+    cl = torch.tensor([NP * ps, 700, 430, 65], dtype=torch.int32, device=dev)
+    phys, log = decode_page_select(cl, table, ps)
+    ql, qr = _latent_q(dev, (B, H, R), dr)
+    kw = dict(sm_scale=(192 + 64) ** -0.5, opt_kv=opt_kv)
+    cuda.reset_launches()
+    k5 = ld.paged_latent_decode(ql, qr, lat, sc, cl, phys, log, **kw)
+    k7 = ld.paged_latent_decode_visits(ql, qr, lat, sc, cl,
+                                       *visits.plan_visits(phys, log), **kw)
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    oracle = ref.paged_latent_decode_ref(ql, qr, lat, sc, cl, phys, log, **kw)
+    control = ref.paged_latent_decode_ref(ql, qr, lat, sc, cl - 1, phys, log,
+                                          **kw)
+    _assert_close(k5, oracle)
+    torch.testing.assert_close(k5, oracle, rtol=LAT_RTOL, atol=LAT_ATOL)
+    with pytest.raises(AssertionError):
+        _assert_close(k5, control)
+    assert torch.equal(k7, k5)
+    assert launches["paged_latent_decode"] == 1
+    assert launches["paged_latent_decode_visits"] == 1
+    for visit_list in (False, True):
+        info = ld.kernel_info(R, dr, opt_kv, visit_list, dev, heads=H)
+        assert (info["lanes_per_block"], info["threads"]) == (1, 256)
+        assert info["last_splits"] == 4 and info["last_blocks"] == B * 4
+        assert info["local_bytes"] == 0 and 0 < info["registers"] <= 255
+
+
+@pytest.mark.parametrize("opt_kv", [True, False])
+def test_latent_decode_refuses_more_than_32_heads(dev, opt_kv):
+    from repro_torch.kernels import paged_latent_decode as ld
+    B, NP, ps, R, dr = 2, 2, 32, 512, 64
+    lat, sc = _latent_pool(dev, B * NP, ps, R, dr, opt_kv)
+    table = torch.arange(B * NP, device=dev, dtype=torch.int32).reshape(B, NP)
+    cl = torch.full((B,), NP * ps, dtype=torch.int32, device=dev)
+    phys, log = decode_page_select(cl, table, ps)
+    ql, qr = _latent_q(dev, (B, 33, R), dr)
+    with pytest.raises(ValueError, match="33 heads > 32"):
+        ld.paged_latent_decode(ql, qr, lat, sc, cl, phys, log, sm_scale=0.07,
+                               opt_kv=opt_kv)
+
+
 def _latent_chunk_layout(case, dev, R, dr, packed):
     """(B, NP, ps, H, S, table, positions, packing planes) of a K6 case.
     "small": a 40-token chunk lane at [100, 140) and decode lanes at 60 and
@@ -676,6 +745,7 @@ def _latent_chunk_layout(case, dev, R, dr, packed):
     i32 = dict(dtype=torch.int32, device=dev)
     B, NP, ps, H, S = {"small": (3, 5, 32, 16, 40),
                        "engine64": (4, 16, 64, 16, 512),
+                       "engine64_h20": (4, 16, 64, 20, 512),
                        "engine128": (4, 8, 128, 16, 512),
                        "h4": (3, 6, 32, 4, 100),
                        "ragged": (3, 4, 64, 4, 41),
@@ -684,7 +754,7 @@ def _latent_chunk_layout(case, dev, R, dr, packed):
     table = torch.arange(B * NP, **i32).reshape(B, NP)
     pos = torch.empty((B, S), **i32)
     planes = {}
-    if case in ("engine64", "engine128"):
+    if case in ("engine64", "engine128", "engine64_h20"):
         pos[0] = torch.arange(512, 1024, **i32)
         for b, n in ((1, 1000), (2, 980), (3, 1010)):
             pos[b] = n - 1
@@ -730,6 +800,8 @@ def _latent_chunk_layout(case, dev, R, dr, packed):
     # rows that see no page
     + [(kv, w, False, 512, 64, c) for c in ("engine64", "engine128")
        for kv, w in ((True, 0), (False, 0), (True, 300))]
+    # glm-4.7-flash's 20 heads: rows s * 20 + h over the mixed step
+    + [(kv, 0, False, 512, 64, "engine64_h20") for kv in (True, False)]
     + [(kv, w, False, 64, 32, "h4") for kv, w in ((True, 0), (False, 40))]
     + [(True, 0, False, 512, 64, "ragged"), (False, 40, False, 512, 64, "ragged")]
     + [(kv, 0, False, 512, 64, c) for c in ("future", "decode")

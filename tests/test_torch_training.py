@@ -119,7 +119,7 @@ class _PinRoutes:
     def __exit__(self, *exc):
         moe._route = self.orig
 
-    def __call__(self, logits, top_k, capacity, with_aux=False):
+    def __call__(self, logits, top_k, capacity, with_aux=False, **scoring):
         probs = torch.softmax(logits.detach().float(), -1).numpy()
         ref = min((r for r in self.ref if r.shape == probs.shape),
                   key=lambda r: np.abs(r - probs).max())
@@ -137,7 +137,8 @@ class _PinRoutes:
                 continue
             self.pinned.append(gap)
             logits[b, s, [out[0], inn[0]]] = logits[b, s, [inn[0], out[0]]]
-        return self.orig(logits, top_k, capacity, with_aux=with_aux)
+        return self.orig(logits, top_k, capacity, with_aux=with_aux,
+                         **scoring)
 
 
 def _jax_run(arch, jparams, jb, mode="coopt"):
